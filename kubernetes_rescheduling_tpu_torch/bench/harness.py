@@ -1,0 +1,57 @@
+"""Scenario factory — the port of ``make_backend`` from
+``kubernetes_rescheduling_tpu.bench.harness`` for the synthetic meshes.
+
+Same ``default_rng(seed)`` call sequence as the JAX package: one seed
+builds the identical cluster in both packages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kubernetes_rescheduling_tpu_torch._device import DEFAULT_DEVICE
+from kubernetes_rescheduling_tpu_torch.backends.sim import LoadModel, SimBackend
+from kubernetes_rescheduling_tpu_torch.core.topology import _random_workmodel
+
+SCENARIOS = ("dense", "powerlaw", "large")
+
+
+def make_backend(
+    scenario: str, seed: int, device: str | torch.device | None = DEFAULT_DEVICE
+) -> SimBackend:
+    """Scenario factory: ``dense`` (200 services × 20 nodes), ``powerlaw``
+    (2k × 200) and ``large`` (the 10k × 1k north star)."""
+    rng = np.random.default_rng(seed)
+    # synthetic meshes: fanout_frac ≈ 1/(mean forward out-degree) keeps the
+    # expected request branching factor at ~1
+    if scenario == "dense":
+        return SimBackend(
+            workmodel=_random_workmodel(200, rng, powerlaw=False, mean_degree=8.0),
+            node_names=[f"worker{i:04d}" for i in range(20)],
+            node_cpu_cap_m=20_000.0,
+            seed=seed,
+            load=LoadModel(idle_m=40.0, cost_per_req_m=5.0, fanout_frac=0.25),
+            device=device,
+        )
+    if scenario == "powerlaw":
+        return SimBackend(
+            workmodel=_random_workmodel(2000, rng, powerlaw=True, mean_degree=4.0),
+            node_names=[f"worker{i:04d}" for i in range(200)],
+            node_cpu_cap_m=20_000.0,
+            seed=seed,
+            load=LoadModel(fanout_frac=0.5),
+            device=device,
+        )
+    if scenario == "large":
+        return SimBackend(
+            workmodel=_random_workmodel(10_000, rng, powerlaw=True, mean_degree=4.0),
+            node_names=[f"worker{i:04d}" for i in range(1000)],
+            node_cpu_cap_m=2_000.0,
+            seed=seed,
+            load=LoadModel(
+                entry_rps=10.0, cost_per_req_m=0.1, idle_m=50.0, fanout_frac=0.5
+            ),
+            device=device,
+        )
+    raise ValueError(f"unknown scenario {scenario!r} (known: {', '.join(SCENARIOS)})")

@@ -1,0 +1,105 @@
+"""The port stands alone: it never imports jax or the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "kubernetes_rescheduling_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "kubernetes_rescheduling_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if name in ("import_module", "__import__") and node.args:
+                arg = node.args[0]
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    yield arg.value
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = (
+        "import sys, kubernetes_rescheduling_tpu_torch\n"
+        "import kubernetes_rescheduling_tpu_torch.cli, kubernetes_rescheduling_tpu_torch.convert\n"
+        "import kubernetes_rescheduling_tpu_torch.solver.global_solver\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.harness\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_no_port_file_imports_jax():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = {
+        str(p.relative_to(REPO)): mods
+        for p in files
+        if (mods := [m for m in _imported_modules(p) if _forbidden(m)])
+    }
+    assert not bad
+
+
+def test_chip_smoke_alone_fails_without_the_package(tmp_path):
+    """Copied alone into an empty directory, the smoke script cannot find
+    the port and exits non-zero without printing a result (on a box
+    without a card it stops even earlier)."""
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def _entry_points():
+    from kubernetes_rescheduling_tpu_torch import cli, convert
+    from kubernetes_rescheduling_tpu_torch.bench.harness import make_backend
+    from kubernetes_rescheduling_tpu_torch.core import topology
+    from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
+
+    return {
+        "make_backend": lambda: make_backend("dense", 0),
+        "synthetic_scenario": lambda: topology.synthetic_scenario(n_pods=20, n_nodes=4),
+        "powerlaw_2000x200": lambda: topology.powerlaw_2000x200(),
+        "ClusterState.build": lambda: ClusterState.build(
+            node_names=["a"], node_cpu_cap=[1.0], node_mem_cap=[1.0], pod_services=[0],
+            pod_nodes=[0], pod_cpu=[1.0], pod_mem=[1.0],
+        ),
+        "CommGraph.from_relation": lambda: CommGraph.from_relation({"a": ["b"]}),
+        "graph_from_arrays": lambda: convert.graph_from_arrays(
+            {"adj": [[0.0]], "service_valid": [True]}
+        ),
+        "cli solve": lambda: cli.main(["solve", "--scenario", "dense"]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(name):
+    """Called without a device on a machine with no card, an entry point
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()

@@ -1,0 +1,228 @@
+"""The port's chunk-step kernels, through their plain versions on the CPU,
+against the JAX package's Pallas kernels in interpret mode and its XLA twin.
+
+The same seeded numpy inputs go to both packages. Decisions (``new_node``,
+``admitted``, ``x_rows``), the noise mixer and the neighbor mass must be
+EXACTLY equal; the per-node load deltas agree to atol 1e-4, as in the JAX
+package's own test (tests/test_ops.py), because f32 sums of non-integer
+loads may associate differently.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubernetes_rescheduling_tpu.ops import fused_admission as jfa
+from kubernetes_rescheduling_tpu_torch.ops import fused_admission as tfa
+
+
+def random_instance(seed, C=64, N=128, tight=False):
+    """The JAX package's ``tests/test_ops.py`` instance, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    M = rng.integers(0, 6, size=(C, N)).astype(np.float32)  # frequent exact ties
+    cur = rng.integers(0, N, size=C).astype(np.int32)
+    c_cpu = (rng.integers(1, 5, size=C) * 100.0).astype(np.float32)
+    c_mem = (rng.integers(0, 3, size=C) * 1e6).astype(np.float32)
+    valid_c = rng.random(C) < 0.9
+    cap_val = 2_000.0 if tight else 50_000.0
+    cap = np.full((N,), cap_val, np.float32)
+    cpu_load = rng.uniform(0, cap_val * 0.8, N).astype(np.float32)
+    mem_cap = np.full((N,), 1e9, np.float32)
+    mem_load = rng.uniform(0, 1e8, N).astype(np.float32)
+    node_valid = rng.random(N) < 0.95
+    return [M, cur, c_cpu, c_mem, valid_c, cpu_load, mem_load, cap, mem_cap, node_valid]
+
+
+def as_jax(args):
+    return [jnp.asarray(a) for a in args]
+
+
+def as_torch(args):
+    return [torch.as_tensor(a) for a in args]
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("tight", [False, True])
+# block_c=48 does not divide C=64: the last tile is partial
+@pytest.mark.parametrize("block_c", [32, 48])
+def test_score_admission_matches_jax(seed, tight, block_c):
+    args = random_instance(seed, tight=tight)
+    j_node, j_adm, j_rows, j_dc, j_dm = jfa.fused_score_admission(
+        *as_jax(args), 0.5, 0.0, seed, interpret=True, block_c=block_c,
+        enforce_capacity=True, use_noise=False,
+    )
+    t_node, t_adm, t_rows, t_dc, t_dm = tfa.fused_score_admission(
+        *as_torch(args), 0.5, 0.0, seed, block_c=block_c,
+        enforce_capacity=True, use_noise=False,
+    )
+    np.testing.assert_array_equal(t_node.numpy(), np.asarray(j_node))
+    np.testing.assert_array_equal(t_adm.numpy(), np.asarray(j_adm))
+    np.testing.assert_array_equal(t_rows.float().numpy(), np.asarray(j_rows, np.float32))
+    np.testing.assert_allclose(t_dc.numpy(), np.asarray(j_dc), atol=1e-4)
+    np.testing.assert_allclose(t_dm.numpy(), np.asarray(j_dm), atol=1e-4)
+    # and both plain twins agree with the fused lowering
+    r_node, r_adm = tfa.reference_score_admission(*as_torch(args), 0.5, None,
+                                                  enforce_capacity=True)
+    jr_node, jr_adm = jfa.reference_score_admission(*as_jax(args), 0.5, None,
+                                                    enforce_capacity=True)
+    np.testing.assert_array_equal(r_node.numpy(), np.asarray(jr_node))
+    np.testing.assert_array_equal(r_adm.numpy(), np.asarray(jr_adm))
+    np.testing.assert_array_equal(r_node.numpy(), t_node.numpy())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_overload_term_matches_jax(seed):
+    """Loads pushed past capacity so the over-budget relu term is live."""
+    args = random_instance(seed, tight=True)
+    args[5] = args[5] * np.float32(1.6)
+    j_node, j_adm, *_ = jfa.fused_score_admission(
+        *as_jax(args), 0.5, 0.0, seed, overload_weight=10.0,
+        interpret=True, block_c=32, enforce_capacity=True, use_noise=False,
+    )
+    t_node, t_adm, *_ = tfa.fused_score_admission(
+        *as_torch(args), 0.5, 0.0, seed, overload_weight=10.0, block_c=32,
+        enforce_capacity=True, use_noise=False,
+    )
+    np.testing.assert_array_equal(t_node.numpy(), np.asarray(j_node))
+    np.testing.assert_array_equal(t_adm.numpy(), np.asarray(j_adm))
+
+
+def test_no_capacity_mode_matches_jax():
+    args = random_instance(3)
+    j_node, j_adm, *_ = jfa.fused_score_admission(
+        *as_jax(args), 0.0, 0.0, 3, enforce_capacity=False, use_noise=False,
+        interpret=True, block_c=32,
+    )
+    t_node, t_adm, *_ = tfa.fused_score_admission(
+        *as_torch(args), 0.0, 0.0, 3, enforce_capacity=False, use_noise=False, block_c=32,
+    )
+    np.testing.assert_array_equal(t_node.numpy(), np.asarray(j_node))
+    np.testing.assert_array_equal(t_adm.numpy(), np.asarray(j_adm))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_move_pen_matches_jax(seed):
+    """Disruption pricing: the penalty is charged at every node but home."""
+    args = random_instance(seed, tight=True)
+    rng = np.random.default_rng(100 + seed)
+    C, N = args[0].shape
+    home = rng.integers(0, N, size=C).astype(np.int32)
+    pen = rng.integers(0, 4, size=C).astype(np.float32)
+    j_node, j_adm, j_dc, j_dm = jfa.fused_score_admission(
+        *as_jax(args), 0.5, 0.0, seed, overload_weight=10.0,
+        home=jnp.asarray(home), move_pen=jnp.asarray(pen), interpret=True, block_c=32,
+        enforce_capacity=True, use_noise=False, emit_x_rows=False,
+    )
+    t_node, t_adm, t_dc, t_dm = tfa.fused_score_admission(
+        *as_torch(args), 0.5, 0.0, seed, overload_weight=10.0,
+        home=torch.as_tensor(home), move_pen=torch.as_tensor(pen), block_c=32,
+        enforce_capacity=True, use_noise=False, emit_x_rows=False,
+    )
+    np.testing.assert_array_equal(t_node.numpy(), np.asarray(j_node))
+    np.testing.assert_array_equal(t_adm.numpy(), np.asarray(j_adm))
+    np.testing.assert_allclose(t_dc.numpy(), np.asarray(j_dc), atol=1e-4)
+    np.testing.assert_allclose(t_dm.numpy(), np.asarray(j_dm), atol=1e-4)
+    r_node, r_adm = tfa.reference_score_admission(
+        *as_torch(args), 0.5, None, overload_weight=10.0, home=torch.as_tensor(home),
+        move_pen=torch.as_tensor(pen), enforce_capacity=True,
+    )
+    np.testing.assert_array_equal(r_node.numpy(), t_node.numpy())
+    np.testing.assert_array_equal(r_adm.numpy(), t_adm.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 2, -5, 123456789])
+def test_mixer_bit_exact(seed):
+    want = np.asarray(jfa._stateless_uniform(jnp.int32(seed), (37, 50)))
+    got = tfa._stateless_uniform(seed, (37, 50)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert got.min() > 0.0 and got.max() < 1.0
+
+
+@pytest.mark.parametrize("block_c", [32, 64])
+def test_stateless_noise_decisions_match_jax(block_c):
+    """Noise on: the seed law (tile t uses seed + t, the mixer's row is the
+    row within the tile) gives JAX's decisions exactly."""
+    for seed in (11, 12):
+        args = random_instance(seed, tight=True)
+        j_node, j_adm, *_ = jfa.fused_score_admission(
+            *as_jax(args), 0.5, 0.7, seed, interpret=True, block_c=block_c,
+            enforce_capacity=True, use_noise=True, noise_impl="stateless",
+        )
+        t_node, t_adm, *_ = tfa.fused_score_admission(
+            *as_torch(args), 0.5, 0.7, seed, block_c=block_c,
+            enforce_capacity=True, use_noise=True,
+        )
+        np.testing.assert_array_equal(t_node.numpy(), np.asarray(j_node))
+        np.testing.assert_array_equal(t_adm.numpy(), np.asarray(j_adm))
+
+
+def test_admission_capacity_race():
+    """Two proposals race for one nearly-full node: only the higher-gain one
+    lands; the other stays put."""
+    C, N = 8, 128
+    M = torch.zeros((C, N))
+    M[0, 5], M[1, 5] = 10.0, 20.0
+    cur = torch.tensor([1, 2] + [0] * (C - 2), dtype=torch.int32)
+    valid_c = torch.tensor([True, True] + [False] * (C - 2))
+    cpu_load = torch.zeros(N)
+    cpu_load[5] = 500.0
+    new_node, admitted, *_ = tfa.fused_score_admission(
+        M, cur, torch.full((C,), 300.0), torch.zeros(C), valid_c, cpu_load, torch.zeros(N),
+        torch.full((N,), 1000.0), torch.full((N,), 1e9), torch.ones(N, dtype=torch.bool),
+        0.0, 0.0, 0, enforce_capacity=True, use_noise=False, block_c=8,
+    )
+    assert bool(admitted[1]) and int(new_node[1]) == 5
+    assert not bool(admitted[0]) and int(new_node[0]) == 1
+
+
+def test_neighbor_mass_matches_jax():
+    """W row-blocks gathered by id times the one-hot occupancy, exactly."""
+    rng = np.random.default_rng(0)
+    SP, N, B = 128, 64, 16
+    W = rng.integers(0, 5, size=(SP, SP)).astype(np.float32)
+    assign = rng.integers(0, N, size=SP).astype(np.int32)
+    valid = rng.random(SP) < 0.9
+    W_j = jnp.asarray(W).astype(jnp.bfloat16)
+    W_t = torch.as_tensor(W).to(torch.bfloat16)
+    for blocks in ([0, 1], [7, 2], [3, 0, 5, 6]):
+        b = np.asarray(blocks, np.int32)
+        want = jfa.fused_neighbor_mass(
+            W_j, jnp.asarray(assign), jnp.asarray(valid), jnp.asarray(b),
+            num_nodes=N, block_b=B, block_j=32, interpret=True,
+        )
+        got = tfa.fused_neighbor_mass(
+            W_t, torch.as_tensor(assign), torch.as_tensor(valid), torch.as_tensor(b),
+            num_nodes=N, block_b=B, block_j=32,
+        )
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_neighbor_mass_rejects_ragged_tiling():
+    W = torch.zeros((100, 100), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="divisible"):
+        tfa.fused_neighbor_mass(
+            W, torch.zeros(100, dtype=torch.int32), torch.ones(100, dtype=torch.bool),
+            torch.zeros(1, dtype=torch.int32), num_nodes=4, block_b=16, block_j=32,
+        )
+
+
+def test_wrappers_count_only_kernel_launches():
+    """CPU tensors take the plain versions: no kernel launch is counted."""
+    tfa.reset_launch_counts()
+    args = random_instance(1)
+    tfa.fused_score_admission(*as_torch(args), 0.5, 0.0, 1, enforce_capacity=True,
+                              use_noise=False)
+    assert tfa.launch_counts() == {
+        "fused_neighbor_mass": 0, "score_stage": 0, "admission_stage": 0,
+    }
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper takes the plain version only for CPU tensors; mixed or
+    other devices raise instead of falling back."""
+    args = as_torch(random_instance(2))
+    args[0] = args[0].to("meta")
+    with pytest.raises(ValueError):
+        tfa.fused_score_admission(*args, 0.5, 0.0, 2, enforce_capacity=True, use_noise=False)
