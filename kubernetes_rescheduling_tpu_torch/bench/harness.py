@@ -1,5 +1,6 @@
 """Scenario factory — the port of ``make_backend`` from
-``kubernetes_rescheduling_tpu.bench.harness`` for the synthetic meshes.
+``kubernetes_rescheduling_tpu.bench.harness`` for the synthetic meshes,
+and of ``bench.py``'s sparse problem (:func:`sparse_problem`).
 
 Same ``default_rng(seed)`` call sequence as the JAX package: one seed
 builds the identical cluster in both packages.
@@ -12,7 +13,8 @@ import torch
 
 from kubernetes_rescheduling_tpu_torch._device import DEFAULT_DEVICE
 from kubernetes_rescheduling_tpu_torch.backends.sim import LoadModel, SimBackend
-from kubernetes_rescheduling_tpu_torch.core.topology import _random_workmodel
+from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_workmodel
+from kubernetes_rescheduling_tpu_torch.core.topology import _random_workmodel, state_from_workmodel
 
 SCENARIOS = ("dense", "powerlaw", "large")
 
@@ -55,3 +57,25 @@ def make_backend(
             device=device,
         )
     raise ValueError(f"unknown scenario {scenario!r} (known: {', '.join(SCENARIOS)})")
+
+
+def sparse_problem(
+    n_services: int, n_nodes: int, seed: int = 0,
+    device: str | torch.device | None = DEFAULT_DEVICE,
+):
+    """Power-law mesh past the dense form's sizing wall, built straight
+    into the block-local sparse form (the JAX package's ``bench.py``
+    ``_sparse_problem``; ``sparse_problem(50_000, 2_000)`` is its
+    ``sparse50k``): mean degree 4, ``n_nodes`` nodes of 5000 m CPU.
+    Returns ``(state, sparse_graph)``."""
+    rng = np.random.default_rng(seed)
+    wm = _random_workmodel(n_services, rng, powerlaw=True, mean_degree=4.0)
+    graph = from_workmodel(wm, device=device)
+    state = state_from_workmodel(
+        wm,
+        node_names=[f"w{i:05d}" for i in range(n_nodes)],
+        node_cpu_cap_m=5_000.0,
+        seed=seed,
+        device=device,
+    )
+    return state, graph

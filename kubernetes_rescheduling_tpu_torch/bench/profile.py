@@ -1,8 +1,11 @@
 """Where one global rescheduling round spends its time on the card.
 
     python -m kubernetes_rescheduling_tpu_torch.bench.profile [--scenario large]
+    python -m kubernetes_rescheduling_tpu_torch.bench.profile --scenario sparse50k
 
-Runs the default-config solve once to warm up, then once more under
+``sparse50k`` is the sparse solver on ``sparse_problem(50_000, 2_000)``;
+every other scenario is the dense solver on ``make_backend``. Runs the
+default-config solve once to warm up, then once more under
 ``torch.profiler`` (CPU and CUDA activities), and prints one JSON object:
 the wall time of the profiled solve, the summed device time of its kernels,
 the device's idle share of the wall time, the launch count, and the
@@ -21,21 +24,34 @@ import warnings
 
 import torch
 
-from kubernetes_rescheduling_tpu_torch.bench.harness import SCENARIOS, make_backend
-from kubernetes_rescheduling_tpu_torch.solver import GlobalSolverConfig, global_assign
+from kubernetes_rescheduling_tpu_torch.bench.harness import SCENARIOS, make_backend, sparse_problem
+from kubernetes_rescheduling_tpu_torch.solver import (
+    GlobalSolverConfig,
+    global_assign,
+    global_assign_sparse,
+)
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import prepare_weights
+
+SPARSE_SCENARIOS = {"sparse50k": (50_000, 2_000)}
 
 
 def profile_round(scenario: str = "large", seed: int = 0, top: int = 12) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    backend = make_backend(scenario, seed, device="cuda")
-    state, graph = backend.monitor(), backend.comm_graph()
     cfg = GlobalSolverConfig()
-    w_mm = prepare_weights(state, graph, cfg)
+    if scenario in SPARSE_SCENARIOS:
+        state, sgraph = sparse_problem(*SPARSE_SCENARIOS[scenario], seed=seed, device="cuda")
 
-    def solve():
-        return global_assign(state, graph, torch.Generator().manual_seed(seed), cfg, w_mm=w_mm)
+        def solve():
+            return global_assign_sparse(state, sgraph, torch.Generator().manual_seed(seed), cfg)
+    else:
+        backend = make_backend(scenario, seed, device="cuda")
+        state, graph = backend.monitor(), backend.comm_graph()
+        w_mm = prepare_weights(state, graph, cfg)
+
+        def solve():
+            return global_assign(state, graph, torch.Generator().manual_seed(seed), cfg,
+                                 w_mm=w_mm)
 
     solve()
     torch.cuda.synchronize()
@@ -85,7 +101,7 @@ def profile_round(scenario: str = "large", seed: int = 0, top: int = 12) -> dict
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--scenario", default="large", choices=SCENARIOS)
+    p.add_argument("--scenario", default="large", choices=SCENARIOS + tuple(SPARSE_SCENARIOS))
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     print(json.dumps(profile_round(args.scenario, args.seed)))

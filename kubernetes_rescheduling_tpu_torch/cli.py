@@ -3,6 +3,12 @@ rescheduling round on a synthetic scenario, printing the same JSON keys as
 the JAX package's ``solve``.
 
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large
+    python -m kubernetes_rescheduling_tpu_torch solve --scenario large --sparse
+    python -m kubernetes_rescheduling_tpu_torch solve --scenario large --placement-unit pod
+
+``--sparse`` solves on the block-local sparse form of the scenario's graph;
+``--placement-unit pod`` re-places every pod on its own, on the pod-level
+sparse graph.
 """
 
 from __future__ import annotations
@@ -15,7 +21,13 @@ import torch
 
 from kubernetes_rescheduling_tpu_torch.bench.harness import SCENARIOS, make_backend
 from kubernetes_rescheduling_tpu_torch.objectives import communication_cost, load_std
-from kubernetes_rescheduling_tpu_torch.solver import GlobalSolverConfig, global_assign
+from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
+from kubernetes_rescheduling_tpu_torch.solver import (
+    GlobalSolverConfig,
+    global_assign,
+    global_assign_pods,
+    global_assign_sparse,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,6 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--move-cost", type=float, default=0.0,
                    help="disruption pricing: comm-weight units per restarted "
                         "pod (0 = moves are free)")
+    s.add_argument("--sparse", action="store_true",
+                   help="solve on the block-local sparse pair-weight form")
+    s.add_argument("--placement-unit", choices=("service", "pod"), default="service",
+                   help="pod: re-place every pod independently on the pod-level graph")
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--device", default="cuda",
                    help="torch device to solve on (default: cuda)")
@@ -50,9 +66,13 @@ def cmd_solve(args) -> dict:
         capacity_frac=args.capacity_frac,
         move_cost=args.move_cost,
     )
-    new_state, info = global_assign(
-        state, graph, torch.Generator().manual_seed(args.seed), cfg
-    )
+    generator = torch.Generator().manual_seed(args.seed)
+    if args.placement_unit == "pod":
+        new_state, info = global_assign_pods(state, graph, generator, cfg)
+    elif args.sparse:
+        new_state, info = global_assign_sparse(state, from_comm_graph(graph), generator, cfg)
+    else:
+        new_state, info = global_assign(state, graph, generator, cfg)
     out = {
         "scenario": args.scenario,
         "restarts": 1,
@@ -66,6 +86,10 @@ def cmd_solve(args) -> dict:
     if args.move_cost > 0:
         out["move_cost"] = args.move_cost
         out["move_penalty"] = float(info["move_penalty"])
+    if args.sparse:
+        out["sparse"] = True
+    if args.placement_unit != "service":
+        out["placement_unit"] = args.placement_unit
     return out
 
 

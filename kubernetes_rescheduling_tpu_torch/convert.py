@@ -1,9 +1,9 @@
 """Carry state across from the JAX package: its ``ClusterState``,
-``CommGraph`` and ``GlobalSolverConfig`` fields, handed over as numpy
-arrays and plain values, become the port's — the scheduler's equivalent of
-carrying weights across. Nothing here imports the JAX package; a caller
-that holds JAX objects turns them into arrays first (``np.asarray`` of each
-field).
+``CommGraph``, ``SparseCommGraph`` and ``GlobalSolverConfig`` fields,
+handed over as numpy arrays and plain values, become the port's — the
+scheduler's equivalent of carrying weights across. Nothing here imports
+the JAX package; a caller that holds JAX objects turns them into arrays
+first (``np.asarray`` of each field).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from kubernetes_rescheduling_tpu_torch._device import DEFAULT_DEVICE, resolve_device
+from kubernetes_rescheduling_tpu_torch.core.sparsegraph import SparseCommGraph, integral
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import GlobalSolverConfig
 
@@ -26,6 +27,8 @@ STATE_NAMES = ("node_names", "pod_names")
 _DTYPES = {
     "node_valid": torch.bool, "pod_valid": torch.bool, "service_valid": torch.bool,
     "node_lex_rank": torch.int32, "pod_node": torch.int32, "pod_service": torch.int32,
+    "u_ids": torch.int32, "edges_src": torch.int32, "edges_dst": torch.int32,
+    "perm": torch.int32, "inv": torch.int32,
 }
 
 
@@ -59,6 +62,40 @@ def graph_from_arrays(
         adj=_tensor("adj", d["adj"], dev),
         service_valid=_tensor("service_valid", d["service_valid"], dev),
         names=tuple(d.get("names", ())),
+    )
+
+
+SPARSE_ARRAYS = (
+    "w_local", "u_ids", "edges_src", "edges_dst", "edges_w", "perm", "inv", "service_valid",
+)
+SPARSE_STATIC = (
+    "block_toff", "block_ntiles", "hub_blocks", "regular_blocks", "zero_toff", "bu",
+    "reg_tiles", "num_services",
+)
+
+
+def sparse_graph_from_arrays(
+    d: Mapping[str, Any], device: str | torch.device | None = DEFAULT_DEVICE
+) -> SparseCommGraph:
+    """A :class:`SparseCommGraph` from the JAX graph's fields: its arrays
+    (``dense_adj`` optional, None for multi-block graphs) and its static
+    metadata (``block_toff`` … ``num_services`` and optional ``names``).
+    Whether the weights are integers is read off ``edges_w``."""
+    dev = resolve_device(device)
+    missing = [k for k in SPARSE_ARRAYS + SPARSE_STATIC if k not in d]
+    if missing:
+        raise KeyError(f"sparse graph fields missing: {missing}")
+    static = {
+        k: (int(d[k]) if isinstance(d[k], (int, np.integer)) else tuple(int(x) for x in d[k]))
+        for k in SPARSE_STATIC
+    }
+    dense = d.get("dense_adj")
+    return SparseCommGraph(
+        **{k: _tensor(k, d[k], dev) for k in SPARSE_ARRAYS},
+        dense_adj=None if dense is None else _tensor("dense_adj", dense, dev),
+        names=tuple(d.get("names", ())),
+        integral_weights=integral(d["edges_w"]),
+        **static,
     )
 
 

@@ -21,13 +21,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("mass", "score", "admission")
+SOURCES = ("mass", "score", "admission", "sparse_mass", "mass_score")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the exported launch functions (see each source)
 _ARGTYPES = {
     "krt_mass_launch": [_I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
@@ -35,6 +35,11 @@ _ARGTYPES = {
         [_I] + [_P] * 12 + [_F, _F, _F] + [_I] * 7 + [_P] * 6
     ),
     "krt_admission_launch": [_I] + [_P] * 9 + [_I, _I, _I] + [_P] * 5 + [_I, _P],
+    "krt_sparse_mass_launch": [_I, _P, _I, _L] + [_P] * 4 + [_I] * 5 + [_P, _P],
+    "krt_hub_mass_launch": [_I, _P, _I, _L] + [_P] * 6 + [_I] * 5 + [_P, _P],
+    "krt_mass_score_launch": (
+        [_I, _P, _I, _L] + [_P] * 5 + [_I] * 4 + [_P] * 11 + [_F] * 3 + [_I] * 5 + [_P] * 6
+    ),
     "krt_error_string": [_I],
 }
 _RESTYPES = {"krt_error_string": ctypes.c_char_p}

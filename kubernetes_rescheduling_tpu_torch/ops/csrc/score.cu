@@ -1,16 +1,8 @@
 // Chunk score -> first-max proposal -> per-row reductions: replaces the
 // Pallas kernel `fused_score_admission` / `_score_kernel` (body
 // `score_core`) in kubernetes_rescheduling_tpu/ops/fused_admission.py.
-//
-// Per service row c and node column n:
-//   proj_pct = (cpu_load[n] + (n == cur ? 0 : c_cpu)) / cap[n] * 100
-//   score    = M[c, n] - lam * proj_pct - ow * max(proj_pct - 100, 0)
-//              - (n == home ? 0 : pen) + temp * gumbel(seed, c, n)
-// masked to -inf where the node is invalid or (with capacity enforcement)
-// the service does not fit and it is not the current node. Outputs per
-// row: the first-max node `prop` (lowest column among ties, clamped to
-// N - 1), `gain` = max - score at the current node (unmasked), `wants`,
-// and the CPU / memory slack left at `prop`.
+// The per-row body is `krt_score_row` (score_core.cuh), shared with the
+// sparse fused mass+score kernel.
 //
 // Bound on the card: bytes. It reads the C x N mass block once (4.1 MB at
 // C = 1024, N = 1000) and does about 20 f32 operations per element, far
@@ -20,31 +12,14 @@
 // pairs with the same tie rule. The score block never reaches device
 // memory.
 //
-// Exactness: every operation is the plain version's operation in the same
-// order, written with the round-to-nearest intrinsics so the compiler
-// cannot contract a multiply and an add into one fused operation; the
-// division is IEEE and the logarithm is `logf`, as in PyTorch's own CUDA
-// kernels. The noise is the u32 mixer `_stateless_uniform` of the JAX
-// package, bit for bit, with its seed law: tile t = row / block_c uses
-// seed + t, and the mixer's row index is the row within the tile.
+// Seed law: tile t = row / block_c uses seed + t, and the mixer's row
+// index is the row within the tile.
 
-#include "krt_common.cuh"
+#include "score_core.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-
-__device__ __forceinline__ float stateless_uniform(uint32_t seed, uint32_t r, uint32_t c) {
-  uint32_t x = seed * 0x9E3779B9u;
-  x = x ^ (r * 0x85EBCA6Bu) ^ (c * 0xC2B2AE35u);
-  x = x ^ (x >> 16);
-  x = x * 0x7FEB352Du;
-  x = x ^ (x >> 15);
-  x = x * 0x846CA68Bu;
-  x = x ^ (x >> 16);
-  const float mant = static_cast<float>(x & 0x7FFFFFu);
-  return __fmul_rn(__fadd_rn(mant, 0.5f), 1.0f / 8388608.0f);
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 score_kernel(const float* __restrict__ M, const int* __restrict__ cur,
@@ -61,70 +36,12 @@ score_kernel(const float* __restrict__ M, const int* __restrict__ cur,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= C) return;  // whole warp exits together
-
-  const int cu = cur[row];
-  const int hm = home[row];
-  const float pn = pen[row];
-  const float ccpu = c_cpu[row];
-  const float cmem = c_mem[row];
   const uint32_t tile_seed = static_cast<uint32_t>(seed) + static_cast<uint32_t>(row / block_c);
   const uint32_t tile_row = static_cast<uint32_t>(row % block_c);
-  const float* m_row = M + static_cast<long long>(row) * N;
-
-  float best = KRT_NEG_INF;
-  int best_n = N;
-  float cur_score = 0.0f;
-  for (int n = lane; n < N; n += 32) {
-    const bool is_cur = n == cu;
-    const float proj_cpu = __fadd_rn(cpu_load[n], is_cur ? 0.0f : ccpu);
-    const float pct = __fmul_rn(__fdiv_rn(proj_cpu, cap[n]), 100.0f);
-    float s = __fsub_rn(m_row[n], __fmul_rn(lam, pct));
-    s = __fsub_rn(s, __fmul_rn(ow, fmaxf(__fsub_rn(pct, 100.0f), 0.0f)));
-    if (use_move_pen) s = __fsub_rn(s, n == hm ? 0.0f : pn);
-    if (use_noise) {
-      const float u = stateless_uniform(tile_seed, tile_row, static_cast<uint32_t>(n));
-      const float g = -logf(-logf(u));
-      s = __fadd_rn(s, __fmul_rn(temp, g));
-    }
-    if (is_cur) cur_score = s;
-    bool feasible;
-    if (enforce_capacity) {
-      const float proj_mem = __fadd_rn(mem_load[n], is_cur ? 0.0f : cmem);
-      const bool fits = (proj_cpu <= cap[n]) && (proj_mem <= mem_cap[n]);
-      feasible = (fits || is_cur) && node_valid[n] != 0;
-    } else {
-      feasible = node_valid[n] != 0;
-    }
-    const float v = feasible ? s : KRT_NEG_INF;
-    if (v > best || (v == best && n < best_n)) {
-      best = v;
-      best_n = n;
-    }
-  }
-  // merge (value, column) pairs: larger value wins, ties -> lower column
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, best, off);
-    const int on = __shfl_down_sync(0xffffffffu, best_n, off);
-    if (ov > best || (ov == best && on < best_n)) {
-      best = ov;
-      best_n = on;
-    }
-  }
-  // the current node's score lives in exactly one lane (none if cur is
-  // outside [0, N), where the plain version's masked sum gives 0)
-  const bool cur_in = cu >= 0 && cu < N;
-  cur_score = __shfl_sync(0xffffffffu, cur_score, cur_in ? (cu & 31) : 0);
-  if (!cur_in) cur_score = 0.0f;
-  if (lane == 0) {
-    const int prop = min(best_n, N - 1);
-    const float gain = __fsub_rn(best, cur_score);
-    prop_out[row] = prop;
-    gain_out[row] = gain;
-    wants_out[row] = (valid[row] != 0 && gain > 0.0f && prop != cu) ? 1 : 0;
-    slack_cpu_out[row] = __fsub_rn(__fsub_rn(cap[prop], cpu_load[prop]), ccpu);
-    slack_mem_out[row] = __fsub_rn(__fsub_rn(mem_cap[prop], mem_load[prop]), cmem);
-  }
+  krt_score_row(M + static_cast<long long>(row) * N, row, tile_seed, tile_row, lane, cur, home,
+                pen, c_cpu, c_mem, valid, cpu_load, mem_load, cap, mem_cap, node_valid, lam, ow,
+                temp, N, enforce_capacity, use_noise, use_move_pen, prop_out, gain_out,
+                wants_out, slack_cpu_out, slack_mem_out);
 }
 
 }  // namespace

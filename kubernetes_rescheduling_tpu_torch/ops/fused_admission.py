@@ -507,19 +507,3 @@ def admission_stage(
 
 
 admission_stage.launches = 0
-
-
-KERNEL_WRAPPERS = (fused_neighbor_mass, score_stage, admission_stage)
-
-
-def reset_launch_counts() -> None:
-    """Zero every kernel wrapper's launch count."""
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    return {
-        fn.__name__: fn.launches
-        for fn in KERNEL_WRAPPERS
-    }

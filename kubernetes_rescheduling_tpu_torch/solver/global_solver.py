@@ -22,9 +22,11 @@ Two lowerings, chosen as in the JAX package:
 - ``sweep_inline``: mass kernel → score kernel → admission kernel, with no
   occupancy matrix at all; ``assign`` is the only state between chunks.
 
-``fused_epilogue="auto"`` runs the kernels on CUDA tensors at C, N ≥ 128;
-``"on"`` runs the same lowering on any device (through the plain versions
-for CPU tensors); ``"off"`` is the plain path.
+``fused_epilogue="auto"`` runs the kernels on CUDA tensors at any size
+(the JAX package keeps solves under C, N = 128 off its TPU kernels; the
+CUDA kernels take any size, and the plain versions serve CPU tensors
+only); ``"on"`` runs the same lowering on any device (through the plain
+versions for CPU tensors); ``"off"`` is the plain path.
 
 Randomness comes from a ``torch.Generator`` through a per-sweep
 :class:`SweepPlan` (chunk composition, kernel seeds, and for the plain
@@ -304,6 +306,14 @@ def draw_plans(generator, sweeps, SP, C, n_chunks, block) -> list[SweepPlan]:
     return plans
 
 
+def kernel_lowering(config: GlobalSolverConfig, device) -> bool:
+    """Whether a solve on ``device`` takes the kernel lowering: ``"on"``
+    everywhere, ``"auto"`` on CUDA at any size, never under ``"off"``."""
+    return config.fused_epilogue == "on" or (
+        config.fused_epilogue == "auto" and torch.device(device).type == "cuda"
+    )
+
+
 def global_assign(
     state: ClusterState,
     graph: CommGraph,
@@ -406,10 +416,7 @@ def global_assign(
         obj = 0.5 * (w_total - kept) + _balance_terms(cpu_load)
         return obj + move_penalty(assign) if mc_on else obj
 
-    # the chunk-step kernels: on for CUDA at kernel-worthy sizes
-    use_fused = config.fused_epilogue == "on" or (
-        config.fused_epilogue == "auto" and dev.type == "cuda" and C >= 128 and N >= 128
-    )
+    use_fused = kernel_lowering(config, dev)
     # inline-mass lowering: the composition is block-granular (256 | C and
     # 256 | SP), so the mass kernel gathers W row-blocks by id and no
     # occupancy matrix exists

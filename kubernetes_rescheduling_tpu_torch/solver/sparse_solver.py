@@ -1,0 +1,625 @@
+"""Global solver over the sparse (block-local) pair weights — the port of
+``kubernetes_rescheduling_tpu.solver.sparse_solver``.
+
+Same optimization as :func:`~kubernetes_rescheduling_tpu_torch.solver.
+global_solver.global_assign` — chunked synchronous best response over
+service placements, exact cut cost plus the balance terms, never worse
+than the input — but the pair weights live in the degree-sorted
+block-local storage of ``core.sparsegraph`` instead of a dense SP×SP
+matrix: memory O(S·Ū) instead of O(S²), so 50k services fit in about
+0.4 GB where the dense form would need about 15 GB.
+
+Two search-structure differences from the dense solver, both the JAX
+package's:
+
+1. **Hub pass.** The hub blocks (neighbor sets wider than the regular
+   width) are re-placed once per sweep before the randomized chunks, in
+   groups of at most KB blocks, each its own chunk step.
+2. **Composition granularity.** Chunks are random sets of 256-service
+   regular blocks, padded with all-zero dummy blocks. With
+   ``degree_sort=False`` and no hub blocks the decisions equal the dense
+   solver's inline path.
+
+The per-sweep objective is the exact f32 cut sum over the COO edge list.
+
+Lowerings (:func:`sparse_kernel_lowering`): ``fused_epilogue="auto"``
+runs the kernels on CUDA tensors at any size (raising on a graph with
+non-integer weights); ``"on"`` runs the kernel lowering on any device
+(through the wrappers' plain versions for CPU tensors); ``"off"`` is the
+plain twin (gathered matmuls and
+``reference_score_admission`` with gumbel noise). The kernel lowering's
+chunk step is ``sparse_mass_score`` → ``admission_stage`` on sweeps
+without the swap phase, and ``sparse_neighbor_mass`` → score → admission,
+plus ``sparse_neighbor_mass`` again for the chunk-local pair weights, on
+swap sweeps; the hub pass is ``hub_neighbor_mass`` → score → admission.
+
+Randomness goes through a per-sweep :class:`SparseSweepPlan` (block
+permutation, kernel seeds, plain-path gumbel noise), drawn from a
+``torch.Generator`` or handed in by the caller: the parity tests build it
+from the JAX package's key stream. The chunk loop reads no device value
+on the host; the one host sync per solve is the collapsed-placement
+branch of :func:`sparse_pod_comm_cost`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from kubernetes_rescheduling_tpu_torch.core.sparsegraph import (
+    BLOCK_R,
+    SparseCommGraph,
+    edge_cut_sum,
+    rv_weighted_edge_w,
+    sparse_pair_comm_cost,
+)
+from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
+from kubernetes_rescheduling_tpu_torch.objectives.metrics import load_std
+from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
+    admission_stage,
+    fused_score_admission,
+    reference_score_admission,
+)
+from kubernetes_rescheduling_tpu_torch.ops.sparse_mass import (
+    chunk_local_slabs,
+    hub_mass_plain,
+    hub_neighbor_mass,
+    hub_tile_arrays,
+    reference_sparse_mass,
+    sparse_mass_score,
+    sparse_neighbor_mass,
+)
+from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
+    _DTYPES,
+    _EPILOGUES,
+    GlobalSolverConfig,
+    _gumbel,
+    _pad_to,
+    _service_aggregates,
+    auto_chunk,
+    collapsed_placement,
+    global_assign,
+    kernel_lowering,
+    pct_balance_terms,
+    pod_restart_bill,
+)
+from kubernetes_rescheduling_tpu_torch.solver.swap import (
+    BIG_CAP,
+    chunk_swap,
+    scan_sweeps,
+    swap_flags,
+)
+
+# The noise seed law: the fused mass+score kernel seeds 256-row block i of
+# a chunk with seed + i, the standalone score kernel tile t with seed + t.
+# The two streams coincide only when the score stage tiles at exactly
+# BLOCK_R rows, so the solver pins its tile here.
+_SCORE_BLOCK_C = 256
+assert _SCORE_BLOCK_C == BLOCK_R, "the score stage must tile at BLOCK_R rows"
+
+
+@dataclass(frozen=True)
+class SparseLayout:
+    """How a sparse graph is cut into chunk steps under a config:
+    ``chunk`` (C), ``blocks_per_chunk`` (KB 256-row blocks), ``n_chunks``
+    regular chunks padded with ``n_dummy`` all-zero blocks, ``spx`` (the
+    service-array size with the dummy blocks), and the hub blocks in
+    ``hub_groups`` of at most KB blocks each."""
+
+    chunk: int
+    blocks_per_chunk: int
+    n_chunks: int
+    n_dummy: int
+    spx: int
+    hub_groups: tuple[tuple[int, ...], ...]
+
+    @property
+    def width(self) -> int:
+        """Rows of one chunk step: KB·256."""
+        return self.blocks_per_chunk * BLOCK_R
+
+
+def sparse_layout(sgraph: SparseCommGraph, config: GlobalSolverConfig) -> SparseLayout:
+    S = sgraph.num_services
+    C = min(auto_chunk(S, config.chunk_size), S)
+    KB = max(1, C // BLOCK_R)
+    NBR = len(sgraph.regular_blocks)
+    n_chunks = max(1, -(-NBR // KB)) if NBR else 0
+    n_dummy = n_chunks * KB - NBR
+    hubs = sgraph.hub_blocks
+    return SparseLayout(
+        chunk=C,
+        blocks_per_chunk=KB,
+        n_chunks=n_chunks,
+        n_dummy=n_dummy,
+        spx=sgraph.sp + n_dummy * BLOCK_R,
+        hub_groups=tuple(hubs[g:g + KB] for g in range(0, len(hubs), KB)),
+    )
+
+
+@dataclass(frozen=True)
+class SparseSweepPlan:
+    """The random decisions of one sparse sweep.
+
+    ``block_perm`` [n_chunks·KB]: the permutation of regular block slots
+    (dummies included) that composes the chunks; ``seeds`` [n_chunks +
+    n_hub_groups]: the score kernels' noise seeds, chunks first, then hub
+    groups (kept on the host); ``gumbel`` [n_chunks, KB·256, N] and
+    ``hub_gumbel`` (one [rows_g, N] per hub group), or None: unit gumbel
+    noise of the plain path (None draws it from the solver's generator)."""
+
+    block_perm: torch.Tensor
+    seeds: torch.Tensor
+    gumbel: torch.Tensor | None = None
+    hub_gumbel: tuple[torch.Tensor, ...] | None = None
+
+
+def extended_block_tables(sgraph: SparseCommGraph, layout: SparseLayout, device):
+    """The chunk steps' block tables on ``device``: every block's first W
+    column tile with the dummy blocks' (the zero strip) appended,
+    i32[NB + n_dummy], and the regular block ids followed by the dummy ids,
+    i64[n_chunks·KB] — the slots a sweep's block permutation draws."""
+    toff_ext = torch.tensor(
+        list(sgraph.block_toff) + [sgraph.zero_toff] * layout.n_dummy,
+        dtype=torch.int32, device=device,
+    )
+    reg_ext = torch.tensor(
+        list(sgraph.regular_blocks) + [sgraph.num_blocks + d for d in range(layout.n_dummy)],
+        dtype=torch.int64, device=device,
+    )
+    return toff_ext, reg_ext
+
+
+def draw_sparse_plans(generator: torch.Generator, sweeps: int,
+                      layout: SparseLayout) -> list[SparseSweepPlan]:
+    """``sweeps`` plans from ``generator`` (a CPU generator): each sweep's
+    block permutation and kernel seeds."""
+    plans = []
+    for _ in range(sweeps):
+        bp = torch.randperm(layout.n_chunks * layout.blocks_per_chunk, generator=generator)
+        seeds = torch.randint(
+            0, 2**31 - 1, (layout.n_chunks + len(layout.hub_groups),), generator=generator
+        )
+        plans.append(SparseSweepPlan(bp, seeds))
+    return plans
+
+
+def sparse_pod_comm_cost(
+    state: ClusterState, sgraph: SparseCommGraph, *, edge_chunk: int = 16384
+) -> torch.Tensor:
+    """Pod-level communication cost of the ACTUAL placement (replicas may
+    be split across nodes).
+
+    Per sorted-space edge (s, t, w): cross-node pod pairs = ``rv_s·rv_t −
+    Σ_n cnt[s,n]·cnt[t,n]``, subtracted per edge so the f32 error stays
+    per-edge small, halved because the COO list carries each edge twice,
+    scanned in edge chunks. When every service's counted pods sit on one
+    node (every solver output does) the cost is the service-level cut of
+    (first node, effective replicas): that branch is taken on the host —
+    the one host sync of a solve."""
+    SP = sgraph.sp
+    N = state.num_nodes
+    S = sgraph.num_services
+    pod_slot = sgraph.inv[torch.clamp(state.pod_service, 0, S - 1).long()]
+    slot = torch.where(state.pod_valid, pod_slot, SP)
+    node = torch.clamp(torch.where(state.pod_valid, state.pod_node, N), -1, N)
+    # pods counted by the general form: valid AND placed on a real node
+    placed = state.pod_valid & (node >= 0) & (node < N)
+    nmin, rv_eff, collapsed = collapsed_placement(slot, node, placed, SP, N)
+    if bool(collapsed):
+        return sparse_pair_comm_cost(sgraph, nmin, rv_eff)
+    flat = torch.where(placed, slot.long() * (N + 1) + node.long(), SP * (N + 1) + N)
+    cnt = torch.bincount(flat, minlength=(SP + 1) * (N + 1)).view(SP + 1, N + 1)
+    cnt = cnt[:SP, :N].to(torch.float32)
+    rv = cnt.sum(dim=1)
+    total = torch.zeros((), dtype=torch.float32, device=cnt.device)
+    E2 = sgraph.edges_src.shape[0]
+    for e0 in range(0, E2, edge_chunk):
+        s = sgraph.edges_src[e0:e0 + edge_chunk].long()
+        t = sgraph.edges_dst[e0:e0 + edge_chunk].long()
+        kept = torch.sum(cnt[s] * cnt[t], dim=1)
+        cross = torch.clamp_min(rv[s] * rv[t] - kept, 0.0)
+        total = total + torch.sum(sgraph.edges_w[e0:e0 + edge_chunk] * cross)
+    return 0.5 * total
+
+
+def sorted_problem_arrays(state: ClusterState, sgraph: SparseCommGraph, SPX: int):
+    """Sorted-space per-service arrays and the neighbor replica columns,
+    padded to ``SPX`` (the service count with the dummy chunk-padding
+    blocks). Returns ``(svc_valid, svc_cpu_s, svc_mem_s, cur_s, rv_s,
+    rvu)``."""
+    S = sgraph.num_services
+    replicas, svc_cpu, svc_mem, cur_node, has_pods = _service_aggregates(state, S)
+    perm = sgraph.perm.long()
+    pclip = torch.clamp(perm, 0, S - 1)
+    ok = perm < S
+
+    def sort_pad(x, fill=0.0):
+        return _pad_to(torch.where(ok, x[pclip], fill), SPX, fill)
+
+    svc_valid = _pad_to(ok & has_pods[pclip] & sgraph.service_valid, SPX, False)
+    svc_cpu_s = sort_pad(svc_cpu) * svc_valid
+    svc_mem_s = sort_pad(svc_mem) * svc_valid
+    cur_s = torch.where(svc_valid, sort_pad(cur_node, -1), -1)
+    rv_s = sort_pad(replicas) * svc_valid
+    # neighbor-column replica factor, 0 on padding columns: the mass
+    # kernels rely on this as the padding mask
+    u = sgraph.u_ids.long()
+    rvu = torch.where(u < sgraph.sp, rv_s[torch.clamp(u, 0, SPX - 1)], 0.0)
+    return svc_valid, svc_cpu_s, svc_mem_s, cur_s, rv_s, rvu
+
+
+def hub_slab(sgraph: SparseCommGraph, blocks, rv_s, SPX: int):
+    """Concatenated group-local neighbor columns (ids and replica factors)
+    of the given hub ``blocks`` — static slices of ``u_ids``."""
+    bu = sgraph.bu
+    u_g = torch.cat([
+        sgraph.u_ids[sgraph.block_toff[b] * bu:(sgraph.block_toff[b] + sgraph.block_ntiles[b]) * bu]
+        for b in blocks
+    ])
+    ug = u_g.long()
+    rvu_g = torch.where(ug < sgraph.sp, rv_s[torch.clamp(ug, 0, SPX - 1)], 0.0)
+    return u_g, rvu_g
+
+
+def sparse_kernel_lowering(config: GlobalSolverConfig, sgraph: SparseCommGraph,
+                           device) -> bool:
+    """The dense solver's :func:`kernel_lowering` choice, for a sparse graph.
+
+    On CUDA the mass kernels sum with unordered atomics, exact (and so
+    deterministic) only while every partial sum is an integer: a graph
+    with non-integer pair weights raises there until the kernels get an
+    ordered sum (ROADMAP Queue 2), rather than give placements that may
+    change from run to run."""
+    use = kernel_lowering(config, device)
+    if use and torch.device(device).type == "cuda" and not sgraph.integral_weights:
+        raise ValueError(
+            "the sparse mass kernels are exact only for integer pair weights and this "
+            "graph has others; solve with fused_epilogue='off'"
+        )
+    return use
+
+
+def global_assign_sparse(
+    state: ClusterState,
+    sgraph: SparseCommGraph,
+    generator: torch.Generator | None = None,
+    config: GlobalSolverConfig = GlobalSolverConfig(),
+    plan: list | None = None,
+) -> tuple[ClusterState, dict[str, torch.Tensor]]:
+    """Sparse twin of ``global_assign``, same contract: the new state and
+    solve info; never worse than the input placement. ``generator`` draws
+    the per-sweep plans unless ``plan`` (:class:`SparseSweepPlan` list)
+    gives them.
+
+    Single-block graphs (≤ 256 services) delegate to the dense solver (one
+    chunk per sweep would leave no sequencing between chunks, and at that
+    size the dense form costs nothing); ``plan`` is then the dense
+    solver's."""
+    if sgraph.num_blocks <= 1 and sgraph.dense_adj is not None:
+        S = sgraph.num_services
+        dense = CommGraph(
+            adj=sgraph.dense_adj,
+            service_valid=torch.ones((S,), dtype=torch.bool, device=sgraph.dense_adj.device),
+            names=sgraph.names,
+        )
+        new_state, info = global_assign(state, dense, generator, config, plan=plan)
+        return new_state, dict(info, hub_pass=torch.tensor(False))
+    return _global_assign_sparse(state, sgraph, generator, config, plan)
+
+
+def _global_assign_sparse(state, sgraph, generator, config, plan):
+    if not config.capacity_frac > 0:
+        raise ValueError(f"capacity_frac must be > 0, got {config.capacity_frac}")
+    if config.fused_epilogue not in _EPILOGUES:
+        raise ValueError(
+            f"fused_epilogue must be one of {_EPILOGUES}, got {config.fused_epilogue!r}"
+        )
+    if plan is not None and len(plan) != config.sweeps:
+        raise ValueError(f"plan has {len(plan)} sweeps, config.sweeps={config.sweeps}")
+    if plan is None and generator is None:
+        raise ValueError("global_assign_sparse needs a generator or an explicit plan")
+    if sgraph.weight_bytes() > config.max_weight_bytes:
+        raise ValueError(
+            f"sparse pair weights need {sgraph.weight_bytes() / 2**30:.2f} GiB — over "
+            "max_weight_bytes; the graph is too dense for the sparse form (use the "
+            "dense solver)."
+        )
+    dev = state.device
+    f32 = torch.float32
+    ow = config.overload_weight if config.enforce_capacity else 0.0
+    lam = config.balance_weight
+    S = sgraph.num_services
+    N = state.num_nodes
+    bu, reg_tiles = sgraph.bu, sgraph.reg_tiles
+    lay = sparse_layout(sgraph, config)
+    n_chunks, SPX, C_eff = lay.n_chunks, lay.spx, lay.width
+
+    svc_valid, svc_cpu_s, svc_mem_s, cur_s, rv_s, rvu = sorted_problem_arrays(state, sgraph, SPX)
+    w_mm = sgraph.w_local.to(_DTYPES[config.matmul_dtype])
+
+    node_valid = state.node_valid
+    cpu_cap = torch.where(node_valid, state.node_cpu_cap, 0.0)
+    mem_cap_raw = torch.where(node_valid, state.node_mem_cap, 0.0)
+    mem_cap = torch.where(mem_cap_raw > 0, mem_cap_raw, float("inf")) * config.capacity_frac
+    cap = torch.where(cpu_cap > 0, cpu_cap, 1.0) * config.capacity_frac
+
+    assign0 = torch.where(svc_valid, torch.clamp(cur_s, 0, N - 1), 0).to(torch.int32)
+    # disruption pricing: per-service restart bill anchored at assign0
+    mc_on = config.move_cost > 0
+    pen_vec = config.move_cost * rv_s if mc_on else None
+    pod_slot = torch.clamp(
+        sgraph.inv[torch.clamp(state.pod_service, 0, S - 1).long()], 0, SPX - 1
+    ).long()
+
+    def move_penalty(assign):
+        """Service-level restart bill: the cheap per-sweep ranking form;
+        the adopt gate uses the exact pod-level bill."""
+        return config.move_cost * torch.sum(torch.where(svc_valid & (assign != assign0), rv_s, 0.0))
+
+    def loads(assign):
+        a = torch.where(svc_valid, assign, N).long()
+        z = torch.zeros((N + 1,), dtype=f32, device=dev)
+        cpu = z.index_put((a,), svc_cpu_s, accumulate=True)[:N]
+        mem = z.index_put((a,), svc_mem_s, accumulate=True)[:N]
+        return state.node_base_cpu + cpu, state.node_base_mem + mem
+
+    def _balance_terms(cpu_load):
+        return pct_balance_terms(cpu_load, cap, node_valid, lam, ow)
+
+    # per-edge rv-weighted weight, once per solve: each sweep's cut sum
+    # then gathers only the two assign columns
+    e_rvw = rv_weighted_edge_w(sgraph, rv_s)
+
+    def objective_terms(assign, cpu_load):
+        """(exact comm, ranking objective) of a sweep's placement."""
+        comm = edge_cut_sum(sgraph, e_rvw, assign)
+        obj = comm + _balance_terms(cpu_load)
+        return comm, (obj + move_penalty(assign) if mc_on else obj)
+
+    use_kernels = sparse_kernel_lowering(config, sgraph, dev)
+    use_noise = config.noise_temp > 0
+
+    # static layout tensors go to the device once, before any sweep
+    toff_ext, reg_ext = extended_block_tables(sgraph, lay, dev)
+    row_iota = torch.arange(BLOCK_R, device=dev)
+    hub_groups = []
+    for blocks_g in lay.hub_groups:
+        ids_g = torch.cat([row_iota + b * BLOCK_R for b in blocks_g])
+        u_g, rvu_g = hub_slab(sgraph, blocks_g, rv_s, SPX)
+        u_gi = torch.clamp(u_g.long(), 0, SPX - 1)
+        hub_groups.append((blocks_g, ids_g, u_gi, rvu_g, hub_tile_arrays(sgraph, blocks_g, dev)))
+
+    if plan is None:
+        plan = draw_sparse_plans(generator, config.sweeps, lay)
+    # the plans go to the device once, before any sweep (the permutations
+    # in one copy): a host-to-device copy between sweeps would stall the
+    # host until the device drained
+    perms = torch.stack([p.block_perm for p in plan]).to(dev).unbind(0) if plan else ()
+    plan = [
+        replace(
+            p, block_perm=bp, seeds=p.seeds.cpu(),
+            gumbel=None if p.gumbel is None else p.gumbel.to(dev),
+            hub_gumbel=None if p.hub_gumbel is None else tuple(g.to(dev) for g in p.hub_gumbel),
+        )
+        for p, bp in zip(plan, perms)
+    ]
+    noise_gen = None
+    if not use_kernels and use_noise and any(
+        p.gumbel is None or (hub_groups and p.hub_gumbel is None) for p in plan
+    ):
+        if generator is None:
+            raise ValueError("a plan without gumbel noise needs a generator")
+        noise_gen = torch.Generator(device=dev)
+        noise_gen.manual_seed(int(torch.randint(0, 2**62, (1,), generator=generator)))
+
+    def chunk_mass(tgt_c, rvu_c, blocks, ids, nn):
+        """Mass of the chunk's rows against targets ``tgt_c`` over ``nn``
+        columns: node occupancy for M (nn = N), chunk position for the swap
+        phase's pair-weight block Wc (nn = KB·256)."""
+        mass = sparse_neighbor_mass if use_kernels else reference_sparse_mass
+        raw = mass(w_mm, tgt_c, rvu_c, blocks, toff_ext, num_nodes=nn, bu=bu,
+                   reg_tiles=reg_tiles)
+        return raw * rv_s[ids][:, None]
+
+    def hub_mass(assign, group):
+        blocks_g, ids_g, u_gi, rvu_g, tiles = group
+        mass = hub_neighbor_mass if use_kernels else hub_mass_plain
+        raw = mass(w_mm, assign[u_gi], rvu_g, *tiles, num_nodes=N,
+                   num_hub_blocks=len(blocks_g), bu=bu)
+        return raw * rv_s[ids_g][:, None]
+
+    def place(assign, cpu_load, mem_load, ids, M, temp, seed, gumbel):
+        """Score → argmax → admission → commit for one id set (the hub
+        pass and the chunks); ``assign`` is updated in place. Returns the
+        new loads and the admitted mask."""
+        valid_c = svc_valid[ids]
+        c_cpu = svc_cpu_s[ids]
+        c_mem = svc_mem_s[ids]
+        cur = assign[ids]
+        home = assign0[ids] if mc_on else None
+        pen = pen_vec[ids] if mc_on else None
+        if use_kernels:
+            new_node, admitted, d_cpu, d_mem = fused_score_admission(
+                M, cur, c_cpu, c_mem, valid_c, cpu_load, mem_load, cap, mem_cap, node_valid,
+                lam, temp, seed, overload_weight=ow, home=home, move_pen=pen,
+                enforce_capacity=config.enforce_capacity, use_noise=use_noise,
+                block_c=_SCORE_BLOCK_C, emit_x_rows=False,
+            )
+            assign[ids] = new_node
+            return cpu_load + d_cpu, mem_load + d_mem, admitted
+        noise = None
+        if use_noise:
+            g = gumbel if gumbel is not None else _gumbel(tuple(M.shape), noise_gen, dev)
+            noise = temp * g
+        new_node, admitted = reference_score_admission(
+            M, cur, c_cpu, c_mem, valid_c, cpu_load, mem_load, cap, mem_cap, node_valid,
+            lam, noise, overload_weight=ow, home=home, move_pen=pen,
+            enforce_capacity=config.enforce_capacity,
+        )
+        d_cpu = torch.where(admitted, c_cpu, 0.0)
+        d_mem = torch.where(admitted, c_mem, 0.0)
+        new_l, cur_l = new_node.long(), cur.long()
+        cpu_load = cpu_load.index_put((new_l,), d_cpu, accumulate=True)
+        cpu_load = cpu_load.index_put((cur_l,), -d_cpu, accumulate=True)
+        mem_load = mem_load.index_put((new_l,), d_mem, accumulate=True)
+        mem_load = mem_load.index_put((cur_l,), -d_mem, accumulate=True)
+        assign[ids] = new_node
+        return cpu_load, mem_load, admitted
+
+    # pairwise-exchange phase on flagged sweeps, per regular chunk; hub
+    # groups sit it out, as in the JAX package
+    use_swaps = config.swap_every > 0
+    sw_flags = swap_flags(config.sweeps, config.swap_every)
+    mem_cap_sw = torch.where(torch.isinf(mem_cap), BIG_CAP, mem_cap)
+    chunk_pos = torch.arange(C_eff, dtype=torch.int32, device=dev)
+
+    def _swap_phase(ids, M, Wc, assign, cpu_load, mem_load, admitted):
+        """The dense solver's swap phase over the sorted-space arrays."""
+        cur = assign[ids]
+        eligible = svc_valid[ids] & ~admitted & node_valid[cur.long()]
+        c_cpu = svc_cpu_s[ids]
+        c_mem = svc_mem_s[ids]
+        new_node, swapped, n_sw = chunk_swap(
+            M, Wc, cur, eligible, c_cpu, c_mem, cpu_load, mem_load, cap, mem_cap_sw,
+            lam, ow, pen_vec[ids] if mc_on else None, assign0[ids] if mc_on else None,
+            min(config.swap_k, C_eff), enforce_capacity=config.enforce_capacity,
+        )
+        d_c = torch.where(swapped, c_cpu, 0.0)
+        d_m = torch.where(swapped, c_mem, 0.0)
+        new_l, cur_l = new_node.long(), cur.long()
+        cpu_load = cpu_load.index_put((new_l,), d_c, accumulate=True)
+        cpu_load = cpu_load.index_put((cur_l,), -d_c, accumulate=True)
+        mem_load = mem_load.index_put((new_l,), d_m, accumulate=True)
+        mem_load = mem_load.index_put((cur_l,), -d_m, accumulate=True)
+        assign[ids] = new_node
+        return cpu_load, mem_load, n_sw
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def make_sweep(do_swap: bool):
+        swap_now = use_swaps and do_swap
+
+        def sweep(carry, xs):
+            sp, temp = xs
+            assign, cpu_load, mem_load, best_assign, best_obj, best_comm = carry
+            assign = assign.clone()
+            seeds = sp.seeds.tolist()
+            moves, sws = zero, zero
+            # hubs first, on the freshest loads; each group reads the
+            # assignment the groups before it left
+            for g, group in enumerate(hub_groups):
+                M = hub_mass(assign, group)
+                cpu_load, mem_load, adm = place(
+                    assign, cpu_load, mem_load, group[1], M, temp, seeds[n_chunks + g],
+                    None if sp.hub_gumbel is None else sp.hub_gumbel[g],
+                )
+                moves = moves + adm.sum()
+            chunk_blocks = reg_ext[sp.block_perm.long()].reshape(n_chunks, lay.blocks_per_chunk)
+            chunk_ids = (chunk_blocks[:, :, None] * BLOCK_R + row_iota).reshape(n_chunks, C_eff)
+            for c in range(n_chunks):
+                blocks, ids = chunk_blocks[c], chunk_ids[c]
+                u_c, rvu_c = chunk_local_slabs(sgraph.u_ids, rvu, toff_ext[blocks].long() * bu,
+                                               sgraph.u_reg)
+                u_ci = torch.clamp(u_c.long(), 0, SPX - 1)
+                tgt_c = assign[u_ci]
+                if use_kernels and not swap_now:
+                    # fused mass + score: the [C, N] mass never reaches
+                    # device memory
+                    valid_c = svc_valid[ids]
+                    c_cpu = svc_cpu_s[ids]
+                    c_mem = svc_mem_s[ids]
+                    cur = assign[ids]
+                    prop, gain, wants, s_cpu, s_mem = sparse_mass_score(
+                        w_mm, tgt_c, rvu_c, blocks, toff_ext, rv_s[ids], cur,
+                        assign0[ids] if mc_on else cur, pen_vec[ids] if mc_on else None,
+                        c_cpu, c_mem, valid_c, cpu_load, mem_load, cap, mem_cap, node_valid,
+                        lam, temp, seeds[c], ow, num_nodes=N, bu=bu, reg_tiles=reg_tiles,
+                        enforce_capacity=config.enforce_capacity, use_noise=use_noise,
+                    )
+                    new_node, admitted, d_cpu, d_mem = admission_stage(
+                        prop, gain, wants, s_cpu, s_mem, cur, valid_c, c_cpu, c_mem,
+                        num_nodes=N, enforce_capacity=config.enforce_capacity,
+                        emit_x_rows=False,
+                    )
+                    assign[ids] = new_node
+                    cpu_load = cpu_load + d_cpu
+                    mem_load = mem_load + d_mem
+                    moves = moves + admitted.sum()
+                    continue
+                M = chunk_mass(tgt_c, rvu_c, blocks, ids, N)
+                cpu_load, mem_load, admitted = place(
+                    assign, cpu_load, mem_load, ids, M, temp, seeds[c],
+                    None if sp.gumbel is None else sp.gumbel[c],
+                )
+                moves = moves + admitted.sum()
+                if not swap_now:
+                    continue
+                # chunk-local pair weights through the same mass step,
+                # with "node" = chunk position: Wc[i, j] = W[i, ids_j]
+                pos = torch.full((SPX,), C_eff, dtype=torch.int32, device=dev)
+                pos[ids] = chunk_pos
+                Wc = chunk_mass(pos[u_ci], rvu_c, blocks, ids, C_eff)
+                cpu_load, mem_load, n_sw = _swap_phase(
+                    ids, M, Wc, assign, cpu_load, mem_load, admitted
+                )
+                sws = sws + n_sw
+            # refresh the carried loads at each sweep boundary: incremental
+            # f32 drift stays bounded to one sweep
+            cpu_fresh, mem_fresh = loads(assign)
+            comm, obj = objective_terms(assign, cpu_fresh)
+            better = obj < best_obj
+            best_assign = torch.where(better, assign, best_assign)
+            best_obj = torch.where(better, obj, best_obj)
+            best_comm = torch.where(better, comm, best_comm)
+            return (assign, cpu_fresh, mem_fresh, best_assign, best_obj, best_comm), (moves, sws)
+
+        return sweep
+
+    # true objective of the INPUT placement (replicas may be split across
+    # nodes): the adopt gate compares against this
+    pct_true0 = torch.where(node_valid, state.node_cpu_used() / cap * 100.0, 0.0)
+    comm_true0 = sparse_pod_comm_cost(state, sgraph)
+    obj_true0 = (
+        comm_true0
+        + lam * (load_std(state) / config.capacity_frac)
+        + ow * torch.sum(torch.clamp_min(pct_true0 - 100.0, 0.0))
+    )
+    cpu0, mem0 = loads(assign0)
+    comm0, obj0 = objective_terms(assign0, cpu0)
+    # linear decay to zero (f32 values on the host, as the JAX package's)
+    temps = (
+        config.noise_temp
+        * (1.0 - torch.arange(config.sweeps, dtype=f32) / max(config.sweeps - 1, 1))
+    ).tolist()
+    (_, _, _, best_assign, best_obj, best_comm), outs = scan_sweeps(
+        make_sweep, (assign0, cpu0, mem0, assign0, obj0, comm0), plan, temps, sw_flags
+    )
+    moves_per_sweep = torch.stack([m for m, _ in outs]) if outs else zero[None][:0]
+    swaps_per_sweep = torch.stack([s for _, s in outs]) if outs else zero[None][:0]
+
+    # under disruption pricing the adopt gate re-prices with the exact
+    # pod-level restart bill; the reported objective stays raw
+    raw_after = best_comm + _balance_terms(loads(best_assign)[0]) if mc_on else best_obj
+    best_pen = (
+        pod_restart_bill(state, best_assign[pod_slot], config.move_cost)
+        if mc_on else torch.zeros((), dtype=f32, device=dev)
+    )
+    improved = raw_after + best_pen < obj_true0
+    new_pod_node = torch.where(improved & state.pod_valid, best_assign[pod_slot], state.pod_node)
+    new_state = state.replace(pod_node=new_pod_node)
+    info = {
+        "objective_before": obj_true0,
+        "objective_after": torch.where(improved, raw_after, obj_true0),
+        "improved": improved,
+        "moves_per_sweep": moves_per_sweep,
+        "swaps_per_sweep": swaps_per_sweep,
+        "move_penalty": torch.where(improved, best_pen, 0.0),
+        # an adopted placement colocates every service's replicas, so its
+        # pod-level cost is the tracked service-level cut of best_assign
+        "communication_cost": torch.where(improved, best_comm, comm_true0),
+        "load_std": load_std(new_state),
+        "hub_pass": torch.tensor(len(lay.hub_groups) > 0),
+    }
+    return new_state, info

@@ -39,7 +39,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sys, kubernetes_rescheduling_tpu_torch\n"
         "import kubernetes_rescheduling_tpu_torch.cli, kubernetes_rescheduling_tpu_torch.convert\n"
         "import kubernetes_rescheduling_tpu_torch.solver.global_solver\n"
+        "import kubernetes_rescheduling_tpu_torch.solver.sparse_solver\n"
+        "import kubernetes_rescheduling_tpu_torch.solver.pod_mode\n"
+        "import kubernetes_rescheduling_tpu_torch.ops.sparse_mass\n"
         "import kubernetes_rescheduling_tpu_torch.bench.harness\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.profile\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -75,9 +79,10 @@ def test_chip_smoke_alone_fails_without_the_package(tmp_path):
 
 def _entry_points():
     from kubernetes_rescheduling_tpu_torch import cli, convert
-    from kubernetes_rescheduling_tpu_torch.bench.harness import make_backend
-    from kubernetes_rescheduling_tpu_torch.core import topology
+    from kubernetes_rescheduling_tpu_torch.bench.harness import make_backend, sparse_problem
+    from kubernetes_rescheduling_tpu_torch.core import sparsegraph, topology
     from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
+    from kubernetes_rescheduling_tpu_torch.core.workmodel import ServiceSpec, Workmodel
 
     return {
         "make_backend": lambda: make_backend("dense", 0),
@@ -92,6 +97,15 @@ def _entry_points():
             {"adj": [[0.0]], "service_valid": [True]}
         ),
         "cli solve": lambda: cli.main(["solve", "--scenario", "dense"]),
+        "cli solve --sparse": lambda: cli.main(["solve", "--scenario", "dense", "--sparse"]),
+        "sparse_problem": lambda: sparse_problem(300, 4),
+        "sparsegraph.from_edges": lambda: sparsegraph.from_edges([0], [1], [1.0], 2),
+        "sparsegraph.from_workmodel": lambda: sparsegraph.from_workmodel(
+            Workmodel(services=(ServiceSpec("a", callees=("b",)), ServiceSpec("b")))
+        ),
+        "sparse_graph_from_arrays": lambda: convert.sparse_graph_from_arrays(
+            {k: [] for k in convert.SPARSE_ARRAYS + convert.SPARSE_STATIC}
+        ),
     }
 
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from kubernetes_rescheduling_tpu.ops import fused_admission as jfa
+from kubernetes_rescheduling_tpu_torch import ops
 from kubernetes_rescheduling_tpu_torch.ops import fused_admission as tfa
 
 
@@ -210,12 +211,13 @@ def test_neighbor_mass_rejects_ragged_tiling():
 
 def test_wrappers_count_only_kernel_launches():
     """CPU tensors take the plain versions: no kernel launch is counted."""
-    tfa.reset_launch_counts()
+    ops.reset_launch_counts()
     args = random_instance(1)
     tfa.fused_score_admission(*as_torch(args), 0.5, 0.0, 1, enforce_capacity=True,
                               use_noise=False)
-    assert tfa.launch_counts() == {
+    assert ops.launch_counts() == {
         "fused_neighbor_mass": 0, "score_stage": 0, "admission_stage": 0,
+        "sparse_neighbor_mass": 0, "hub_neighbor_mass": 0, "sparse_mass_score": 0,
     }
 
 
