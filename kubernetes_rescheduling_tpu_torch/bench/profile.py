@@ -35,7 +35,7 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import prepare_weigh
 SPARSE_SCENARIOS = {"sparse50k": (50_000, 2_000)}
 
 
-def profile_round(scenario: str = "large", seed: int = 0, top: int = 12) -> dict:
+def profile_round(scenario: str = "large", seed: int = 0, top: int = 16) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     cfg = GlobalSolverConfig()

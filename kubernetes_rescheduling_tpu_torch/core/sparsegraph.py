@@ -116,6 +116,7 @@ class SparseCommGraph:
             adj=torch.as_tensor(adj, device=self.device),
             service_valid=torch.ones((S,), dtype=torch.bool, device=self.device),
             names=self.names,
+            integral_weights=self.integral_weights,
         )
 
 

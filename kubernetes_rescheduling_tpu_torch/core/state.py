@@ -50,11 +50,22 @@ class CommGraph:
         communicate. Diagonal is zero.
       service_valid: bool[S] — padding mask.
       names: tuple of service names, index-aligned with ``adj``.
+      integral_weights: whether every weight in ``adj`` is an integer, so
+        that every pair weight ``adj·rv·rvᵀ`` is one (replica counts are
+        integers). The dense mass kernel sums without order and is exact
+        only then. ``None`` reads it from ``adj`` at construction (one
+        host read, never inside a solve).
     """
 
     adj: torch.Tensor
     service_valid: torch.Tensor
     names: tuple[str, ...] = ()
+    integral_weights: bool | None = None
+
+    def __post_init__(self):
+        if self.integral_weights is None:
+            whole = bool(torch.equal(self.adj, torch.round(self.adj)))
+            object.__setattr__(self, "integral_weights", whole)
 
     @property
     def num_services(self) -> int:
@@ -106,6 +117,7 @@ class CommGraph:
             adj=torch.as_tensor(adj, device=dev),
             service_valid=torch.as_tensor(valid, device=dev),
             names=tuple(names),
+            integral_weights=True,  # every weight is 0 or 1
         )
 
 

@@ -1,14 +1,12 @@
 // Neighbor mass over the block-local sparse pair weights: replaces the
 // Pallas kernels `sparse_neighbor_mass` / `_chunk_kernel` and
 // `hub_neighbor_mass` / `_hub_kernel` in
-// kubernetes_rescheduling_tpu/ops/sparse_mass.py. Both run the same
-// accumulate step (`krt_accumulate_tile`, sparse_tile.cuh), as the two
-// Pallas kernels share `_mass_body`.
+// kubernetes_rescheduling_tpu/ops/sparse_mass.py.
 //
 // Chunk mass: for block slot i of the chunk,
-//   M[i*256 + r, n] = sum over j < reg_tiles, u < bu of
-//       W[r, (toff[blocks[i]] + j)*bu + u] * rvu_c[(i*reg_tiles + j)*bu + u]
-//       * [tgt_c[(i*reg_tiles + j)*bu + u] == n]
+//   M[i*256 + r, n] = sum over u < reg_tiles*bu of
+//       W[r, toff[blocks[i]]*bu + u] * rvu_c[i*reg_tiles*bu + u]
+//       * [tgt_c[i*reg_tiles*bu + u] == n]
 // with n < nn; nn is the node count for M, or the chunk width when the swap
 // phase asks for the chunk-local pair weights. Hub mass: the same sum for
 // output block o over the flat list of ragged hub tiles t with
@@ -18,40 +16,196 @@
 // Bound on the card: bytes. The chunk kernel reads the chunk's W strips
 // once (KB*256 rows x reg_tiles*bu columns: 2.1 MB of bf16 at the 50k
 // graph's KB = 4, bu = 512, reg_tiles = 2) and writes M (8.2 MB at nn =
-// 2000); the work is one multiply-add per nonzero weight. Design: one CUDA
-// block per (block slot, `rows`-row sub-tile). The Pallas grid's sequential
-// tile axis becomes a loop inside the block; `pl.when(first)` becomes
-// zeroing the shared-memory rows; each block loads its own strip offset
-// (no scalar prefetch). At rows = 8 and nn = 2000 the rows take 64 KB of
-// shared memory, granted through cudaFuncSetAttribute.
+// 2000, almost all zeros); the work is one multiply per nonzero product, a
+// few thousand per chunk. So the design serves the write and hides the
+// reads' latency:
+//  - one warp per output row, eight rows (all of one block slot) per CUDA
+//    block: 1024 warps over the SMs at the 50k graph's chunk;
+//  - each warp first issues its long reads: the strip's place (block table,
+//    then tile offset), then its whole strip row (16-byte loads, up to 4 per
+//    lane at once) and its share of the slot's tgt/rvu slab (which goes to
+//    shared memory, shared by the block's rows); only then, while they are
+//    in flight, does it write its row of zeros straight to device memory
+//    with 16-byte stores (no shared-memory staging), so the reads are not
+//    queued behind 8 MB of stores;
+//  - each warp then keeps its nonzero products, in column order, in a short
+//    per-warp list in shared memory; after a __syncwarp() they are added,
+//    32 at a time: the lanes of one target column form a group (found by
+//    shuffles), the group's lowest lane sums the group in lane order and
+//    writes the column (a plain store in the row's first round,
+//    read-add-write after it).
+// One warp writes each row and adds its products in a fixed order, with no
+// atomics, so M is the same on every run for any weights; for integer
+// weights and replica counts every partial sum is exact and M equals the
+// plain version (an f32 product) bit for bit.
 //
-// Exactness: see sparse_tile.cuh; for integer weights and replica counts
-// the result equals the plain version bit for bit.
+// The hub kernel keeps the first port's design: one CUDA block per (output
+// block, `rows`-row sub-tile), the Pallas grid's sequential tile axis a loop
+// inside the block, `pl.when(first)` a zeroing of the shared-memory rows,
+// the products added with the shared step of sparse_tile.cuh (unordered
+// shared-memory atomics, exact for integer weights; see there).
 
 #include "sparse_tile.cuh"
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// Adds a warp's listed products (column, f32 bits) into its row `out`, 32
+// at a time: the lanes of one target column form a group, whose lowest lane
+// sums the group in lane order and writes the column. `fresh` (warp
+// uniform) says no product of this row was written yet, so the first round
+// stores over the zeros instead of reading them back.
+__device__ __forceinline__ void add_products(const int2* list, int count, float* out,
+                                             bool& fresh, int lane) {
+  __syncwarp();  // the row's zeros and every lane's list entries, in order
+  for (int r0 = 0; r0 < count; r0 += 32) {
+    const int n = min(32, count - r0);
+    const int2 ent = lane < n ? list[r0 + lane] : make_int2(-1, 0);
+    const float p = __int_as_float(ent.y);
+    float sum = 0.0f;
+    int first = 32;  // the group's lowest lane
+    for (int b = 0; b < n; ++b) {
+      const int c = __shfl_sync(kFull, ent.x, b);
+      const float q = __shfl_sync(kFull, p, b);
+      if (c == ent.x) {
+        sum = __fadd_rn(sum, q);
+        first = min(first, b);
+      }
+    }
+    if (lane < n && first == lane) out[ent.x] = fresh ? sum : __fadd_rn(out[ent.x], sum);
+    fresh = false;
+    __syncwarp();
+  }
+}
+
+constexpr int kStripGroup = 4;  // 16-byte vectors of the strip each lane loads at once
+
+// Shared layout: the slot's slab tgt i32[U] | rvu f32[U] | one product list
+// per warp, int2[32 * VEC]: 8 U + warps * 256 * VEC bytes.
 template <typename T>
-__global__ void __launch_bounds__(kSparseThreads)
+__global__ void __launch_bounds__(256)
 chunk_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__ tgt_c,
                   const float* __restrict__ rvu_c, const int* __restrict__ blocks,
-                  const int* __restrict__ toff, int bu, int reg_tiles, int nn, int rows,
+                  const int* __restrict__ toff, int bu, int reg_tiles, int nn,
                   float* __restrict__ M) {
-  extern __shared__ float acc[];  // [rows, nn]
-  const int subtiles = kBlockR / rows;
-  const int slot = blockIdx.x / subtiles;
-  const int row0 = (blockIdx.x % subtiles) * rows;
-  krt_zero(acc, rows * nn);
-  __syncthreads();
-  const long long tile0 = toff[blocks[slot]];
-  for (int j = 0; j < reg_tiles; ++j) {
-    const long long lcol = static_cast<long long>(slot * reg_tiles + j) * bu;
-    krt_accumulate_tile(W, ld, row0, rows, (tile0 + j) * bu, tgt_c + lcol, rvu_c + lcol, bu,
-                        nn, acc);
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int kList = 32 * VEC;  // products one lane-round over 32 vectors can add
+  constexpr int kSlabBatch = 8;
+  extern __shared__ __align__(16) unsigned char shared[];
+  const int U = reg_tiles * bu;
+  int* s_tgt = reinterpret_cast<int*>(shared);
+  float* s_rvu = reinterpret_cast<float*>(s_tgt + U);
+  int2* lists = reinterpret_cast<int2*>(s_rvu + U);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int row = blockIdx.x * warps + warp;  // the block's rows share one slot
+  const int slot = blockIdx.x * warps / kBlockR;
+  float* out = M + static_cast<long long>(row) * nn;
+
+  // the long reads first: the strip's place (two dependent loads), then
+  // the strip row (kStripGroup vectors per lane) and the slot's slab ...
+  const T* w = W + static_cast<long long>(row % kBlockR) * ld +
+               static_cast<long long>(toff[blocks[slot]]) * bu;
+  const int vecs = U / VEC;
+  int4 raw[kStripGroup];
+#pragma unroll
+  for (int q = 0; q < kStripGroup; ++q) {
+    const int v = q * 32 + lane;
+    raw[q] = v < vecs ? *reinterpret_cast<const int4*>(w + static_cast<long long>(v) * VEC)
+                      : make_int4(0, 0, 0, 0);
   }
-  __syncthreads();
-  krt_store_rows(acc, rows * nn, M + static_cast<long long>(slot * kBlockR + row0) * nn);
+  const int* tg = tgt_c + static_cast<long long>(slot) * U;
+  const float* rv = rvu_c + static_cast<long long>(slot) * U;
+  int t_reg[kSlabBatch];
+  float r_reg[kSlabBatch];
+#pragma unroll
+  for (int b = 0; b < kSlabBatch; ++b) {
+    const int i = b * blockDim.x + threadIdx.x;
+    t_reg[b] = i < U ? tg[i] : 0;
+    r_reg[b] = i < U ? rv[i] : 0.0f;
+  }
+  // ... then, while they are in flight, the row of zeros straight to device
+  // memory (nothing waits on these stores) ...
+  if ((nn & 3) == 0) {
+    float4* out4 = reinterpret_cast<float4*>(out);
+    for (int c = lane; c < (nn >> 2); c += 32) out4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int c = lane; c < nn; c += 32) out[c] = 0.0f;
+  }
+  // ... and the slab into shared memory (its first batch from registers)
+  for (int i0 = 0; i0 < U; i0 += kSlabBatch * blockDim.x) {
+#pragma unroll
+    for (int b = 0; b < kSlabBatch; ++b) {
+      const int i = i0 + b * blockDim.x + threadIdx.x;
+      if (i0 > 0) {
+        t_reg[b] = i < U ? tg[i] : 0;
+        r_reg[b] = i < U ? rv[i] : 0.0f;
+      }
+      if (i < U) {
+        s_tgt[i] = t_reg[b];
+        s_rvu[i] = r_reg[b];
+      }
+    }
+  }
+  __syncthreads();  // the slab is in shared memory
+
+  int2* list = lists + warp * kList;
+  int count = 0;      // warp uniform
+  bool fresh = true;  // warp uniform
+  for (int g0 = 0; g0 < vecs; g0 += kStripGroup * 32) {
+    if (g0 > 0) {
+#pragma unroll
+      for (int q = 0; q < kStripGroup; ++q) {
+        const int v = g0 + q * 32 + lane;
+        raw[q] = v < vecs ? *reinterpret_cast<const int4*>(w + static_cast<long long>(v) * VEC)
+                          : make_int4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kStripGroup; ++q) {
+      const int v = g0 + q * 32 + lane;
+      const T* wv = reinterpret_cast<const T*>(&raw[q]);
+      int col[VEC];
+      float prod[VEC];
+      int mine = 0;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        col[e] = -1;
+        const float x = krt_to_float(wv[e]);
+        if (x == 0.0f) continue;
+        const int u = v * VEC + e;
+        const int t = s_tgt[u];
+        const float r = krt_as_w<T>(s_rvu[u]);
+        if (r != 0.0f && t >= 0 && t < nn) {
+          col[e] = t;
+          prod[e] = __fmul_rn(x, r);
+          ++mine;
+        }
+      }
+      // list positions in column order: lanes in order, each lane's own in e order
+      int incl = mine;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int up = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += up;
+      }
+      const int total = __shfl_sync(kFull, incl, 31);
+      if (total == 0) continue;
+      if (count + total > kList) {
+        add_products(list, count, out, fresh, lane);
+        count = 0;
+      }
+      int pos = count + incl - mine;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        if (col[e] >= 0) list[pos++] = make_int2(col[e], __float_as_int(prod[e]));
+      }
+      count += total;
+    }
+  }
+  add_products(list, count, out, fresh, lane);
 }
 
 template <typename T>
@@ -87,13 +241,20 @@ hub_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__ t
 template <typename T>
 int launch_chunk(const void* W, long long ld, const int* tgt_c, const float* rvu_c,
                  const int* blocks, const int* toff, int n_slots, int bu, int reg_tiles, int nn,
-                 int rows, float* M, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(rows) * nn * sizeof(float);
+                 int warps, int grid, int smem, float* M, cudaStream_t stream) {
+  // the wrapper's geometry (`chunk_mass_geometry`): whole blocks of rows of
+  // one slot, the slab and one product list per warp in shared memory
+  const long long n_rows = static_cast<long long>(n_slots) * kBlockR;
+  const long long want = 8LL * reg_tiles * bu + warps * 256LL * static_cast<int>(16 / sizeof(T));
+  if (warps < 1 || warps > 8 || kBlockR % warps || static_cast<long long>(grid) * warps != n_rows ||
+      smem != want) {
+    return cudaErrorInvalidValue;
+  }
   static size_t granted = 48 * 1024;
   cudaError_t err = krt_allow_smem(chunk_mass_kernel<T>, smem, &granted);
   if (err != cudaSuccess) return err;
-  chunk_mass_kernel<T><<<n_slots * (kBlockR / rows), kSparseThreads, smem, stream>>>(
-      static_cast<const T*>(W), ld, tgt_c, rvu_c, blocks, toff, bu, reg_tiles, nn, rows, M);
+  chunk_mass_kernel<T><<<grid, warps * 32, smem, stream>>>(
+      static_cast<const T*>(W), ld, tgt_c, rvu_c, blocks, toff, bu, reg_tiles, nn, M);
   return cudaGetLastError();
 }
 
@@ -116,19 +277,20 @@ int launch_hub(const void* W, long long ld, const int* tgt_l, const float* rvu_l
 
 // W: [256, ld] row-major bf16 (w_is_bf16 = 1) or f32; tgt_c: i32 and rvu_c:
 // f32 [n_slots * reg_tiles * bu] chunk-local slabs; blocks: i32[n_slots];
-// toff: i32 per block id; M: f32[n_slots * 256, nn] output. `rows` divides
-// 256.
+// toff: i32 per block id; M: f32[n_slots * 256, nn] output. warps, grid and
+// smem: the wrapper's launch geometry (`chunk_mass_geometry`).
 KRT_EXPORT int krt_sparse_mass_launch(int device, const void* W, int w_is_bf16, long long ld,
                                       const int* tgt_c, const float* rvu_c, const int* blocks,
                                       const int* toff, int n_slots, int bu, int reg_tiles,
-                                      int nn, int rows, float* M, void* stream) {
+                                      int nn, int warps, int grid, int smem, float* M,
+                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
   return w_is_bf16 ? launch_chunk<__nv_bfloat16>(W, ld, tgt_c, rvu_c, blocks, toff, n_slots, bu,
-                                                 reg_tiles, nn, rows, M, s)
+                                                 reg_tiles, nn, warps, grid, smem, M, s)
                    : launch_chunk<float>(W, ld, tgt_c, rvu_c, blocks, toff, n_slots, bu,
-                                         reg_tiles, nn, rows, M, s);
+                                         reg_tiles, nn, warps, grid, smem, M, s);
 }
 
 // tgt_l: i32 and rvu_l: f32 group-local slabs; tile_*: i32[n_tiles]; M:

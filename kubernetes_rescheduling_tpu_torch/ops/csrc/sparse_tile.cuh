@@ -1,7 +1,7 @@
-// The accumulate step of the sparse neighbor mass, shared by the three
-// sparse kernels (sparse_mass.cu: chunk and hub mass; mass_score.cu: the
-// fused mass+score) — the port of `_mass_body` in
-// kubernetes_rescheduling_tpu/ops/sparse_mass.py.
+// The accumulate step of the sparse neighbor mass, shared by the hub mass
+// kernel (sparse_mass.cu) and the fused mass+score (mass_score.cu) — the
+// port of `_mass_body` in kubernetes_rescheduling_tpu/ops/sparse_mass.py.
+// The chunk mass kernel (sparse_mass.cu) has its own, ordered design.
 //
 // The TPU body multiplies a [256, bu] tile of the block-local weights by
 // the one-hot tile `one_hot(tgt) * rvu` [bu, nn] on the MXU. Against a
@@ -70,18 +70,4 @@ __device__ __forceinline__ void krt_accumulate_tile(const T* __restrict__ W, lon
 // Copies the block's finished rows of M to device memory.
 __device__ __forceinline__ void krt_store_rows(const float* acc, int n, float* out) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = acc[i];
-}
-
-// Opts a kernel into `smem` bytes of dynamic shared memory (needed above
-// 48 KB) unless `*granted` already covers it, and reports whether the
-// request was accepted. Each launch function keeps its own `granted`, so
-// repeated launches (and launches inside a CUDA graph capture) make no
-// further attribute calls.
-template <typename K>
-cudaError_t krt_allow_smem(K kernel, size_t smem, size_t* granted) {
-  if (smem <= *granted) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess) *granted = smem;
-  return err;
 }

@@ -43,6 +43,8 @@ from kubernetes_rescheduling_tpu_torch.ops import _build
 
 _NEG_INF = float("-inf")
 _M32 = 0xFFFFFFFF
+_SHARED_BYTES = 227 * 1024  # shared memory one Hopper block can use
+_ADMISSION_STATIC = 1024    # the admission kernel's own scan scratch, at most
 
 
 # ---------------------------------------------------------------- plain math
@@ -222,9 +224,9 @@ def admission_plain(
     """Plain version of the admission kernel: :func:`pairwise_admission`,
     then the one-hot occupancy rows (or None) and the per-node net load
     deltas, accumulated tile by tile in tile order as the JAX package's
-    kernel does. (The CUDA kernel adds in ascending row order; the two agree
-    exactly for integer-valued loads.) Returns ``(new_node, admitted,
-    x_rows, d_cpu, d_mem)``."""
+    kernel does. (The CUDA kernel sums in another fixed order, over rows
+    sorted by target; the two agree exactly for integer-valued loads.)
+    Returns ``(new_node, admitted, x_rows, d_cpu, d_mem)``."""
     C = prop.shape[0]
     wants_b = wants != 0
     if enforce_capacity:
@@ -265,6 +267,12 @@ def _on_cuda(*tensors) -> bool:
     raise ValueError(f"no kernel or plain version for device {dev}")
 
 
+def _check_lengths(tensors, n: int, what: str) -> None:
+    got = [t.numel() for t in tensors]
+    if any(g != n for g in got):
+        raise ValueError(f"{what} must hold {n} entries each, got {got}")
+
+
 def _ptr(t: torch.Tensor) -> int:
     if not t.is_contiguous():
         raise ValueError("kernel operands must be contiguous")
@@ -283,8 +291,12 @@ def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
-def _u8(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.uint8).contiguous()
+def _flag(t: torch.Tensor) -> torch.Tensor:
+    """One byte per entry, nonzero where true, as the kernels read flags: a
+    bool (or uint8) tensor is passed as it is, with no conversion copy."""
+    if t.dtype in (torch.bool, torch.uint8):
+        return t.contiguous()
+    return (t != 0).to(torch.uint8)
 
 
 def fused_neighbor_mass(
@@ -325,9 +337,9 @@ def fused_neighbor_mass(
     rows = 8
     while rows > 1 and rows * N * 4 > 96 * 1024:
         rows //= 2
-    if rows * N * 4 > 227 * 1024:
+    if rows * N * 4 > _SHARED_BYTES:
         raise ValueError(f"num_nodes={N} too large for one shared-memory row of M")
-    assign_i, valid_u, blocks_i = _i32(assign), _u8(svc_valid), _i32(block_ids)
+    assign_i, valid_u, blocks_i = _i32(assign), _flag(svc_valid), _i32(block_ids)
     M = torch.empty((C, N), dtype=torch.float32, device=W.device)
     lib = _build.library("mass")
     code = lib.krt_mass_launch(
@@ -388,8 +400,8 @@ def score_stage(
     slack_cpu = torch.empty_like(gain)
     slack_mem = torch.empty_like(gain)
     ops = (_f32(M), _i32(cur), _i32(home), _f32(move_pen), _f32(c_cpu), _f32(c_mem),
-           _u8(valid_c), _f32(cpu_load), _f32(mem_load), _f32(cap), _f32(mem_cap),
-           _u8(node_valid))
+           _flag(valid_c), _f32(cpu_load), _f32(mem_load), _f32(cap), _f32(mem_cap),
+           _flag(node_valid))
     lib = _build.library("score")
     code = lib.krt_score_launch(
         M.device.index or 0, *(_ptr(t) for t in ops),
@@ -457,6 +469,31 @@ def fused_score_admission(
     )
 
 
+def admission_geometry(C: int) -> tuple[int, int, int, bool]:
+    """Launch geometry of the admission kernel, one CUDA block per chunk of
+    C rows: ``(threads, P, work bytes, in shared memory)``. P is the sort
+    width (the power of two from C up, at least a warp); up to 1024 rows
+    one thread holds each sort slot. The block stages ``20·P + 25·C``
+    bytes of sort buffers and row arrays, in shared memory while they fit
+    (C up to about 4,000), else in a device-memory scratch of that size."""
+    if not 1 <= C < 2**30:
+        raise ValueError(f"chunk of {C} rows: the admission kernel takes 1 to 2**30 - 1")
+    P = max(32, 1 << (C - 1).bit_length())
+    threads = min(1024, P)
+    work = -(-(20 * P + 25 * C) // 16) * 16
+    return threads, P, work, work + _ADMISSION_STATIC <= _SHARED_BYTES
+
+
+def admission_operands(prop, gain, wants, slack_cpu, slack_mem, cur, valid_c, c_cpu, c_mem):
+    """The admission kernel's nine operands as it reads them: i32 ``prop``,
+    ``wants``, ``cur``; f32 ``gain``, slacks and loads; one byte per
+    ``valid_c`` flag. For the dtypes the solvers pass (contiguous i32 and
+    f32 vectors and a bool ``valid_c``) these are the given tensors
+    themselves: no conversion copy reaches the device."""
+    return (_i32(prop), _f32(gain), _i32(wants), _f32(slack_cpu), _f32(slack_mem),
+            _i32(cur), _flag(valid_c), _f32(c_cpu), _f32(c_mem))
+
+
 def admission_stage(
     prop, gain, wants, slack_cpu, slack_mem,  # [C] score-stage outputs
     cur, valid_c, c_cpu, c_mem,               # [C] chunk vectors
@@ -467,7 +504,8 @@ def admission_stage(
     x_dtype=torch.bfloat16,
     emit_x_rows: bool,
 ):
-    """The admission-race half of :func:`fused_score_admission`.
+    """The admission-race half of :func:`fused_score_admission` — the
+    wrapper of ``csrc/admission.cu``, one kernel launch per call.
 
     ``emit_x_rows`` is keyword-required and has no default: it changes the
     return arity (5-tuple with occupancy rows vs 4-tuple without)."""
@@ -475,23 +513,26 @@ def admission_stage(
     N = int(num_nodes)
     bc = min(block_c, C)
     vecs = (prop, gain, wants, slack_cpu, slack_mem, cur, valid_c, c_cpu, c_mem)
+    _check_lengths(vecs, C, "admission operands")
     if _on_cuda(*vecs):
         dev = prop.device
         if emit_x_rows and x_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"x_rows dtype must be bf16 or f32, got {x_dtype}")
+        threads, P, work_bytes, in_shared = admission_geometry(C)
         lib = _build.library("admission")
         new_node = torch.empty((C,), dtype=torch.int32, device=dev)
         admitted = torch.empty((C,), dtype=torch.bool, device=dev)
         d_cpu = torch.empty((N,), dtype=torch.float32, device=dev)
         d_mem = torch.empty_like(d_cpu)
         x_rows = torch.empty((C, N), dtype=x_dtype, device=dev) if emit_x_rows else None
-        ops = (_i32(prop), _f32(gain), _i32(wants), _f32(slack_cpu), _f32(slack_mem),
-               _i32(cur), _u8(valid_c), _f32(c_cpu), _f32(c_mem))
+        work = None if in_shared else torch.empty((work_bytes,), dtype=torch.uint8, device=dev)
+        ops = admission_operands(*vecs)
         x_kind = 0 if x_rows is None else (1 if x_dtype == torch.bfloat16 else 2)
         code = lib.krt_admission_launch(
             dev.index or 0, *(_ptr(t) for t in ops), C, N, int(enforce_capacity),
             _ptr(new_node), _ptr(admitted), _ptr(d_cpu), _ptr(d_mem),
-            None if x_rows is None else _ptr(x_rows), x_kind, _stream(dev),
+            None if x_rows is None else _ptr(x_rows), x_kind, threads, P,
+            None if work is None else _ptr(work), work_bytes, _stream(dev),
         )
         _build.check(lib, code, "admission_stage")
         admission_stage.launches += 1

@@ -37,17 +37,16 @@ import torch
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import BLOCK_R
 from kubernetes_rescheduling_tpu_torch.ops import _build
 from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
+    _SHARED_BYTES,
+    _check_lengths,
     _f32,
+    _flag,
     _i32,
     _on_cuda,
     _ptr,
     _stream,
-    _u8,
     score_stage_plain,
 )
-
-_SHARED_BYTES = 227 * 1024  # shared memory one Hopper block can use
-
 
 # ---------------------------------------------------------------- plain math
 
@@ -169,6 +168,28 @@ def _check_weights(w_mm: torch.Tensor, bu: int) -> None:
         raise ValueError(f"bu={bu} and the W rows must be whole 16-byte vectors")
 
 
+_CHUNK_WARPS = 8  # rows of M per CUDA block of the chunk mass kernel, one warp each
+
+
+def chunk_mass_geometry(n_rows: int, w_itemsize: int, u_reg: int) -> tuple[int, int, int]:
+    """Launch geometry of the chunk mass kernel for ``n_rows`` rows of M
+    (KB·256), W elements of ``w_itemsize`` bytes and strips of ``u_reg``
+    columns: ``(warps per block, blocks, shared bytes)``. One warp writes
+    each row, and a block's rows share one 256-row slot: its tgt/rvu slab
+    (8 bytes a column) sits in shared memory beside one list per warp of
+    up to 32 vectors' worth of products (8 bytes each), whatever the
+    output width."""
+    if n_rows <= 0 or n_rows % BLOCK_R:
+        raise ValueError(f"n_rows={n_rows} must be a positive multiple of {BLOCK_R}")
+    if w_itemsize not in (2, 4):
+        raise ValueError(f"W must be bf16 or f32, got {w_itemsize}-byte elements")
+    warps = _CHUNK_WARPS
+    smem = 8 * u_reg + warps * 32 * (16 // w_itemsize) * 8
+    if u_reg <= 0 or smem > _SHARED_BYTES:
+        raise ValueError(f"strips of {u_reg} columns do not fit one block's shared memory")
+    return warps, n_rows // warps, smem
+
+
 def _rows_per_block(nn: int) -> int:
     """Rows of M one CUDA block keeps in shared memory: 8 (which divides
     the 256-row block), fewer for wide outputs."""
@@ -178,12 +199,6 @@ def _rows_per_block(nn: int) -> int:
     if rows * nn * 4 > _SHARED_BYTES:
         raise ValueError(f"output width {nn} too large for one shared-memory row")
     return rows
-
-
-def _check_lengths(tensors, n: int, what: str) -> None:
-    got = [t.numel() for t in tensors]
-    if any(g != n for g in got):
-        raise ValueError(f"{what} must hold {n} entries each, got {got}")
 
 
 def sparse_neighbor_mass(
@@ -200,7 +215,9 @@ def sparse_neighbor_mass(
     """``M[KB·256, num_nodes]`` for one chunk of regular-width blocks —
     the wrapper of ``csrc/sparse_mass.cu``. ``num_nodes`` is the output
     width: the node count for M, the chunk width for the swap phase's
-    chunk-local pair weights."""
+    chunk-local pair weights. On the card each row's products are added
+    in a fixed order, so M is the same on every run for any weights (and
+    equal to the plain version for integer ones)."""
     KB = blocks.shape[0]
     N = int(num_nodes)
     _check_lengths((tgt_c, rvu_c), KB * reg_tiles * bu, "chunk slabs")
@@ -210,14 +227,14 @@ def sparse_neighbor_mass(
         )
     _check_weights(w_mm, bu)
     dev = w_mm.device
-    rows = _rows_per_block(N)
+    warps, grid, smem = chunk_mass_geometry(KB * BLOCK_R, w_mm.element_size(), reg_tiles * bu)
     tgt, rvu, blk, tof = _i32(tgt_c), _f32(rvu_c), _i32(blocks), _i32(toff)
     M = torch.empty((KB * BLOCK_R, N), dtype=torch.float32, device=dev)
     lib = _build.library("sparse_mass")
     code = lib.krt_sparse_mass_launch(
         dev.index or 0, _ptr(w_mm), int(w_mm.dtype == torch.bfloat16), w_mm.shape[1],
-        _ptr(tgt), _ptr(rvu), _ptr(blk), _ptr(tof), KB, bu, reg_tiles, N, rows, _ptr(M),
-        _stream(dev),
+        _ptr(tgt), _ptr(rvu), _ptr(blk), _ptr(tof), KB, bu, reg_tiles, N, warps, grid, smem,
+        _ptr(M), _stream(dev),
     )
     _build.check(lib, code, "sparse_neighbor_mass")
     sparse_neighbor_mass.launches += 1
@@ -326,8 +343,8 @@ def sparse_mass_score(
     slack_mem = torch.empty_like(gain)
     mass_ops = (_i32(tgt_c), _f32(rvu_c), _i32(blocks), _i32(toff), _f32(rv_row))
     score_ops = (_i32(cur), _i32(home), _f32(move_pen), _f32(c_cpu), _f32(c_mem),
-                 _u8(valid_c), _f32(cpu_load), _f32(mem_load), _f32(cap), _f32(mem_cap),
-                 _u8(node_valid))
+                 _flag(valid_c), _f32(cpu_load), _f32(mem_load), _f32(cap), _f32(mem_cap),
+                 _flag(node_valid))
     lib = _build.library("mass_score")
     code = lib.krt_mass_score_launch(
         dev.index or 0, _ptr(w_mm), int(w_mm.dtype == torch.bfloat16), w_mm.shape[1],

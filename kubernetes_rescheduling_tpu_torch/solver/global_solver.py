@@ -306,12 +306,28 @@ def draw_plans(generator, sweeps, SP, C, n_chunks, block) -> list[SweepPlan]:
     return plans
 
 
-def kernel_lowering(config: GlobalSolverConfig, device) -> bool:
+NON_INTEGER_WEIGHTS = (
+    "the mass kernels are exact only for integer pair weights and this graph has others; "
+    "solve with fused_epilogue='off'"
+)
+
+
+def kernel_lowering(config: GlobalSolverConfig, device, integral_weights: bool = True) -> bool:
     """Whether a solve on ``device`` takes the kernel lowering: ``"on"``
-    everywhere, ``"auto"`` on CUDA at any size, never under ``"off"``."""
-    return config.fused_epilogue == "on" or (
+    everywhere, ``"auto"`` on CUDA at any size, never under ``"off"``.
+
+    On CUDA the dense mass kernel, the hub mass and the fused mass+score
+    kernels sum with unordered atomics, exact (and so deterministic) only
+    while every partial sum is an integer: a graph whose pair weights are
+    not all integers (``integral_weights``, recorded when the graph is
+    built) raises there rather than give placements that may change from
+    run to run. ``"off"`` and the CPU still solve it."""
+    use = config.fused_epilogue == "on" or (
         config.fused_epilogue == "auto" and torch.device(device).type == "cuda"
     )
+    if use and torch.device(device).type == "cuda" and not integral_weights:
+        raise ValueError(NON_INTEGER_WEIGHTS)
+    return use
 
 
 def global_assign(
@@ -416,7 +432,7 @@ def global_assign(
         obj = 0.5 * (w_total - kept) + _balance_terms(cpu_load)
         return obj + move_penalty(assign) if mc_on else obj
 
-    use_fused = kernel_lowering(config, dev)
+    use_fused = kernel_lowering(config, dev, graph.integral_weights)
     # inline-mass lowering: the composition is block-granular (256 | C and
     # 256 | SP), so the mass kernel gathers W row-blocks by id and no
     # occupancy matrix exists

@@ -159,14 +159,15 @@ def extended_block_tables(sgraph: SparseCommGraph, layout: SparseLayout, device)
     """The chunk steps' block tables on ``device``: every block's first W
     column tile with the dummy blocks' (the zero strip) appended,
     i32[NB + n_dummy], and the regular block ids followed by the dummy ids,
-    i64[n_chunks·KB] — the slots a sweep's block permutation draws."""
+    i32[n_chunks·KB] — the slots a sweep's block permutation draws (i32,
+    as the mass kernels read them: no conversion copy per chunk)."""
     toff_ext = torch.tensor(
         list(sgraph.block_toff) + [sgraph.zero_toff] * layout.n_dummy,
         dtype=torch.int32, device=device,
     )
     reg_ext = torch.tensor(
         list(sgraph.regular_blocks) + [sgraph.num_blocks + d for d in range(layout.n_dummy)],
-        dtype=torch.int64, device=device,
+        dtype=torch.int32, device=device,
     )
     return toff_ext, reg_ext
 
@@ -265,20 +266,11 @@ def hub_slab(sgraph: SparseCommGraph, blocks, rv_s, SPX: int):
 
 def sparse_kernel_lowering(config: GlobalSolverConfig, sgraph: SparseCommGraph,
                            device) -> bool:
-    """The dense solver's :func:`kernel_lowering` choice, for a sparse graph.
-
-    On CUDA the mass kernels sum with unordered atomics, exact (and so
-    deterministic) only while every partial sum is an integer: a graph
-    with non-integer pair weights raises there until the kernels get an
-    ordered sum (ROADMAP Queue 2), rather than give placements that may
-    change from run to run."""
-    use = kernel_lowering(config, device)
-    if use and torch.device(device).type == "cuda" and not sgraph.integral_weights:
-        raise ValueError(
-            "the sparse mass kernels are exact only for integer pair weights and this "
-            "graph has others; solve with fused_epilogue='off'"
-        )
-    return use
+    """:func:`kernel_lowering` for a sparse graph's recorded weights: on
+    CUDA a graph with non-integer pair weights raises, because the hub mass
+    and fused mass+score kernels still sum without order (the chunk mass
+    kernel sums in a fixed order); ROADMAP Queue 1 item 2."""
+    return kernel_lowering(config, device, sgraph.integral_weights)
 
 
 def global_assign_sparse(
@@ -303,6 +295,7 @@ def global_assign_sparse(
             adj=sgraph.dense_adj,
             service_valid=torch.ones((S,), dtype=torch.bool, device=sgraph.dense_adj.device),
             names=sgraph.names,
+            integral_weights=sgraph.integral_weights,
         )
         new_state, info = global_assign(state, dense, generator, config, plan=plan)
         return new_state, dict(info, hub_pass=torch.tensor(False))

@@ -267,3 +267,25 @@ def test_move_cost_matches_jax(scenarios):
     assert (t_state.pod_node.numpy() == np.asarray(j_state.pod_node)).mean() >= 0.99
     for k in ("objective_after", "move_penalty"):
         assert float(t_info[k]) == pytest.approx(float(j_info[k]), rel=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["auto", "on"])
+def test_non_integer_weights_refuse_the_kernels_on_the_card(mode):
+    """The dense mass kernel's unordered sums are exact only for integer
+    pair weights: on CUDA a graph with other weights raises instead of
+    solving; "off" and the CPU (ordered plain sums) still take it. The
+    flag is recorded when the graph is built."""
+    scn = synthetic_scenario(n_pods=60, n_nodes=6, seed=5, device="cpu")
+    weighted = CommGraph(adj=scn.graph.adj * 0.75, service_valid=scn.graph.service_valid,
+                         names=scn.graph.names)
+    assert scn.graph.integral_weights and not weighted.integral_weights
+    cfg = tgs.GlobalSolverConfig(sweeps=2, fused_epilogue=mode)
+    cuda = torch.device("cuda")
+    with pytest.raises(ValueError, match="integer pair weights"):
+        tgs.kernel_lowering(cfg, cuda, weighted.integral_weights)
+    assert tgs.kernel_lowering(cfg, cuda, scn.graph.integral_weights)
+    off = dataclasses.replace(cfg, fused_epilogue="off")
+    assert not tgs.kernel_lowering(off, cuda, weighted.integral_weights)
+    for c in (cfg, off):
+        _, info = tgs.global_assign(scn.state, weighted, torch.Generator().manual_seed(1), c)
+        assert float(info["objective_after"]) <= float(info["objective_before"])

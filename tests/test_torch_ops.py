@@ -228,3 +228,98 @@ def test_wrappers_refuse_other_devices():
     args[0] = args[0].to("meta")
     with pytest.raises(ValueError):
         tfa.fused_score_admission(*args, 0.5, 0.0, 2, enforce_capacity=True, use_noise=False)
+
+
+def crowded_admission(seed=0, C=1024, N=2000):
+    """Score-stage outputs at the sparse round's chunk shape where about a
+    third of the rows race for one target with few distinct gains (many
+    exact ties), integer loads, and node room for only some of them."""
+    rng = np.random.default_rng(seed)
+    prop = rng.integers(0, N, size=C).astype(np.int32)
+    prop[rng.random(C) < 0.3] = 7
+    gain = rng.integers(1, 4, size=C).astype(np.float32)
+    cur = rng.integers(0, N, size=C).astype(np.int32)
+    wants = ((rng.random(C) < 0.8) & (prop != cur)).astype(np.int32)
+    c_cpu = (rng.integers(1, 5, size=C) * 100).astype(np.float32)
+    c_mem = (rng.integers(0, 3, size=C) * 1e6).astype(np.float32)
+    free = (rng.integers(0, 60, size=N) * 100).astype(np.float32)
+    free[7] = 20_000.0
+    slack_cpu = free[prop] - c_cpu
+    slack_mem = np.float32(1e9) - c_mem
+    valid = rng.random(C) < 0.95
+    return prop, gain, wants, slack_cpu, slack_mem, cur, valid, c_cpu, c_mem
+
+
+def test_admission_plain_matches_jax_on_a_crowded_target():
+    """Hundreds of rows with tied gains race for one node at C = 1024,
+    N = 2000: the plain version (which the kernel must equal on the card)
+    gives the JAX kernel's decisions, rows and deltas exactly."""
+    C, N = 1024, 2000
+    args = crowded_admission(C=C, N=N)
+    prop, gain, wants, slack_cpu, slack_mem, cur, valid, c_cpu, c_mem = args
+    kw = dict(num_nodes=N, enforce_capacity=True, block_c=256, emit_x_rows=True)
+    j_out = jfa.admission_stage(
+        *(jnp.asarray(a.reshape(C, 1)) for a in (prop, gain, wants, slack_cpu, slack_mem)),
+        *(jnp.asarray(a) for a in (cur, valid, c_cpu, c_mem)),
+        interpret=True, x_dtype=jnp.float32, **kw,
+    )
+    t_out = tfa.admission_stage(*as_torch(args), x_dtype=torch.float32, **kw)
+    for t, j in zip(t_out, j_out):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    new_node, admitted = t_out[0].numpy(), t_out[1].numpy()
+    crowd = (prop == 7) & (wants != 0)
+    assert admitted[crowd].any() and not admitted[crowd].all()  # the race decided
+    assert (new_node[crowd & admitted] == 7).all()
+
+
+@pytest.mark.parametrize("C", [
+    1, 2, 3, 20, 24, 31, 32, 33, 200, 256, 1000, 1024, 1025, 2048, 4096, 5000, 5200,
+    8192, 46_000, 50_000, 2**20,
+])
+def test_admission_geometry_is_a_legal_launch(C):
+    """One CUDA block per chunk: at most 1024 threads, a power-of-two sort
+    width covering every row, and the staged rows in shared memory where
+    they fit (every chunk ``auto_chunk`` makes does), else a scratch."""
+    threads, P, work, in_shared = tfa.admission_geometry(C)
+    assert 32 <= threads <= 1024 and threads % 32 == 0
+    assert P >= max(C, 32) and P & (P - 1) == 0 and threads == min(P, 1024)
+    assert work >= 20 * P + 25 * C and work % 16 == 0
+    assert in_shared == (work + tfa._ADMISSION_STATIC <= 227 * 1024)
+    assert in_shared or C > 4000
+    if C <= 1024:
+        assert in_shared
+
+
+def test_admission_geometry_covers_the_solvers_chunks():
+    """Every chunk width either solver can produce, auto or explicit, gets
+    a legal launch; sizes no config makes raise."""
+    from kubernetes_rescheduling_tpu_torch.solver.global_solver import auto_chunk
+
+    widths = set()
+    for S in (1, 20, 200, 2560, 10_000, 50_000, 200_000):
+        for chunk_size in (0, 1, 24, 256, 1000, 1024, 4096, 16_384):
+            C = min(auto_chunk(S, chunk_size), S)
+            widths |= {C, max(1, C // 256) * 256}  # dense chunk; sparse KB·256
+    for C in sorted(widths):
+        threads, P, work, in_shared = tfa.admission_geometry(C)
+        assert P >= C and threads <= 1024
+        assert in_shared or work > 227 * 1024 - tfa._ADMISSION_STATIC
+    for bad in (0, -1, 2**30):
+        with pytest.raises(ValueError):
+            tfa.admission_geometry(bad)
+
+
+def test_admission_operands_take_the_solvers_tensors_as_they_are():
+    """The dtypes the solvers pass (i32 and f32 vectors, a bool valid mask)
+    reach the kernel with no conversion copy: the same storage. Other
+    dtypes are converted."""
+    args = as_torch(crowded_admission(C=64, N=16))
+    args[6] = args[6].to(torch.bool)
+    got = tfa.admission_operands(*args)
+    assert [t.data_ptr() for t in got] == [t.data_ptr() for t in args]
+    assert got[6].dtype == torch.bool
+    other = list(args)
+    other[0], other[6] = args[0].long(), args[6].to(torch.int32)
+    conv = tfa.admission_operands(*other)
+    assert conv[0].dtype == torch.int32 and conv[6].dtype == torch.uint8
+    assert torch.equal(conv[6].bool(), args[6])

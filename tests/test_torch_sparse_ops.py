@@ -251,3 +251,30 @@ def test_sparse_wrappers_refuse_other_devices():
     args[1] = args[1][:-1]
     with pytest.raises(ValueError, match="slabs"):
         tsm.sparse_neighbor_mass(*args, **kw)
+
+
+def test_chunk_mass_geometry_covers_the_solvers_chunks():
+    """One warp per row of M: every chunk the sparse solver can cut (KB
+    blocks of 256 rows, auto or explicit chunk sizes, bf16 or f32 W,
+    strips of the graph builder's widths) gets a grid of whole blocks
+    covering every row, each block's rows within one 256-row slot, at most
+    1024 threads a block and its slab and lists within the 227 KB a block
+    may use, whatever the output width; sizes no layout makes raise."""
+    from kubernetes_rescheduling_tpu_torch.solver.global_solver import auto_chunk
+
+    kbs = set()
+    for S in (300, 2560, 10_000, 50_000, 200_000):
+        for chunk_size in (0, 256, 1000, 1024, 4096, 16_384):
+            kbs.add(max(1, min(auto_chunk(S, chunk_size), S) // BLOCK_R))
+    for kb in sorted(kbs):
+        rows = kb * BLOCK_R
+        for itemsize in (2, 4):
+            for bu, reg_tiles in ((512, 2), (256, 1), (512, 4), (1024, 2)):
+                warps, blocks, smem = tsm.chunk_mass_geometry(rows, itemsize, bu * reg_tiles)
+                assert warps * 32 <= 1024 and BLOCK_R % warps == 0
+                assert blocks * warps == rows
+                assert smem == 8 * bu * reg_tiles + warps * 32 * (16 // itemsize) * 8
+                assert smem <= 227 * 1024
+    for rows, itemsize, u in ((0, 2, 1024), (100, 2, 1024), (256, 8, 1024), (256, 2, 30_000)):
+        with pytest.raises(ValueError):
+            tsm.chunk_mass_geometry(rows, itemsize, u)
