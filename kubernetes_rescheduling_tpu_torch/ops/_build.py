@@ -31,14 +31,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signatures of the exported launch functions (see each source)
 _ARGTYPES = {
     "krt_mass_launch": [_I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "krt_score_launch": (
-        [_I] + [_P] * 12 + [_F, _F, _F] + [_I] * 7 + [_P] * 6
-    ),
+    "krt_score_launch": [_I] + [_P] * 12 + [_F] * 3 + [_I] * 11 + [_P] * 6,
     "krt_admission_launch": [_I] + [_P] * 9 + [_I] * 3 + [_P] * 5 + [_I] * 3 + [_P, _L, _P],
     "krt_sparse_mass_launch": [_I, _P, _I, _L] + [_P] * 4 + [_I] * 7 + [_P, _P],
     "krt_hub_mass_launch": [_I, _P, _I, _L] + [_P] * 6 + [_I] * 5 + [_P, _P],
     "krt_mass_score_launch": (
-        [_I, _P, _I, _L] + [_P] * 5 + [_I] * 4 + [_P] * 11 + [_F] * 3 + [_I] * 5 + [_P] * 6
+        [_I, _P, _I, _L] + [_P] * 5 + [_I] * 7 + [_P] * 11 + [_F] * 3 + [_I] * 5 + [_P] * 6
     ),
     "krt_error_string": [_I],
 }

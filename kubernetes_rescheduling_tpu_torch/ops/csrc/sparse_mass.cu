@@ -28,16 +28,14 @@
 //    in flight, does it write its row of zeros straight to device memory
 //    with 16-byte stores (no shared-memory staging), so the reads are not
 //    queued behind 8 MB of stores;
-//  - each warp then keeps its nonzero products, in column order, in a short
-//    per-warp list in shared memory; after a __syncwarp() they are added,
-//    32 at a time: the lanes of one target column form a group (found by
-//    shuffles), the group's lowest lane sums the group in lane order and
-//    writes the column (a plain store in the row's first round,
-//    read-add-write after it).
-// One warp writes each row and adds its products in a fixed order, with no
-// atomics, so M is the same on every run for any weights; for integer
-// weights and replica counts every partial sum is exact and M equals the
-// plain version (an f32 product) bit for bit.
+//  - each warp then adds its nonzero products in a fixed column order
+//    (`krt_ordered_row`, sparse_row.cuh, shared with the fused mass+score
+//    kernel): a per-warp list in shared memory, grouped by column with
+//    shuffles, the group's lowest lane summing in lane order and writing
+//    the column (a plain store in the row's first round, read-add-write
+//    after it). No atomics, so M is the same on every run for any weights;
+//    for integer weights and replica counts every partial sum is exact and
+//    M equals the plain version (an f32 product) bit for bit.
 //
 // The hub kernel keeps the first port's design: one CUDA block per (output
 // block, `rows`-row sub-tile), the Pallas grid's sequential tile axis a loop
@@ -45,41 +43,9 @@
 // the products added with the shared step of sparse_tile.cuh (unordered
 // shared-memory atomics, exact for integer weights; see there).
 
-#include "sparse_tile.cuh"
+#include "sparse_row.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-
-// Adds a warp's listed products (column, f32 bits) into its row `out`, 32
-// at a time: the lanes of one target column form a group, whose lowest lane
-// sums the group in lane order and writes the column. `fresh` (warp
-// uniform) says no product of this row was written yet, so the first round
-// stores over the zeros instead of reading them back.
-__device__ __forceinline__ void add_products(const int2* list, int count, float* out,
-                                             bool& fresh, int lane) {
-  __syncwarp();  // the row's zeros and every lane's list entries, in order
-  for (int r0 = 0; r0 < count; r0 += 32) {
-    const int n = min(32, count - r0);
-    const int2 ent = lane < n ? list[r0 + lane] : make_int2(-1, 0);
-    const float p = __int_as_float(ent.y);
-    float sum = 0.0f;
-    int first = 32;  // the group's lowest lane
-    for (int b = 0; b < n; ++b) {
-      const int c = __shfl_sync(kFull, ent.x, b);
-      const float q = __shfl_sync(kFull, p, b);
-      if (c == ent.x) {
-        sum = __fadd_rn(sum, q);
-        first = min(first, b);
-      }
-    }
-    if (lane < n && first == lane) out[ent.x] = fresh ? sum : __fadd_rn(out[ent.x], sum);
-    fresh = false;
-    __syncwarp();
-  }
-}
-
-constexpr int kStripGroup = 4;  // 16-byte vectors of the strip each lane loads at once
 
 // Shared layout: the slot's slab tgt i32[U] | rvu f32[U] | one product list
 // per warp, int2[32 * VEC]: 8 U + warps * 256 * VEC bytes.
@@ -90,7 +56,7 @@ chunk_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
                   const int* __restrict__ toff, int bu, int reg_tiles, int nn,
                   float* __restrict__ M) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int kList = 32 * VEC;  // products one lane-round over 32 vectors can add
+  constexpr int kList = krt_list_len<T>();
   constexpr int kSlabBatch = 8;
   extern __shared__ __align__(16) unsigned char shared[];
   const int U = reg_tiles * bu;
@@ -110,12 +76,7 @@ chunk_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
                static_cast<long long>(toff[blocks[slot]]) * bu;
   const int vecs = U / VEC;
   int4 raw[kStripGroup];
-#pragma unroll
-  for (int q = 0; q < kStripGroup; ++q) {
-    const int v = q * 32 + lane;
-    raw[q] = v < vecs ? *reinterpret_cast<const int4*>(w + static_cast<long long>(v) * VEC)
-                      : make_int4(0, 0, 0, 0);
-  }
+  krt_load_strip(w, vecs, 0, lane, raw);
   const int* tg = tgt_c + static_cast<long long>(slot) * U;
   const float* rv = rvu_c + static_cast<long long>(slot) * U;
   int t_reg[kSlabBatch];
@@ -151,61 +112,7 @@ chunk_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
   }
   __syncthreads();  // the slab is in shared memory
 
-  int2* list = lists + warp * kList;
-  int count = 0;      // warp uniform
-  bool fresh = true;  // warp uniform
-  for (int g0 = 0; g0 < vecs; g0 += kStripGroup * 32) {
-    if (g0 > 0) {
-#pragma unroll
-      for (int q = 0; q < kStripGroup; ++q) {
-        const int v = g0 + q * 32 + lane;
-        raw[q] = v < vecs ? *reinterpret_cast<const int4*>(w + static_cast<long long>(v) * VEC)
-                          : make_int4(0, 0, 0, 0);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kStripGroup; ++q) {
-      const int v = g0 + q * 32 + lane;
-      const T* wv = reinterpret_cast<const T*>(&raw[q]);
-      int col[VEC];
-      float prod[VEC];
-      int mine = 0;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        col[e] = -1;
-        const float x = krt_to_float(wv[e]);
-        if (x == 0.0f) continue;
-        const int u = v * VEC + e;
-        const int t = s_tgt[u];
-        const float r = krt_as_w<T>(s_rvu[u]);
-        if (r != 0.0f && t >= 0 && t < nn) {
-          col[e] = t;
-          prod[e] = __fmul_rn(x, r);
-          ++mine;
-        }
-      }
-      // list positions in column order: lanes in order, each lane's own in e order
-      int incl = mine;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int up = __shfl_up_sync(kFull, incl, d);
-        if (lane >= d) incl += up;
-      }
-      const int total = __shfl_sync(kFull, incl, 31);
-      if (total == 0) continue;
-      if (count + total > kList) {
-        add_products(list, count, out, fresh, lane);
-        count = 0;
-      }
-      int pos = count + incl - mine;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        if (col[e] >= 0) list[pos++] = make_int2(col[e], __float_as_int(prod[e]));
-      }
-      count += total;
-    }
-  }
-  add_products(list, count, out, fresh, lane);
+  krt_ordered_row(w, vecs, raw, s_tgt, s_rvu, nn, lists + warp * kList, out, lane);
 }
 
 template <typename T>

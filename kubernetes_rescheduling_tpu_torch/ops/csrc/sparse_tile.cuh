@@ -1,7 +1,8 @@
-// The accumulate step of the sparse neighbor mass, shared by the hub mass
-// kernel (sparse_mass.cu) and the fused mass+score (mass_score.cu) — the
-// port of `_mass_body` in kubernetes_rescheduling_tpu/ops/sparse_mass.py.
-// The chunk mass kernel (sparse_mass.cu) has its own, ordered design.
+// The accumulate step of the sparse neighbor mass, used by the hub mass
+// kernel (sparse_mass.cu) alone — the port of `_mass_body` in
+// kubernetes_rescheduling_tpu/ops/sparse_mass.py — beside the constants
+// and helpers every sparse kernel shares. The chunk mass kernel and the
+// fused mass+score kernel add in a fixed order instead (sparse_row.cuh).
 //
 // The TPU body multiplies a [256, bu] tile of the block-local weights by
 // the one-hot tile `one_hot(tgt) * rvu` [bu, nn] on the MXU. Against a

@@ -45,6 +45,8 @@ _NEG_INF = float("-inf")
 _M32 = 0xFFFFFFFF
 _SHARED_BYTES = 227 * 1024  # shared memory one Hopper block can use
 _ADMISSION_STATIC = 1024    # the admission kernel's own scan scratch, at most
+_SCORE_THREADS = 256        # threads of a score tile, at most (csrc/score_core.cuh)
+_SCORE_WARPS = 4096         # warps a score launch aims for: ~31 on each of 132 SMs
 
 
 # ---------------------------------------------------------------- plain math
@@ -394,6 +396,9 @@ def score_stage(
             *vecs, lam, temp, seed, overload_weight, enforce_capacity=enforce_capacity,
             use_noise=use_noise, use_move_pen=use_move_pen, block_c=bc,
         )
+    _check_lengths(vecs[1:7], C, "row vectors")
+    _check_lengths(vecs[7:], N, "node vectors")
+    threads, rows, blocks = score_geometry(C, N)
     prop = torch.empty((C,), dtype=torch.int32, device=M.device)
     wants = torch.empty_like(prop)
     gain = torch.empty((C,), dtype=torch.float32, device=M.device)
@@ -402,12 +407,13 @@ def score_stage(
     ops = (_f32(M), _i32(cur), _i32(home), _f32(move_pen), _f32(c_cpu), _f32(c_mem),
            _flag(valid_c), _f32(cpu_load), _f32(mem_load), _f32(cap), _f32(mem_cap),
            _flag(node_valid))
+    vec_ok = N % 4 == 0 and ops[0].data_ptr() % 16 == 0  # 16-byte loads of M's rows
     lib = _build.library("score")
     code = lib.krt_score_launch(
         M.device.index or 0, *(_ptr(t) for t in ops),
         float(lam), float(overload_weight), float(temp), int(seed), C, N, bc,
-        int(enforce_capacity), int(use_noise), int(use_move_pen),
-        _ptr(prop), _ptr(gain), _ptr(wants), _ptr(slack_cpu), _ptr(slack_mem),
+        int(enforce_capacity), int(use_noise), int(use_move_pen), threads, rows, blocks,
+        int(vec_ok), _ptr(prop), _ptr(gain), _ptr(wants), _ptr(slack_cpu), _ptr(slack_mem),
         _stream(M.device),
     )
     _build.check(lib, code, "score_stage")
@@ -467,6 +473,23 @@ def fused_score_admission(
         x_dtype=x_dtype,
         emit_x_rows=emit_x_rows,
     )
+
+
+def score_geometry(C: int, N: int) -> tuple[int, int, int]:
+    """Launch geometry of the score body (``csrc/score_core.cuh``) over C
+    rows of N nodes: ``(threads, rows per tile, blocks)``. One block scores
+    a tile of 1 or 2 rows, each thread owning about 8 of a row's columns (in
+    groups of 4), from 32 threads (N up to 256) to 256 (N above 1024). A
+    tile takes 2 rows only while that still leaves ``_SCORE_WARPS`` warps in
+    the launch (C = 1024 at N = 2000: 512 blocks of 8 warps), and never more
+    rows than warps (the fused mass+score kernel writes each row's mass
+    with one warp)."""
+    if C < 1 or N < 1:
+        raise ValueError(f"score tile of {C} rows x {N} nodes: both must be at least 1")
+    threads = min(_SCORE_THREADS, max(32, 1 << (-(-N // 8) - 1).bit_length()))
+    warps = threads // 32
+    rows = 2 if warps >= 2 and -(-C // 2) * warps >= _SCORE_WARPS else 1
+    return threads, rows, -(-C // rows)
 
 
 def admission_geometry(C: int) -> tuple[int, int, int, bool]:

@@ -45,6 +45,7 @@ from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
     _on_cuda,
     _ptr,
     _stream,
+    score_geometry,
     score_stage_plain,
 )
 
@@ -169,6 +170,7 @@ def _check_weights(w_mm: torch.Tensor, bu: int) -> None:
 
 
 _CHUNK_WARPS = 8  # rows of M per CUDA block of the chunk mass kernel, one warp each
+_SCORE_SHARED = _SHARED_BYTES - 1024  # the fused kernel's dynamic shared memory, at most
 
 
 def chunk_mass_geometry(n_rows: int, w_itemsize: int, u_reg: int) -> tuple[int, int, int]:
@@ -190,9 +192,32 @@ def chunk_mass_geometry(n_rows: int, w_itemsize: int, u_reg: int) -> tuple[int, 
     return warps, n_rows // warps, smem
 
 
+def mass_score_geometry(n_slots: int, N: int, w_itemsize: int) -> tuple[int, int, int, int]:
+    """Launch geometry of the fused mass+score kernel over ``n_slots``
+    256-row blocks of N nodes: ``(threads, rows, ldm, shared bytes)``, one
+    block per ``rows`` rows. Threads and rows per block are the score body's
+    (:func:`score_geometry` of the chunk's C = 256·n_slots rows), so the
+    score phase keeps its occupancy; one warp writes each row's mass into
+    shared memory (rows of ``ldm`` = N rounded up to 4 floats, 16-byte
+    aligned) through its own product list of 32 vectors' worth of products
+    (8 bytes each). A block whose two rows would not fit takes one."""
+    if n_slots < 1 or N < 1:
+        raise ValueError(f"{n_slots} slots x {N} nodes: both must be at least 1")
+    if w_itemsize not in (2, 4):
+        raise ValueError(f"W must be bf16 or f32, got {w_itemsize}-byte elements")
+    threads, rows, _ = score_geometry(n_slots * BLOCK_R, N)
+    ldm = -(-N // 4) * 4
+    per_row = 4 * ldm + 32 * (16 // w_itemsize) * 8
+    if rows * per_row > _SCORE_SHARED:
+        rows = 1
+    if per_row > _SCORE_SHARED:
+        raise ValueError(f"output width {N} too large for one shared-memory row")
+    return threads, rows, ldm, rows * per_row
+
+
 def _rows_per_block(nn: int) -> int:
-    """Rows of M one CUDA block keeps in shared memory: 8 (which divides
-    the 256-row block), fewer for wide outputs."""
+    """Rows of M one CUDA block of the hub mass kernel keeps in shared
+    memory: 8 (which divides the 256-row block), fewer for wide outputs."""
     rows = 8
     while rows > 1 and rows * nn * 4 > 96 * 1024:
         rows //= 2
@@ -335,7 +360,7 @@ def sparse_mass_score(
         )
     _check_weights(w_mm, bu)
     dev = w_mm.device
-    rows = _rows_per_block(N)
+    threads, rows, ldm, smem = mass_score_geometry(KB, N, w_mm.element_size())
     prop = torch.empty((C,), dtype=torch.int32, device=dev)
     wants = torch.empty_like(prop)
     gain = torch.empty((C,), dtype=torch.float32, device=dev)
@@ -348,7 +373,7 @@ def sparse_mass_score(
     lib = _build.library("mass_score")
     code = lib.krt_mass_score_launch(
         dev.index or 0, _ptr(w_mm), int(w_mm.dtype == torch.bfloat16), w_mm.shape[1],
-        *(_ptr(t) for t in mass_ops), KB, bu, reg_tiles, rows,
+        *(_ptr(t) for t in mass_ops), KB, bu, reg_tiles, threads, rows, ldm, smem,
         *(_ptr(t) for t in score_ops),
         float(lam), float(overload_weight), float(temp), int(seed), N,
         int(enforce_capacity), int(use_noise), int(use_move_pen),

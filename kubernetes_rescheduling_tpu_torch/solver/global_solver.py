@@ -316,12 +316,13 @@ def kernel_lowering(config: GlobalSolverConfig, device, integral_weights: bool =
     """Whether a solve on ``device`` takes the kernel lowering: ``"on"``
     everywhere, ``"auto"`` on CUDA at any size, never under ``"off"``.
 
-    On CUDA the dense mass kernel, the hub mass and the fused mass+score
-    kernels sum with unordered atomics, exact (and so deterministic) only
-    while every partial sum is an integer: a graph whose pair weights are
-    not all integers (``integral_weights``, recorded when the graph is
-    built) raises there rather than give placements that may change from
-    run to run. ``"off"`` and the CPU still solve it."""
+    On CUDA the dense mass and the hub mass kernels sum with unordered
+    atomics, exact (and so deterministic) only while every partial sum is
+    an integer: a graph whose pair weights are not all integers
+    (``integral_weights``, recorded when the graph is built) raises there
+    rather than give placements that may change from run to run. (The
+    chunk mass, fused mass+score and admission kernels sum in a fixed
+    order.) ``"off"`` and the CPU still solve it."""
     use = config.fused_epilogue == "on" or (
         config.fused_epilogue == "auto" and torch.device(device).type == "cuda"
     )

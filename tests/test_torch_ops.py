@@ -16,6 +16,7 @@ import torch
 from kubernetes_rescheduling_tpu.ops import fused_admission as jfa
 from kubernetes_rescheduling_tpu_torch import ops
 from kubernetes_rescheduling_tpu_torch.ops import fused_admission as tfa
+from kubernetes_rescheduling_tpu_torch.ops import sparse_mass as sm
 
 
 def random_instance(seed, C=64, N=128, tight=False):
@@ -323,3 +324,135 @@ def test_admission_operands_take_the_solvers_tensors_as_they_are():
     conv = tfa.admission_operands(*other)
     assert conv[0].dtype == torch.int32 and conv[6].dtype == torch.uint8
     assert torch.equal(conv[6].bool(), args[6])
+
+
+def score_edge_instance(seed, C, N):
+    """Score-stage operands (numpy) with the first-max merge's edge cases:
+    exact ties planted in columns 3, 33, 517 and N - 1 (those below N),
+    which the score geometry gives to different threads and warps; a row
+    (3) whose columns are all masked (nothing fits and its current node is
+    out of range) and one (4) whose only fitting node, its current one, is
+    invalid; current nodes out of range (row 1: -1, row 2: N); and row 5's
+    current node invalid. Loads are whole hundreds of millicores and MiB,
+    so every sum is exact. Returns ``(args, ties)`` with args in
+    ``score_stage`` order: M, cur, home, pen, c_cpu, c_mem, valid,
+    cpu_load, mem_load, cap, mem_cap, node_valid."""
+    rng = np.random.default_rng(seed)
+    ties = sorted({c for c in (3, 33, 517, N - 1) if c < N})
+    M = rng.integers(0, 6, size=(C, N)).astype(np.float32)
+    cap = np.full((N,), 4000.0, np.float32)
+    cpu_load = (rng.integers(20, 36, size=N) * 100).astype(np.float32)
+    mem_cap = np.full((N,), 2.0**30, np.float32)
+    mem_load = (rng.integers(0, 100, size=N) * 2.0**20).astype(np.float32)
+    node_valid = rng.random(N) < 0.95
+    # tied columns: empty, valid, equal mass — every row's best, in a tie
+    M[:, ties] = 5.0
+    cpu_load[ties] = 0.0
+    mem_load[ties] = 0.0
+    node_valid[ties] = True
+    others = np.setdiff1d(np.arange(N), ties)
+    cur = others[rng.integers(0, others.size, size=C)].astype(np.int32)
+    home = np.where(rng.random(C) < 0.5, cur, rng.integers(0, N, size=C)).astype(np.int32)
+    pen = rng.integers(0, 3, size=C).astype(np.float32)
+    c_cpu = (rng.integers(1, 5, size=C) * 100).astype(np.float32)
+    c_mem = (rng.integers(0, 3, size=C) * 2.0**20).astype(np.float32)
+    valid = rng.random(C) < 0.9
+    cur[1], cur[2] = -1, N
+    c_cpu[3], cur[3] = 1e9, -1
+    node_valid[cur[5]] = False
+    c_cpu[4], cur[4] = 1e9, cur[5]
+    args = [M, cur, home, pen, c_cpu, c_mem, valid, cpu_load, mem_load, cap, mem_cap, node_valid]
+    return args, ties
+
+
+@pytest.mark.parametrize("N", [20, 257])
+@pytest.mark.parametrize("use_noise", [False, True])
+@pytest.mark.parametrize("use_move_pen", [False, True])
+def test_score_edges_match_jax(N, use_noise, use_move_pen):
+    """The merge's edge instance (ties across threads and warps, all-masked
+    rows, current nodes out of range or invalid) through the port's plain
+    chunk step and the JAX package's kernels in interpret mode: the same
+    decisions, occupancy rows and deltas, exactly. The port's score stage
+    gives the planted answers."""
+    C = 64
+    args, ties = score_edge_instance(N, C, N)
+    M, cur, home, pen, c_cpu, c_mem, valid, *nodes = args
+    temp = 0.7 if use_noise else 0.0
+    extra = dict(home=home, move_pen=pen) if use_move_pen else {}
+    kw = dict(block_c=48, enforce_capacity=True, use_noise=use_noise)
+    j_out = jfa.fused_score_admission(
+        *as_jax([M, cur, c_cpu, c_mem, valid, *nodes]), 0.5, temp, 9, 10.0,
+        **{k: jnp.asarray(v) for k, v in extra.items()}, interpret=True,
+        noise_impl="stateless", x_dtype=jnp.float32, **kw,
+    )
+    t_out = tfa.fused_score_admission(
+        *as_torch([M, cur, c_cpu, c_mem, valid, *nodes]), 0.5, temp, 9, 10.0,
+        **{k: torch.as_tensor(v) for k, v in extra.items()}, x_dtype=torch.float32, **kw,
+    )
+    for t, j in zip(t_out, j_out):  # integer loads: the deltas are exact too
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    # the score stage's own outputs on the planted rows
+    t_args = as_torch(args)
+    if not use_move_pen:
+        t_args[2], t_args[3] = t_args[1], torch.zeros(C)
+    prop, gain, wants, *_ = tfa.score_stage_plain(
+        *t_args, 0.5, temp, 9, 10.0, enforce_capacity=True, use_noise=use_noise,
+        use_move_pen=use_move_pen, block_c=48,
+    )
+    for r in (3, 4):  # all masked: column 0, no gain, no move
+        assert int(prop[r]) == 0 and float(gain[r]) == float("-inf") and not int(wants[r])
+    if not use_noise and not use_move_pen:  # a tie: the lowest tied column
+        fits = np.asarray(c_cpu) <= 4000.0
+        assert (prop.numpy()[fits] == ties[0]).all()
+
+
+@pytest.mark.parametrize("C,N", [
+    (1024, 1000),   # large: dense chunk
+    (200, 200),     # powerlaw
+    (1024, 2000),   # sparse50k: chunks, and the widest hub group
+    (256, 2000), (512, 2000), (768, 2000),  # sparse50k hub groups
+    (256, 20), (200, 20), (20, 20),         # auto_small, dense_200x20
+    (1000, 1999), (1025, 2000), (1, 1), (3, 257), (4096, 2000), (1024, 50_000),
+])
+def test_score_geometry_is_a_legal_launch(C, N):
+    """The score body's launch: at most 256 threads in whole warps, no more
+    rows per tile than warps, and every (row, column) pair scored by
+    exactly one thread of one block."""
+    threads, rows, blocks = tfa.score_geometry(C, N)
+    assert 32 <= threads <= 256 and threads % 32 == 0
+    assert rows in (1, 2) and rows <= threads // 32
+    owners = np.zeros(C, np.int64)
+    for b in range(blocks):
+        owners[b * rows:min(C, (b + 1) * rows)] += 1
+    assert (owners == 1).all() and blocks * rows < C + rows
+    cols = np.zeros(N, np.int64)
+    for t in range(threads):  # each thread: 4 consecutive columns per panel
+        for base in range(4 * t, N, 4 * threads):
+            cols[base:min(N, base + 4)] += 1
+    assert (cols == 1).all()
+    if C >= 1024 and N > 1024:
+        assert blocks * threads // 32 >= 4096  # ~31 warps on each SM
+
+
+@pytest.mark.parametrize("n_slots,N", [(4, 2000), (1, 20), (4, 1999), (1, 200), (4, 30_000)])
+@pytest.mark.parametrize("w_itemsize", [2, 4])
+def test_mass_score_geometry_is_a_legal_launch(n_slots, N, w_itemsize):
+    """The fused kernel takes the score body's geometry, with one warp per
+    mass row and the rows (16-byte aligned) and product lists inside one
+    block's shared memory; its blocks of ``rows`` rows tile each 256-row
+    slot."""
+    threads, rows, ldm, smem = sm.mass_score_geometry(n_slots, N, w_itemsize)
+    assert threads >= 32 * rows and threads <= 256 and 256 % rows == 0
+    assert ldm >= N and ldm % 4 == 0 and ldm - N < 4
+    assert smem == rows * (4 * ldm + 32 * (16 // w_itemsize) * 8)
+    assert smem <= 227 * 1024 - 1024
+    if N <= 1024 * 8:
+        assert (threads, rows) == tfa.score_geometry(n_slots * 256, N)[:2]
+
+
+def test_score_geometries_refuse_empty_launches():
+    for C, N in ((0, 10), (10, 0), (-1, 5)):
+        with pytest.raises(ValueError):
+            tfa.score_geometry(C, N)
+    with pytest.raises(ValueError):
+        sm.mass_score_geometry(1, 100_000, 4)
