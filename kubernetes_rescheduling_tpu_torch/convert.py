@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from kubernetes_rescheduling_tpu_torch._device import DEFAULT_DEVICE, resolve_device
-from kubernetes_rescheduling_tpu_torch.core.sparsegraph import SparseCommGraph, integral
+from kubernetes_rescheduling_tpu_torch.core.sparsegraph import SparseCommGraph
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import GlobalSolverConfig
 
@@ -94,7 +94,6 @@ def sparse_graph_from_arrays(
         **{k: _tensor(k, d[k], dev) for k in SPARSE_ARRAYS},
         dense_adj=None if dense is None else _tensor("dense_adj", dense, dev),
         names=tuple(d.get("names", ())),
-        integral_weights=integral(d["edges_w"]),
         **static,
     )
 

@@ -69,9 +69,6 @@ class SparseCommGraph:
     reg_tiles: int = 2
     num_services: int = 0
     names: tuple[str, ...] = ()
-    # every pair weight an integer: the mass kernels' unordered sums are
-    # then exact (see ops/csrc/sparse_tile.cuh), so the solver runs them
-    integral_weights: bool = False
 
     @property
     def sp(self) -> int:
@@ -116,7 +113,6 @@ class SparseCommGraph:
             adj=torch.as_tensor(adj, device=self.device),
             service_valid=torch.ones((S,), dtype=torch.bool, device=self.device),
             names=self.names,
-            integral_weights=self.integral_weights,
         )
 
 
@@ -242,14 +238,7 @@ def from_edges(
         reg_tiles=int(reg_tiles),
         num_services=S,
         names=tuple(names),
-        integral_weights=integral(w),
     )
-
-
-def integral(w) -> bool:
-    """Whether every weight is an integer once stored as f32."""
-    w32 = np.asarray(w, dtype=np.float32)
-    return bool(np.all(w32 == np.round(w32)))
 
 
 def from_comm_graph(

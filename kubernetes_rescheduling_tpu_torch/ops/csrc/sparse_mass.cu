@@ -37,11 +37,35 @@
 //    for integer weights and replica counts every partial sum is exact and
 //    M equals the plain version (an f32 product) bit for bit.
 //
-// The hub kernel keeps the first port's design: one CUDA block per (output
-// block, `rows`-row sub-tile), the Pallas grid's sequential tile axis a loop
-// inside the block, `pl.when(first)` a zeroing of the shared-memory rows,
-// the products added with the shared step of sparse_tile.cuh (unordered
-// shared-memory atomics, exact for integer weights; see there).
+// The hub kernel takes the same design, as a long row (sparse_row.cuh).
+// One warp writes each row of M: 256 rows of each of the group's output
+// blocks (about 1024 warps at the 50k graph's groups of 4 hub blocks); a
+// CUDA block's rows share one output block. The Pallas grid's sequential
+// walk over the flat tile list becomes each row's own walk:
+//  - the block's first warp scans the list (tens of tiles) for the tiles
+//    of its output block and keeps, in shared memory, those from the last
+//    one flagged tile_first on, in list order: the Pallas kernel resets its
+//    sum there, and the earlier tiles add nothing;
+//  - each warp then streams its row across those tiles as one row of
+//    vectors (tiles in list order, each tile's columns in order) through
+//    two register buffers (`depth` vectors per lane each, the next group in
+//    flight while the warp lists the current one), its zeros stored to
+//    device memory while the first two groups are in flight;
+//  - the nonzero weights are listed as (slab column, weight), and the
+//    group-local slab (tgt_l, rvu_l) is read from device memory a whole
+//    list at a time, when the list is added in order (the row's state
+//    carried from tile to tile), no atomics. The slab is not staged in
+//    shared memory: its reads are one round per list of up to 256 products,
+//    and all the listing and adding together cost 0.004 ms of the
+//    kernel's 0.016 (on weights with every row of more than 32 nonzeros
+//    cleared, against all-zero weights; `bench.mass_sweep`, PERF.md §6).
+// So the hub mass too is the same on every run for any weights, and equals
+// the plain version bit for bit for integer ones. Bound: bytes, the group's
+// W tiles read once (about 5 MB at the 50k graph) and M written (8.2 MB at
+// 4 blocks x 256 rows x 2000 nodes): 0.0040 ms. What holds it back is its
+// densest rows (up to 621 nonzero weights, a hub's own row): one warp lists
+// and adds them alone, each round of 32 after a list's first reading its
+// columns back from device memory, 0.006 ms past the other rows.
 
 #include "sparse_row.cuh"
 
@@ -89,12 +113,7 @@ chunk_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
   }
   // ... then, while they are in flight, the row of zeros straight to device
   // memory (nothing waits on these stores) ...
-  if ((nn & 3) == 0) {
-    float4* out4 = reinterpret_cast<float4*>(out);
-    for (int c = lane; c < (nn >> 2); c += 32) out4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  } else {
-    for (int c = lane; c < nn; c += 32) out[c] = 0.0f;
-  }
+  krt_zero_row(out, nn, lane);
   // ... and the slab into shared memory (its first batch from registers)
   for (int i0 = 0; i0 < U; i0 += kSlabBatch * blockDim.x) {
 #pragma unroll
@@ -115,34 +134,103 @@ chunk_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
   krt_ordered_row(w, vecs, raw, s_tgt, s_rvu, nn, lists + warp * kList, out, lane);
 }
 
+// The hub row as a long row (sparse_row.cuh): the row's tiles (W column
+// tile, slab column tile) in walk order, `vpt` 16-byte vectors each; vector
+// v lies in tile v / vpt (streamed: read once). The key of its element e is
+// the element's column u in the group-local slab, which adds x * rvu_l[u]
+// (rounded to W's type first, as in KrtSlabTerms) to column tgt_l[u] when
+// the factor is nonzero and the target lies in [0, nn).
 template <typename T>
-__global__ void __launch_bounds__(kSparseThreads)
+struct HubRow {
+  static constexpr int VEC = 16 / sizeof(T);
+  const T* w;          // W row of this output row, at column 0
+  const int2* tiles;   // shared: (tile_col, tile_lcol) of the walk's tiles
+  int vpt;
+  int vecs;            // tiles x vpt
+  int bu;
+  const int* tgt;
+  const float* rvu;
+  int nn;
+
+  __device__ __forceinline__ int4 load(int v) const {
+    if (v >= vecs) return make_int4(0, 0, 0, 0);
+    const int k = v / vpt;
+    const long long col = static_cast<long long>(tiles[k].x) * bu + (v - k * vpt) * VEC;
+    return __ldcs(reinterpret_cast<const int4*>(w + col));
+  }
+
+  __device__ __forceinline__ int key(int v, int e) const {
+    const int k = v / vpt;
+    return tiles[k].y * bu + (v - k * vpt) * VEC + e;
+  }
+
+  __device__ __forceinline__ void resolve(int u, float x, int& col, float& prod) const {
+    const int t = __ldg(tgt + u);
+    const float r = krt_as_w<T>(__ldg(rvu + u));
+    col = r != 0.0f && t >= 0 && t < nn ? t : -1;
+    prod = __fmul_rn(x, r);
+  }
+};
+
+// Shared layout: one product list per warp, int2[32 * VEC] each | the walk's
+// tiles, int2[n_tiles] | their count, int: warps * 256 * VEC + 8 n_tiles + 16
+// bytes.
+template <typename T, int G>
+__global__ void __launch_bounds__(256)
 hub_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__ tgt_l,
                 const float* __restrict__ rvu_l, const int* __restrict__ tile_col,
                 const int* __restrict__ tile_lcol, const int* __restrict__ tile_out,
-                const int* __restrict__ tile_first, int n_tiles, int bu, int nn, int rows,
+                const int* __restrict__ tile_first, int n_tiles, int bu, int nn,
                 float* __restrict__ M) {
-  extern __shared__ float acc[];  // [rows, nn]
-  const int subtiles = kBlockR / rows;
-  const int out = blockIdx.x / subtiles;
-  const int row0 = (blockIdx.x % subtiles) * rows;
-  krt_zero(acc, rows * nn);
-  __syncthreads();
-  // the tile list is short (tens of tiles): every block scans it for its
-  // own output block; the branches are uniform across the block
-  for (int t = 0; t < n_tiles; ++t) {
-    if (tile_out[t] != out) continue;
-    if (tile_first[t]) {
-      __syncthreads();
-      krt_zero(acc, rows * nn);
-      __syncthreads();
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int kList = krt_list_len<T>();
+  extern __shared__ __align__(16) unsigned char shared[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int2* lists = reinterpret_cast<int2*>(shared);
+  int2* tiles = lists + warps * kList;
+  int* s_count = reinterpret_cast<int*>(tiles + n_tiles);
+  const int row = blockIdx.x * warps + warp;  // the block's rows share one output block
+  const int o = row / kBlockR;
+
+  if (warp == 0) {
+    // the output block's tiles from its last first-flagged one on, in list
+    // order: a first-flagged tile restarts the walk
+    int count = 0;
+    for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+      const int t = t0 + lane;
+      int out_t = -1, first_t = 0, col_t = 0, lcol_t = 0;
+      if (t < n_tiles) {
+        out_t = tile_out[t];
+        first_t = tile_first[t];
+        col_t = tile_col[t];
+        lcol_t = tile_lcol[t];
+      }
+      const bool mine = out_t == o;
+      const unsigned firsts = __ballot_sync(kFull, mine && first_t != 0);
+      unsigned take = __ballot_sync(kFull, mine);
+      if (firsts) {
+        count = 0;
+        take &= ~0u << (31 - __clz(firsts));
+      }
+      if ((take >> lane) & 1u) {
+        tiles[count + __popc(take & ((1u << lane) - 1u))] = make_int2(col_t, lcol_t);
+      }
+      count += __popc(take);
     }
-    const long long lcol = static_cast<long long>(tile_lcol[t]) * bu;
-    krt_accumulate_tile(W, ld, row0, rows, static_cast<long long>(tile_col[t]) * bu,
-                        tgt_l + lcol, rvu_l + lcol, bu, nn, acc);
+    if (lane == 0) *s_count = count;
   }
-  __syncthreads();
-  krt_store_rows(acc, rows * nn, M + static_cast<long long>(out * kBlockR + row0) * nn);
+  __syncthreads();  // the walk's tiles are in shared memory
+
+  const HubRow<T> strip{W + static_cast<long long>(row % kBlockR) * ld, tiles, bu / VEC,
+                        *s_count * (bu / VEC), bu, tgt_l, rvu_l, nn};
+  int4 a[G], b[G];
+  krt_load_group<G>(strip, 0, lane, a);
+  krt_load_group<G>(strip, G * 32, lane, b);
+  float* out = M + static_cast<long long>(row) * nn;
+  krt_zero_row(out, nn, lane);
+  krt_stream_row<T, G>(strip, strip.vecs, a, b, lists + warp * kList, out, lane);
 }
 
 template <typename T>
@@ -165,19 +253,44 @@ int launch_chunk(const void* W, long long ld, const int* tgt_c, const float* rvu
   return cudaGetLastError();
 }
 
+template <typename T, int G>
+int launch_hub_depth(const void* W, long long ld, const int* tgt_l, const float* rvu_l,
+                     const int* tile_col, const int* tile_lcol, const int* tile_out,
+                     const int* tile_first, int n_tiles, int bu, int nn, int warps, int grid,
+                     int smem, float* M, cudaStream_t stream) {
+  static size_t granted = 48 * 1024;
+  cudaError_t err = krt_allow_smem(hub_mass_kernel<T, G>, smem, &granted);
+  if (err != cudaSuccess) return err;
+  hub_mass_kernel<T, G><<<grid, warps * 32, smem, stream>>>(
+      static_cast<const T*>(W), ld, tgt_l, rvu_l, tile_col, tile_lcol, tile_out, tile_first,
+      n_tiles, bu, nn, M);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_hub(const void* W, long long ld, const int* tgt_l, const float* rvu_l,
                const int* tile_col, const int* tile_lcol, const int* tile_out,
-               const int* tile_first, int n_tiles, int n_out, int bu, int nn, int rows, float* M,
-               cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(rows) * nn * sizeof(float);
-  static size_t granted = 48 * 1024;
-  cudaError_t err = krt_allow_smem(hub_mass_kernel<T>, smem, &granted);
-  if (err != cudaSuccess) return err;
-  hub_mass_kernel<T><<<n_out * (kBlockR / rows), kSparseThreads, smem, stream>>>(
-      static_cast<const T*>(W), ld, tgt_l, rvu_l, tile_col, tile_lcol, tile_out, tile_first,
-      n_tiles, bu, nn, rows, M);
-  return cudaGetLastError();
+               const int* tile_first, int n_tiles, int n_out, int bu, int nn, int warps,
+               int grid, int smem, int depth, float* M, cudaStream_t stream) {
+  // the wrapper's geometry (`hub_mass_geometry`): whole blocks of rows of one
+  // output block, the product lists and the tile table in shared memory
+  constexpr int VEC = 16 / sizeof(T);
+  const long long want = warps * 256LL * VEC + 8LL * n_tiles + 16;
+  if (warps < 1 || warps > 8 || kBlockR % warps ||
+      static_cast<long long>(grid) * warps != static_cast<long long>(n_out) * kBlockR ||
+      n_tiles < 0 || bu % VEC || nn < 1 || smem != want) {
+    return cudaErrorInvalidValue;
+  }
+#define KRT_HUB(D)                                                                       \
+  launch_hub_depth<T, D>(W, ld, tgt_l, rvu_l, tile_col, tile_lcol, tile_out, tile_first, \
+                         n_tiles, bu, nn, warps, grid, smem, M, stream)
+  switch (depth) {
+    case 2: return KRT_HUB(2);
+    case 4: return KRT_HUB(4);
+    case 8: return KRT_HUB(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef KRT_HUB
 }
 
 }  // namespace
@@ -201,18 +314,21 @@ KRT_EXPORT int krt_sparse_mass_launch(int device, const void* W, int w_is_bf16, 
 }
 
 // tgt_l: i32 and rvu_l: f32 group-local slabs; tile_*: i32[n_tiles]; M:
-// f32[n_out * 256, nn] output.
+// f32[n_out * 256, nn] output. warps, grid, smem and depth: the wrapper's
+// launch geometry (`hub_mass_geometry`).
 KRT_EXPORT int krt_hub_mass_launch(int device, const void* W, int w_is_bf16, long long ld,
                                    const int* tgt_l, const float* rvu_l, const int* tile_col,
                                    const int* tile_lcol, const int* tile_out,
                                    const int* tile_first, int n_tiles, int n_out, int bu, int nn,
-                                   int rows, float* M, void* stream) {
+                                   int warps, int grid, int smem, int depth, float* M,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
   return w_is_bf16 ? launch_hub<__nv_bfloat16>(W, ld, tgt_l, rvu_l, tile_col, tile_lcol,
                                                tile_out, tile_first, n_tiles, n_out, bu, nn,
-                                               rows, M, s)
+                                               warps, grid, smem, depth, M, s)
                    : launch_hub<float>(W, ld, tgt_l, rvu_l, tile_col, tile_lcol, tile_out,
-                                       tile_first, n_tiles, n_out, bu, nn, rows, M, s);
+                                       tile_first, n_tiles, n_out, bu, nn, warps, grid, smem,
+                                       depth, M, s);
 }

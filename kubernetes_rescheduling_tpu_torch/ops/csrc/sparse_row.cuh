@@ -1,16 +1,28 @@
-// The ordered write of one row of the sparse neighbor mass, shared by the
-// chunk mass kernel (sparse_mass.cu, output row in device memory) and the
-// fused mass+score kernel (mass_score.cu, output row in shared memory).
+// The ordered write of one row of the neighbor mass, shared by every mass
+// kernel: the chunk mass and hub mass kernels (sparse_mass.cu) and the dense
+// mass kernel (mass.cu) write their rows in device memory, the fused
+// mass+score kernel (mass_score.cu) in shared memory.
 //
-// One warp owns the row. It streams the row's W strip (16-byte loads,
-// kStripGroup vectors per lane at once), keeps the nonzero products in
-// column order in a short per-warp list in shared memory, and adds them 32
-// at a time: the lanes of one target column form a group (found by
-// shuffles), and the group's lowest lane sums the group in lane order and
-// writes the column. No atomics: the row is the same on every run for any
-// weights, and the two kernels that share this routine write the same bits.
-// For integer weights and replica counts every partial sum is exact, so the
-// row also equals the plain version (an f32 product) bit for bit.
+// One warp owns the row. It streams the row's weights (16-byte loads,
+// several vectors per lane at once), keeps the nonzero products in column
+// order in a short per-warp list in shared memory, and adds them 32 at a
+// time: the lanes of one target column form a group (found by shuffles),
+// and the group's lowest lane sums the group in lane order and writes the
+// column. No atomics: the row is the same on every run for any weights (and
+// the chunk mass and fused kernels, which share the strip form below, write
+// the same bits for the same products). For integer weights and replica
+// counts every partial sum is exact, so the row also equals the plain
+// version (an f32 product) bit for bit.
+//
+// Two forms share that order. A strip row (the chunk mass and fused
+// kernels: krt_ordered_row) looks each nonzero weight's column up in its
+// slab (tgt, rvu) as it lists it. A long row (the dense mass and hub mass
+// kernels: krt_stream_row, at the end of this file) lists (key, weight)
+// entries and resolves the keys when it adds them, a whole list at once,
+// so a row of thousands of columns waits on device memory once per list
+// (up to 256 products), not once per vector that holds one; its weights
+// stream through two register buffers, the next group in flight while the
+// warp lists the current one.
 #pragma once
 
 #include "sparse_tile.cuh"
@@ -125,4 +137,166 @@ __device__ __forceinline__ void krt_ordered_row(const T* __restrict__ w, int vec
     }
   }
   krt_add_products(list, count, out, fresh, lane);
+}
+
+// A row of M's zeros straight to device memory from one warp: 16-byte
+// stores where the row is whole float4s (nn a multiple of 4, M from the
+// allocator), else scalar ones. Nothing waits on them.
+__device__ __forceinline__ void krt_zero_row(float* out, int nn, int lane) {
+  if ((nn & 3) == 0) {
+    float4* out4 = reinterpret_cast<float4*>(out);
+    for (int c = lane; c < (nn >> 2); c += 32) out4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int c = lane; c < nn; c += 32) out[c] = 0.0f;
+  }
+}
+
+// ---- Long rows: the dense mass and hub mass kernels.
+//
+// A long row (10,240 columns of the dense W; a hub block's tiles) holds few
+// nonzero weights, scattered. Looking up each one's column as it is listed
+// would cost the warp one wait on device memory for every vector that holds
+// one, so a long row lists each nonzero weight as (key, weight), the key
+// naming the element (its W column, or its slab column: `strip.key(v, e)`),
+// and resolves the keys only when it adds the list: one round of loads for
+// the whole list (`strip.resolve(key, x, col, prod)`: the column, -1 when
+// the element adds nothing, and the product). The order is the one above:
+// entries in list order, 32 at a time, each column's group summed in lane
+// order by its lowest lane.
+
+// A warp's ordered row between vectors (both warp uniform): the products
+// listed and not yet added, and whether the row still holds only its zeros.
+struct KrtRow {
+  int count;
+  bool fresh;
+};
+
+// Adds a long row's listed entries (at most krt_list_len<T>(), a list's
+// worth) into `out`: first every lane resolves its entries of every round
+// (one wait on device memory for the whole list), then the rounds of 32
+// are added in order; a column's group comes from one match instruction,
+// and its lowest lane sums it in lane order over as many shuffle steps as
+// the round's largest group holds (one or two on rows of sparse pair
+// weights). `fresh` as in krt_add_products.
+template <typename T, typename Strip>
+__device__ __forceinline__ void krt_add_entries(const Strip& strip, const int2* list, int count,
+                                                float* out, bool& fresh, int lane) {
+  constexpr int kRounds = krt_list_len<T>() / 32;
+  __syncwarp();  // the row's zeros and every lane's list entries, in order
+  int col[kRounds];
+  float p[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    col[r] = -1;
+    p[r] = 0.0f;
+    if (r * 32 + lane < count) {
+      const int2 ent = list[r * 32 + lane];
+      strip.resolve(ent.x, __int_as_float(ent.y), col[r], p[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    if (r * 32 >= count) break;
+    const unsigned group = __match_any_sync(kFull, col[r]);
+    const int size = __popc(group);
+    const int steps = static_cast<int>(__reduce_max_sync(kFull, col[r] >= 0 ? size : 0));
+    unsigned rest = group;
+    float sum = 0.0f;
+    for (int k = 0; k < steps; ++k) {
+      const int b = rest ? __ffs(rest) - 1 : lane;
+      rest &= rest - 1;
+      const float q = __shfl_sync(kFull, p[r], b);
+      if (k < size) sum = __fadd_rn(sum, q);
+    }
+    if (col[r] >= 0 && __ffs(group) - 1 == lane) {
+      out[col[r]] = fresh ? sum : __fadd_rn(out[col[r]], sum);
+    }
+    fresh = false;
+    __syncwarp();
+  }
+}
+
+// Lists the nonzero weights of vector v (one per lane: `raw`) as entries,
+// lanes in order and each lane's own in element order, after the row's
+// earlier ones; the list is added first when they would overflow it. Kept
+// out of line: it runs only for vectors that hold a nonzero weight, and one
+// copy serves every unrolled call site.
+template <typename T, typename Strip>
+__device__ __noinline__ KrtRow krt_list_long(int4 raw, int v, Strip strip, int2* list,
+                                             float* out, int lane, KrtRow row) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int kList = krt_list_len<T>();
+  const T* wv = reinterpret_cast<const T*>(&raw);
+  int mine = 0;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) mine += krt_to_float(wv[e]) != 0.0f;
+  // positions from the bits of the counts (at most VEC), one ballot a bit:
+  // no chain of shuffles
+  const unsigned upto = (2u << lane) - 1u;  // lanes 0..lane
+  int incl = 0;
+  int total = 0;
+#pragma unroll
+  for (int bit = 0; (1 << bit) <= VEC; ++bit) {
+    const unsigned plane = __ballot_sync(kFull, (mine >> bit) & 1);
+    incl += __popc(plane & upto) << bit;
+    total += __popc(plane) << bit;
+  }
+  if (total == 0) return row;
+  if (row.count + total > kList) {
+    krt_add_entries<T>(strip, list, row.count, out, row.fresh, lane);
+    row.count = 0;
+  }
+  int pos = row.count + incl - mine;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const float x = krt_to_float(wv[e]);
+    if (x != 0.0f) list[pos++] = make_int2(strip.key(v, e), __float_as_int(x));
+  }
+  row.count += total;
+  return row;
+}
+
+// Lists the vectors of one group (G per lane, vectors g0 + q * 32 + lane);
+// a vector that is zero in every lane (the common case: pair weights are
+// sparse) costs one vote.
+template <typename T, int G, typename Strip>
+__device__ __forceinline__ void krt_list_group(const int4 (&raw)[G], int g0, const Strip& strip,
+                                               int2* list, float* out, int lane, KrtRow& row) {
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    const int4 r = raw[q];
+    if (!__any_sync(kFull, (r.x | r.y | r.z | r.w) != 0)) continue;
+    row = krt_list_long<T>(r, g0 + q * 32 + lane, strip, list, out, lane, row);
+  }
+}
+
+template <int G, typename Strip>
+__device__ __forceinline__ void krt_load_group(const Strip& strip, int g0, int lane,
+                                               int4 (&raw)[G]) {
+#pragma unroll
+  for (int q = 0; q < G; ++q) raw[q] = strip.load(g0 + q * 32 + lane);
+}
+
+// The whole ordered long row of `vecs` 16-byte vectors, streamed in groups
+// of G vectors per lane through two register buffers, so that while the
+// warp lists one group the next is in flight (up to 2 G vectors, 1 KB x G,
+// per warp). `strip` gives vector v (`strip.load(v)`, zeros past the end)
+// and keys and resolves its elements; `a` and `b` hold groups 0 and 1,
+// already loaded, so a caller can issue them before the row's zeros. The
+// row is complete on return.
+template <typename T, int G, typename Strip>
+__device__ __forceinline__ void krt_stream_row(const Strip& strip, int vecs, int4 (&a)[G],
+                                               int4 (&b)[G], int2* list, float* out,
+                                               int lane) {
+  constexpr int kStep = G * 32;
+  KrtRow row{0, true};
+  for (int g0 = 0; g0 < vecs; g0 += 2 * kStep) {
+    krt_list_group<T, G>(a, g0, strip, list, out, lane, row);
+    if (g0 + 2 * kStep < vecs) krt_load_group<G>(strip, g0 + 2 * kStep, lane, a);
+    if (g0 + kStep < vecs) {
+      krt_list_group<T, G>(b, g0 + kStep, strip, list, out, lane, row);
+      if (g0 + 3 * kStep < vecs) krt_load_group<G>(strip, g0 + 3 * kStep, lane, b);
+    }
+  }
+  krt_add_entries<T>(strip, list, row.count, out, row.fresh, lane);
 }

@@ -301,6 +301,27 @@ def _flag(t: torch.Tensor) -> torch.Tensor:
     return (t != 0).to(torch.uint8)
 
 
+_MASS_WARPS = 4  # rows of M per CUDA block of the dense mass kernel, one warp each
+_MASS_DEPTH = 8  # 16-byte vectors of W each lane loads at once (up to twice that in flight)
+
+
+def mass_geometry(C: int, SP: int, w_itemsize: int) -> tuple[int, int, int, int]:
+    """Launch geometry of the dense mass kernel for C rows of M over W rows
+    of SP elements of ``w_itemsize`` bytes: ``(warps per block, blocks,
+    shared bytes, depth)``. One warp writes each row, streaming its W row
+    ``depth`` 16-byte vectors per lane at a time; shared memory holds one
+    list per warp of up to 32 vectors' worth of products (8 bytes each),
+    whatever N is."""
+    if w_itemsize not in (2, 4):
+        raise ValueError(f"W must be bf16 or f32, got {w_itemsize}-byte elements")
+    vec = 16 // w_itemsize
+    if C <= 0 or C % _MASS_WARPS:
+        raise ValueError(f"C={C} must be a positive multiple of {_MASS_WARPS}")
+    if SP <= 0 or SP % vec:
+        raise ValueError(f"SP={SP} must be a positive multiple of {vec} (whole 16-byte vectors)")
+    return _MASS_WARPS, C // _MASS_WARPS, _MASS_WARPS * 32 * vec * 8, _MASS_DEPTH
+
+
 def fused_neighbor_mass(
     W,          # [SP, SP] pair weights, canonical service order (bf16 or f32)
     assign,     # i32[SP] current node per service
@@ -315,7 +336,9 @@ def fused_neighbor_mass(
     rows are the ``block_ids`` ``block_b``-row blocks of the canonical W;
     the occupancy matrix is never built on the kernel path. Returns
     ``f32[KB·block_b, N]``. ``block_j`` is the TPU kernel's contraction
-    tile, kept for its divisibility contract."""
+    tile, kept for its divisibility contract. On the card each row's
+    products are added in a fixed order, so M is the same on every run for
+    any weights (and equal to the plain version for integer ones)."""
     SP = W.shape[0]
     N = int(num_nodes)
     KB = block_ids.shape[0]
@@ -335,18 +358,15 @@ def fused_neighbor_mass(
     if W.data_ptr() % 16:
         raise ValueError("W must be 16-byte aligned")
     C = KB * block_b
-    # rows of M per block, held in shared memory: as many as fit 96 KB
-    rows = 8
-    while rows > 1 and rows * N * 4 > 96 * 1024:
-        rows //= 2
-    if rows * N * 4 > _SHARED_BYTES:
-        raise ValueError(f"num_nodes={N} too large for one shared-memory row of M")
+    warps, blocks, smem, depth = mass_geometry(C, SP, W.element_size())
     assign_i, valid_u, blocks_i = _i32(assign), _flag(svc_valid), _i32(block_ids)
+    _check_lengths((assign_i, valid_u), SP, "assign and svc_valid")
     M = torch.empty((C, N), dtype=torch.float32, device=W.device)
     lib = _build.library("mass")
     code = lib.krt_mass_launch(
         W.device.index or 0, _ptr(W), int(W.dtype == torch.bfloat16), _ptr(assign_i),
-        _ptr(valid_u), _ptr(blocks_i), SP, N, C, block_b, rows, _ptr(M), _stream(W.device),
+        _ptr(valid_u), _ptr(blocks_i), SP, N, C, block_b, warps, blocks, smem, depth, _ptr(M),
+        _stream(W.device),
     )
     _build.check(lib, code, "fused_neighbor_mass")
     fused_neighbor_mass.launches += 1

@@ -215,15 +215,27 @@ def mass_score_geometry(n_slots: int, N: int, w_itemsize: int) -> tuple[int, int
     return threads, rows, ldm, rows * per_row
 
 
-def _rows_per_block(nn: int) -> int:
-    """Rows of M one CUDA block of the hub mass kernel keeps in shared
-    memory: 8 (which divides the 256-row block), fewer for wide outputs."""
-    rows = 8
-    while rows > 1 and rows * nn * 4 > 96 * 1024:
-        rows //= 2
-    if rows * nn * 4 > _SHARED_BYTES:
-        raise ValueError(f"output width {nn} too large for one shared-memory row")
-    return rows
+_HUB_WARPS = 4  # rows of M per CUDA block of the hub mass kernel, one warp each
+_HUB_DEPTH = 8  # 16-byte vectors of W each lane loads at once (up to twice that in flight)
+
+
+def hub_mass_geometry(n_out: int, n_tiles: int, w_itemsize: int) -> tuple[int, int, int, int]:
+    """Launch geometry of the hub mass kernel for ``n_out`` 256-row output
+    blocks over a flat list of ``n_tiles`` tiles: ``(warps per block,
+    blocks, shared bytes, depth)``. One warp writes each row, streaming its
+    tiles ``depth`` 16-byte vectors per lane at a time; a block's rows
+    share one output block, whose tiles (8 bytes each, at most the whole
+    list) sit in shared memory beside one list per warp of up to 32
+    vectors' worth of products (8 bytes each) and the tiles' count."""
+    if n_out < 1 or n_tiles < 0:
+        raise ValueError(f"{n_out} output blocks, {n_tiles} tiles: need >= 1 and >= 0")
+    if w_itemsize not in (2, 4):
+        raise ValueError(f"W must be bf16 or f32, got {w_itemsize}-byte elements")
+    warps = _HUB_WARPS
+    smem = warps * 32 * (16 // w_itemsize) * 8 + 8 * n_tiles + 16
+    if smem > _SHARED_BYTES:
+        raise ValueError(f"a list of {n_tiles} tiles does not fit one block's shared memory")
+    return warps, n_out * BLOCK_R // warps, smem, _HUB_DEPTH
 
 
 def sparse_neighbor_mass(
@@ -284,7 +296,10 @@ def hub_neighbor_mass(
 ):
     """``M[NHB·256, num_nodes]`` for a group of hub blocks, their ragged
     widths walked as a flat tile list — the wrapper of the hub kernel in
-    ``csrc/sparse_mass.cu``."""
+    ``csrc/sparse_mass.cu``. On the card each row's products are added in
+    a fixed order (the output block's tiles in list order from its last
+    ``tile_first`` on), so M is the same on every run for any weights (and
+    equal to the plain version for integer ones)."""
     N = int(num_nodes)
     tiles = (tile_col, tile_lcol, tile_out, tile_first)
     _check_lengths(tiles, tile_col.numel(), "tile arrays")
@@ -295,15 +310,16 @@ def hub_neighbor_mass(
         )
     _check_weights(w_mm, bu)
     dev = w_mm.device
-    rows = _rows_per_block(N)
+    T = tile_col.numel()
+    warps, blocks, smem, depth = hub_mass_geometry(num_hub_blocks, T, w_mm.element_size())
     tgt, rvu = _i32(tgt_l), _f32(rvu_l)
     tc, tl, to, tf = (_i32(t) for t in tiles)
     M = torch.empty((num_hub_blocks * BLOCK_R, N), dtype=torch.float32, device=dev)
     lib = _build.library("sparse_mass")
     code = lib.krt_hub_mass_launch(
         dev.index or 0, _ptr(w_mm), int(w_mm.dtype == torch.bfloat16), w_mm.shape[1],
-        _ptr(tgt), _ptr(rvu), _ptr(tc), _ptr(tl), _ptr(to), _ptr(tf), tc.numel(),
-        num_hub_blocks, bu, N, rows, _ptr(M), _stream(dev),
+        _ptr(tgt), _ptr(rvu), _ptr(tc), _ptr(tl), _ptr(to), _ptr(tf), T, num_hub_blocks, bu, N,
+        warps, blocks, smem, depth, _ptr(M), _stream(dev),
     )
     _build.check(lib, code, "hub_neighbor_mass")
     hub_neighbor_mass.launches += 1

@@ -22,11 +22,10 @@ package's:
 
 The per-sweep objective is the exact f32 cut sum over the COO edge list.
 
-Lowerings (:func:`sparse_kernel_lowering`): ``fused_epilogue="auto"``
-runs the kernels on CUDA tensors at any size (raising on a graph with
-non-integer weights); ``"on"`` runs the kernel lowering on any device
-(through the wrappers' plain versions for CPU tensors); ``"off"`` is the
-plain twin (gathered matmuls and
+Lowerings (``kernel_lowering``): ``fused_epilogue="auto"`` runs the
+kernels on CUDA tensors at any size; ``"on"`` runs the kernel lowering on
+any device (through the wrappers' plain versions for CPU tensors);
+``"off"`` is the plain twin (gathered matmuls and
 ``reference_score_admission`` with gumbel noise). The kernel lowering's
 chunk step is ``sparse_mass_score`` → ``admission_stage`` on sweeps
 without the swap phase, and ``sparse_neighbor_mass`` → score → admission,
@@ -264,15 +263,6 @@ def hub_slab(sgraph: SparseCommGraph, blocks, rv_s, SPX: int):
     return u_g, rvu_g
 
 
-def sparse_kernel_lowering(config: GlobalSolverConfig, sgraph: SparseCommGraph,
-                           device) -> bool:
-    """:func:`kernel_lowering` for a sparse graph's recorded weights: on
-    CUDA a graph with non-integer pair weights raises, because the hub mass
-    and fused mass+score kernels still sum without order (the chunk mass
-    kernel sums in a fixed order); ROADMAP Queue 1 item 2."""
-    return kernel_lowering(config, device, sgraph.integral_weights)
-
-
 def global_assign_sparse(
     state: ClusterState,
     sgraph: SparseCommGraph,
@@ -295,7 +285,6 @@ def global_assign_sparse(
             adj=sgraph.dense_adj,
             service_valid=torch.ones((S,), dtype=torch.bool, device=sgraph.dense_adj.device),
             names=sgraph.names,
-            integral_weights=sgraph.integral_weights,
         )
         new_state, info = global_assign(state, dense, generator, config, plan=plan)
         return new_state, dict(info, hub_pass=torch.tensor(False))
@@ -371,7 +360,7 @@ def _global_assign_sparse(state, sgraph, generator, config, plan):
         obj = comm + _balance_terms(cpu_load)
         return comm, (obj + move_penalty(assign) if mc_on else obj)
 
-    use_kernels = sparse_kernel_lowering(config, sgraph, dev)
+    use_kernels = kernel_lowering(config, dev)
     use_noise = config.noise_temp > 0
 
     # static layout tensors go to the device once, before any sweep

@@ -450,6 +450,32 @@ def test_mass_score_geometry_is_a_legal_launch(n_slots, N, w_itemsize):
         assert (threads, rows) == tfa.score_geometry(n_slots * 256, N)[:2]
 
 
+@pytest.mark.parametrize("C,SP", [
+    (1024, 10240),  # large: C = 1024 of 10,000 services padded to 10,240
+    (256, 2560),    # the kernel-vs-plain instance: 2,560 services, C = 256
+    (256, 256),     # a single 256-row block
+    (512, 1024),
+])
+@pytest.mark.parametrize("w_itemsize", [2, 4])
+def test_mass_geometry_is_a_legal_launch(C, SP, w_itemsize):
+    """One warp per row of M: whole blocks of at most 8 warps cover every
+    chunk row once, the per-warp product lists fit one block's shared
+    memory whatever N is, W rows are whole 16-byte vectors and the
+    prefetch depth is one the launcher instantiates."""
+    warps, blocks, smem, depth = tfa.mass_geometry(C, SP, w_itemsize)
+    assert 1 <= warps <= 8 and blocks * warps == C
+    assert smem == warps * 32 * (16 // w_itemsize) * 8 <= 227 * 1024
+    assert depth in (2, 4, 8)
+    assert SP % (16 // w_itemsize) == 0
+
+
+def test_mass_geometry_refuses_illegal_launches():
+    for C, SP, itemsize in ((0, 1024, 2), (6, 1024, 2), (1024, 0, 2), (1024, 1028, 2),
+                            (1024, 1026, 4), (1024, 1024, 8), (-4, 1024, 4)):
+        with pytest.raises(ValueError):
+            tfa.mass_geometry(C, SP, itemsize)
+
+
 def test_score_geometries_refuse_empty_launches():
     for C, N in ((0, 10), (10, 0), (-1, 5)):
         with pytest.raises(ValueError):

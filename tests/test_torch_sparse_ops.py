@@ -278,3 +278,30 @@ def test_chunk_mass_geometry_covers_the_solvers_chunks():
     for rows, itemsize, u in ((0, 2, 1024), (100, 2, 1024), (256, 8, 1024), (256, 2, 30_000)):
         with pytest.raises(ValueError):
             tsm.chunk_mass_geometry(rows, itemsize, u)
+
+
+@pytest.mark.parametrize("n_out,n_tiles", [
+    (4, 61),   # sparse50k: the widest group of four hub blocks
+    (4, 24),
+    (1, 3),    # the hub instance of the solver tests: one hub block, bu = 128
+    (8, 517),  # every tile of the 50k graph's weights in one list
+    (3, 0),    # no tiles: rows of zeros
+])
+@pytest.mark.parametrize("w_itemsize", [2, 4])
+def test_hub_mass_geometry_is_a_legal_launch(n_out, n_tiles, w_itemsize):
+    """One warp per row of M: whole blocks of at most 8 warps cover the
+    output blocks' rows once, each block's rows within one output block,
+    and the per-warp lists, the tile table and its count fit one block's
+    shared memory; the prefetch depth is one the launcher instantiates."""
+    warps, blocks, smem, depth = tsm.hub_mass_geometry(n_out, n_tiles, w_itemsize)
+    assert 1 <= warps <= 8 and BLOCK_R % warps == 0
+    assert blocks * warps == n_out * BLOCK_R
+    assert smem == warps * 32 * (16 // w_itemsize) * 8 + 8 * n_tiles + 16 <= 227 * 1024
+    assert depth in (2, 4, 8)
+
+
+def test_hub_mass_geometry_refuses_illegal_launches():
+    for n_out, n_tiles, itemsize in ((0, 4, 2), (2, -1, 2), (2, 4, 8), (1, 40_000, 2)):
+        with pytest.raises(ValueError):
+            tsm.hub_mass_geometry(n_out, n_tiles, itemsize)
+
