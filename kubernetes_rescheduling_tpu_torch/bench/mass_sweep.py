@@ -1,40 +1,92 @@
-"""Device time of the dense and hub mass kernels at other launch geometries
-than ``mass_geometry``'s and ``hub_mass_geometry``'s, on the card.
+"""Device time of the dense and hub mass kernels at other prefetch depths
+than the one they are built with, and on weights that isolate where the
+time goes, on the card.
 
     python -m kubernetes_rescheduling_tpu_torch.bench.mass_sweep
 
 Kernel 1 (``fused_neighbor_mass``) on the ``large`` scenario's bf16 pair
 weights (C = 1024, N = 1000, SP = 10240) and kernel 5
 (``hub_neighbor_mass``) on the ``sparse50k`` graph's hub groups (N =
-2000), at every (warps per block, prefetch depth) of the lists below:
-each checked equal to its plain version on the sweep's first chunk or
-group, and timed with CUDA events around a captured CUDA graph of 100
-calls that cycle through a sweep's chunks or hub groups (whose weights
-overflow the L2). Then, at the wrappers' geometry, where the time goes:
-the same calls on weights of the same shape that are all zero (the
+2000). Each depth of DEPTHS other than the sources' ``kLongRowDepth``
+(``csrc/sparse_row.cuh``) is built from a copy of the sources with that
+constant replaced, under ``ops/build/`` (the shipped build is left as it
+is), and served to the wrappers in place of their library. At every
+depth each kernel is checked equal to its plain version on the sweep's
+first chunk or group, and timed with CUDA events around a captured CUDA
+graph of 100 calls that cycle through a sweep's chunks or hub groups
+(whose weights overflow the L2). Then, at the built depth, where the time
+goes: the same calls on weights of the same shape that are all zero (the
 stream of W and the zero rows of M alone), and on the weights with every
 row of more than 32 nonzeros cleared (no long product list), beside the
-most nonzeros any row has. Prints one JSON object; the geometry the
-wrappers take is marked ``"default"``. Needs a CUDA device.
+most nonzeros any row has. Prints one JSON object; the depth the sources
+build is marked ``"default"``. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
 import json
+import re
+import shutil
+import subprocess
+from contextlib import contextmanager
 
 import torch
 
 from kubernetes_rescheduling_tpu_torch.bench import harness
 from kubernetes_rescheduling_tpu_torch.bench.score_sweep import ITERS
-from kubernetes_rescheduling_tpu_torch.core.sparsegraph import BLOCK_R
+from kubernetes_rescheduling_tpu_torch.ops import _build
 from kubernetes_rescheduling_tpu_torch.ops import fused_admission as fa
 from kubernetes_rescheduling_tpu_torch.ops import sparse_mass as sm
 from kubernetes_rescheduling_tpu_torch.solver import global_solver as gs
 from kubernetes_rescheduling_tpu_torch.solver import sparse_solver as ss
 
-WARPS = (4, 8)
 DEPTHS = (2, 4, 8)
 THIN = 32  # rows with more nonzeros than this are cleared in the "thin" weights
+_DEPTH = re.compile(r"constexpr int kLongRowDepth = (\d+);")
+SOURCES = ("mass", "sparse_mass")
+
+
+def built_depth() -> int:
+    """The prefetch depth the sources build the long-row kernels with."""
+    return int(_DEPTH.search((_build.CSRC / "sparse_row.cuh").read_text()).group(1))
+
+
+def depth_libraries(depths) -> dict:
+    """``{depth: {source: library}}``: SOURCES built from a copy of the
+    sources with ``kLongRowDepth`` replaced, every build started at once."""
+    procs = {}
+    for depth in depths:
+        src = _build.BUILD_DIR / f"sweep_depth{depth}"
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(_build.CSRC, src)
+        head = src / "sparse_row.cuh"
+        text, n = _DEPTH.subn(f"constexpr int kLongRowDepth = {depth};", head.read_text())
+        if n != 1:
+            raise RuntimeError("sparse_row.cuh has no single kLongRowDepth to replace")
+        head.write_text(text)
+        for name in SOURCES:
+            out = src / f"lib{name}.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src / f"{name}.cu")]
+            procs[depth, name] = (out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs: dict = {}
+    for (depth, name), (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}.cu at depth {depth} failed to build:\n{log}")
+        libs.setdefault(depth, {})[name] = _build.load(out)
+    return libs
+
+
+@contextmanager
+def serving(libs: dict):
+    """The wrappers launch from ``libs`` (``{source: library}``) inside."""
+    own = {name: _build.library(name) for name in libs}
+    _build._LIBS.update(libs)
+    try:
+        yield
+    finally:
+        _build._LIBS.update(own)
 
 
 def weight_variants(w_mm, spans) -> dict:
@@ -108,37 +160,31 @@ def hub_operands():
     return sgraph.w_local.to(torch.bfloat16), hubs, sgraph.bu, N, spans
 
 
-def sweep_dense() -> dict:
+def sweep_dense(libs: dict) -> dict:
     w_mm, assign, valid, block_rows, N = dense_operands()
     kw = dict(num_nodes=N, block_b=gs.COMPOSITION_BLOCK, block_j=1024)
     want = fa.neighbor_mass_plain(w_mm, assign, valid, block_rows[0], num_nodes=N,
                                   block_b=gs.COMPOSITION_BLOCK)
-    default = fa.mass_geometry(1024, w_mm.shape[0], 2)
-    own, out = fa.mass_geometry, []
-    try:
-        for warps in WARPS:
-            for depth in DEPTHS:
-                fa.mass_geometry = lambda C, SP, item, w=warps, d=depth: (  # noqa: E731
-                    w, C // w, w * 32 * (16 // item) * 8, d)
-                got = fa.fused_neighbor_mass(w_mm, assign, valid, block_rows[0], **kw)
-                torch.cuda.synchronize()
-                out.append({
-                    "warps": warps, "depth": depth, "equal": torch.equal(got, want),
-                    "default": (warps, depth) == (default[0], default[3]),
-                    "ms": graph_ms(lambda i: fa.fused_neighbor_mass(
-                        w_mm, assign, valid, block_rows[i % block_rows.shape[0]], **kw)),
-                })
-    finally:
-        fa.mass_geometry = own
+    out = []
+    for depth in DEPTHS:
+        with serving(libs.get(depth, {})):
+            got = fa.fused_neighbor_mass(w_mm, assign, valid, block_rows[0], **kw)
+            torch.cuda.synchronize()
+            out.append({
+                "depth": depth, "equal": torch.equal(got, want),
+                "default": depth == built_depth(),
+                "ms": graph_ms(lambda i: fa.fused_neighbor_mass(
+                    w_mm, assign, valid, block_rows[i % block_rows.shape[0]], **kw)),
+            })
     var = weight_variants(w_mm, [(0, w_mm.shape[1])])
     times = {name: graph_ms(lambda i, w=w: fa.fused_neighbor_mass(
         w, assign, valid, block_rows[i % block_rows.shape[0]], **kw))
         for name, w in var.pop("weights").items()}
-    return {"kernel": "fused_neighbor_mass", "C": 1024, "N": N, "geometries": out,
+    return {"kernel": "fused_neighbor_mass", "C": 1024, "N": N, "depths": out,
             "ms_by_weights": times, **var}
 
 
-def sweep_hub() -> dict:
+def sweep_hub(libs: dict) -> dict:
     w_mm, hubs, bu, N, spans = hub_operands()
 
     def call(i, w=w_mm):
@@ -148,33 +194,27 @@ def sweep_hub() -> dict:
 
     tgt, rvu, tiles, n_out = hubs[0]
     want = sm.hub_mass_plain(w_mm, tgt, rvu, *tiles, num_nodes=N, num_hub_blocks=n_out, bu=bu)
-    default = sm.hub_mass_geometry(n_out, tiles[0].numel(), 2)
-    own, out = sm.hub_mass_geometry, []
-    try:
-        for warps in WARPS:
-            for depth in DEPTHS:
-                sm.hub_mass_geometry = lambda n, t, item, w=warps, d=depth: (  # noqa: E731
-                    w, n * BLOCK_R // w, w * 32 * (16 // item) * 8 + 8 * t + 16, d)
-                got = call(0)
-                torch.cuda.synchronize()
-                out.append({
-                    "warps": warps, "depth": depth, "equal": torch.equal(got, want),
-                    "default": (warps, depth) == (default[0], default[3]),
-                    "ms": graph_ms(call),
-                })
-    finally:
-        sm.hub_mass_geometry = own
+    out = []
+    for depth in DEPTHS:
+        with serving(libs.get(depth, {})):
+            got = call(0)
+            torch.cuda.synchronize()
+            out.append({
+                "depth": depth, "equal": torch.equal(got, want),
+                "default": depth == built_depth(), "ms": graph_ms(call),
+            })
     var = weight_variants(w_mm, spans)
     times = {name: graph_ms(lambda i, w=w: call(i, w)) for name, w in var.pop("weights").items()}
-    return {"kernel": "hub_neighbor_mass", "groups": len(hubs), "N": N, "geometries": out,
+    return {"kernel": "hub_neighbor_mass", "groups": len(hubs), "N": N, "depths": out,
             "ms_by_weights": times, **var}
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("mass_sweep needs a CUDA device")
+    libs = depth_libraries([d for d in DEPTHS if d != built_depth()])
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "sweeps": [sweep_dense(), sweep_hub()]}))
+                      "sweeps": [sweep_dense(libs), sweep_hub(libs)]}))
 
 
 if __name__ == "__main__":

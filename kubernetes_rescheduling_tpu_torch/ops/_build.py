@@ -30,11 +30,11 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the exported launch functions (see each source)
 _ARGTYPES = {
-    "krt_mass_launch": [_I, _P, _I, _P, _P, _P] + [_I] * 8 + [_P, _P],
+    "krt_mass_launch": [_I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P, _P],
     "krt_score_launch": [_I] + [_P] * 12 + [_F] * 3 + [_I] * 11 + [_P] * 6,
     "krt_admission_launch": [_I] + [_P] * 9 + [_I] * 3 + [_P] * 5 + [_I] * 3 + [_P, _L, _P],
     "krt_sparse_mass_launch": [_I, _P, _I, _L] + [_P] * 4 + [_I] * 7 + [_P, _P],
-    "krt_hub_mass_launch": [_I, _P, _I, _L] + [_P] * 6 + [_I] * 8 + [_P, _P],
+    "krt_hub_mass_launch": [_I, _P, _I, _L] + [_P] * 6 + [_I] * 6 + [_P, _P],
     "krt_mass_score_launch": (
         [_I, _P, _I, _L] + [_P] * 5 + [_I] * 7 + [_P] * 11 + [_F] * 3 + [_I] * 5 + [_P] * 6
     ),
@@ -98,17 +98,22 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict[str, str]:
     return logs
 
 
+def load(path) -> ctypes.CDLL:
+    """A built kernel library, its launch functions given their C signatures."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _ARGTYPES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in _ARGTYPES.items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
-        _LIBS[name] = lib
+        lib = _LIBS[name] = load(_target(name))
     return lib
 
 

@@ -11,7 +11,7 @@
 // use. So a CUDA block owns R rows (R = 1 or 2) of one 256-row block:
 //  - mass: one warp per row issues its W strip row, the block zeroes the
 //    rows in shared memory, and each of the R warps adds its row's products
-//    in the chunk mass kernel's fixed order (`krt_ordered_row`,
+//    in the chunk mass kernel's fixed order (the strip row `KrtSlabRow` of
 //    sparse_row.cuh, reading the slot's tgt/rvu slab straight from device
 //    memory: a row has a few nonzero products), so the mass equals kernel
 //    4's bit for bit for any weights, run after run;
@@ -65,15 +65,19 @@ mass_score_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int U = reg_tiles * bu;
-  const int vecs = U / VEC;
 
   // the long reads first: each mass warp's strip row, the score's row
   // scalars and the row replica factors; then the zeros
   __shared__ KrtScoreShared<R> sh;
-  const T* w = W + static_cast<long long>(row0 + warp) * ld +
-               static_cast<long long>(toff[blocks[slot]]) * bu;
-  int4 raw[kStripGroup];
-  if (warp < R) krt_load_strip(w, vecs, 0, lane, raw);
+  const long long slab = static_cast<long long>(slot) * U;
+  const KrtSlabRow<T> strip{W + static_cast<long long>(row0 + warp) * ld +
+                                static_cast<long long>(toff[blocks[slot]]) * bu,
+                            U / VEC, tgt_c + slab, rvu_c + slab, N};
+  int4 a[kStripDepth], b[kStripDepth];
+  if (warp < R) {
+    krt_load_group<kStripDepth>(strip, 0, lane, a);
+    krt_load_group<kStripDepth>(strip, kStripDepth * 32, lane, b);
+  }
   krt_score_stage(sh, g0, R, cur, home, pen, c_cpu, c_mem, static_cast<uint32_t>(seed),
                   kBlockR);
   float rv[R];
@@ -82,9 +86,7 @@ mass_score_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
   for (int i = threadIdx.x; i < R * ldm; i += blockDim.x) acc[i] = 0.0f;
   __syncthreads();
   if (warp < R) {
-    const long long slab = static_cast<long long>(slot) * U;
-    krt_ordered_row(w, vecs, raw, tgt_c + slab, rvu_c + slab, N, lists + warp * kList,
-                    acc + warp * ldm, lane);
+    krt_stream_row<T, kStripDepth>(strip, a, b, lists + warp * kList, acc + warp * ldm, lane);
   }
   __syncthreads();
   // the row replica factor, as the Pallas kernel's m_scr * rv_row

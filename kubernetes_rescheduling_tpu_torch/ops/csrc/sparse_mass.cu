@@ -22,25 +22,26 @@
 //  - one warp per output row, eight rows (all of one block slot) per CUDA
 //    block: 1024 warps over the SMs at the 50k graph's chunk;
 //  - each warp first issues its long reads: the strip's place (block table,
-//    then tile offset), then its whole strip row (16-byte loads, up to 4 per
-//    lane at once) and its share of the slot's tgt/rvu slab (which goes to
+//    then tile offset), then its strip row's first two groups (16-byte
+//    loads, 4 per lane: the whole 1024-column bf16 strip) and its share of the slot's tgt/rvu slab (which goes to
 //    shared memory, shared by the block's rows); only then, while they are
 //    in flight, does it write its row of zeros straight to device memory
 //    with 16-byte stores (no shared-memory staging), so the reads are not
 //    queued behind 8 MB of stores;
 //  - each warp then adds its nonzero products in a fixed column order
-//    (`krt_ordered_row`, sparse_row.cuh, shared with the fused mass+score
-//    kernel): a per-warp list in shared memory, grouped by column with
-//    shuffles, the group's lowest lane summing in lane order and writing
-//    the column (a plain store in the row's first round, read-add-write
-//    after it). No atomics, so M is the same on every run for any weights;
+//    (the strip row `KrtSlabRow` of sparse_row.cuh, shared with the fused
+//    mass+score kernel): a per-warp list in shared memory, its slab columns
+//    resolved from the shared slab a whole list at a time, grouped by
+//    column with one match instruction, the group's lowest lane summing in
+//    lane order and writing the column (a plain store in the row's first
+//    round, read-add-write after it). No atomics, so M is the same on every run for any weights;
 //    for integer weights and replica counts every partial sum is exact and
 //    M equals the plain version (an f32 product) bit for bit.
 //
-// The hub kernel takes the same design, as a long row (sparse_row.cuh).
-// One warp writes each row of M: 256 rows of each of the group's output
-// blocks (about 1024 warps at the 50k graph's groups of 4 hub blocks); a
-// CUDA block's rows share one output block. The Pallas grid's sequential
+// The hub kernel takes the same design over a longer row. One warp writes
+// each row of M: 256 rows of each of the group's output blocks (about 1024
+// warps at the 50k graph's groups of 4 hub blocks); a CUDA block's rows
+// share one output block. The Pallas grid's sequential
 // walk over the flat tile list becomes each row's own walk:
 //  - the block's first warp scans the list (tens of tiles) for the tiles
 //    of its output block and keeps, in shared memory, those from the last
@@ -48,9 +49,9 @@
 //    sum there, and the earlier tiles add nothing;
 //  - each warp then streams its row across those tiles as one row of
 //    vectors (tiles in list order, each tile's columns in order) through
-//    two register buffers (`depth` vectors per lane each, the next group in
-//    flight while the warp lists the current one), its zeros stored to
-//    device memory while the first two groups are in flight;
+//    two register buffers (kLongRowDepth = 8 vectors per lane each, the
+//    next group in flight while the warp lists the current one), its zeros
+//    stored to device memory while the first two groups are in flight;
 //  - the nonzero weights are listed as (slab column, weight), and the
 //    group-local slab (tgt_l, rvu_l) is read from device memory a whole
 //    list at a time, when the list is added in order (the row's state
@@ -95,21 +96,22 @@ chunk_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
   float* out = M + static_cast<long long>(row) * nn;
 
   // the long reads first: the strip's place (two dependent loads), then
-  // the strip row (kStripGroup vectors per lane) and the slot's slab ...
-  const T* w = W + static_cast<long long>(row % kBlockR) * ld +
-               static_cast<long long>(toff[blocks[slot]]) * bu;
-  const int vecs = U / VEC;
-  int4 raw[kStripGroup];
-  krt_load_strip(w, vecs, 0, lane, raw);
+  // the strip row's first two groups and the slot's slab ...
+  const KrtSlabRow<T> strip{W + static_cast<long long>(row % kBlockR) * ld +
+                                static_cast<long long>(toff[blocks[slot]]) * bu,
+                            U / VEC, s_tgt, s_rvu, nn};
+  int4 a[kStripDepth], b[kStripDepth];
+  krt_load_group<kStripDepth>(strip, 0, lane, a);
+  krt_load_group<kStripDepth>(strip, kStripDepth * 32, lane, b);
   const int* tg = tgt_c + static_cast<long long>(slot) * U;
   const float* rv = rvu_c + static_cast<long long>(slot) * U;
   int t_reg[kSlabBatch];
   float r_reg[kSlabBatch];
 #pragma unroll
-  for (int b = 0; b < kSlabBatch; ++b) {
-    const int i = b * blockDim.x + threadIdx.x;
-    t_reg[b] = i < U ? tg[i] : 0;
-    r_reg[b] = i < U ? rv[i] : 0.0f;
+  for (int k = 0; k < kSlabBatch; ++k) {
+    const int i = k * blockDim.x + threadIdx.x;
+    t_reg[k] = i < U ? tg[i] : 0;
+    r_reg[k] = i < U ? rv[i] : 0.0f;
   }
   // ... then, while they are in flight, the row of zeros straight to device
   // memory (nothing waits on these stores) ...
@@ -117,29 +119,27 @@ chunk_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
   // ... and the slab into shared memory (its first batch from registers)
   for (int i0 = 0; i0 < U; i0 += kSlabBatch * blockDim.x) {
 #pragma unroll
-    for (int b = 0; b < kSlabBatch; ++b) {
-      const int i = i0 + b * blockDim.x + threadIdx.x;
+    for (int k = 0; k < kSlabBatch; ++k) {
+      const int i = i0 + k * blockDim.x + threadIdx.x;
       if (i0 > 0) {
-        t_reg[b] = i < U ? tg[i] : 0;
-        r_reg[b] = i < U ? rv[i] : 0.0f;
+        t_reg[k] = i < U ? tg[i] : 0;
+        r_reg[k] = i < U ? rv[i] : 0.0f;
       }
       if (i < U) {
-        s_tgt[i] = t_reg[b];
-        s_rvu[i] = r_reg[b];
+        s_tgt[i] = t_reg[k];
+        s_rvu[i] = r_reg[k];
       }
     }
   }
   __syncthreads();  // the slab is in shared memory
 
-  krt_ordered_row(w, vecs, raw, s_tgt, s_rvu, nn, lists + warp * kList, out, lane);
+  krt_stream_row<T, kStripDepth>(strip, a, b, lists + warp * kList, out, lane);
 }
 
-// The hub row as a long row (sparse_row.cuh): the row's tiles (W column
+// The hub row (sparse_row.cuh): the row's tiles (W column
 // tile, slab column tile) in walk order, `vpt` 16-byte vectors each; vector
 // v lies in tile v / vpt (streamed: read once). The key of its element e is
-// the element's column u in the group-local slab, which adds x * rvu_l[u]
-// (rounded to W's type first, as in KrtSlabTerms) to column tgt_l[u] when
-// the factor is nonzero and the target lies in [0, nn).
+// the element's column u in the group-local slab (`krt_slab_term`).
 template <typename T>
 struct HubRow {
   static constexpr int VEC = 16 / sizeof(T);
@@ -165,18 +165,15 @@ struct HubRow {
   }
 
   __device__ __forceinline__ void resolve(int u, float x, int& col, float& prod) const {
-    const int t = __ldg(tgt + u);
-    const float r = krt_as_w<T>(__ldg(rvu + u));
-    col = r != 0.0f && t >= 0 && t < nn ? t : -1;
-    prod = __fmul_rn(x, r);
+    krt_slab_term<T>(__ldg(tgt + u), __ldg(rvu + u), x, nn, col, prod);
   }
 };
 
 // Shared layout: one product list per warp, int2[32 * VEC] each | the walk's
 // tiles, int2[n_tiles] | their count, int: warps * 256 * VEC + 8 n_tiles + 16
 // bytes.
-template <typename T, int G>
-__global__ void __launch_bounds__(256)
+template <typename T>
+__global__ void __launch_bounds__(kLongRowWarps * 32)
 hub_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__ tgt_l,
                 const float* __restrict__ rvu_l, const int* __restrict__ tile_col,
                 const int* __restrict__ tile_lcol, const int* __restrict__ tile_out,
@@ -187,7 +184,7 @@ hub_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__ t
   extern __shared__ __align__(16) unsigned char shared[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
+  constexpr int warps = kLongRowWarps;
   int2* lists = reinterpret_cast<int2*>(shared);
   int2* tiles = lists + warps * kList;
   int* s_count = reinterpret_cast<int*>(tiles + n_tiles);
@@ -225,12 +222,13 @@ hub_mass_kernel(const T* __restrict__ W, long long ld, const int* __restrict__ t
 
   const HubRow<T> strip{W + static_cast<long long>(row % kBlockR) * ld, tiles, bu / VEC,
                         *s_count * (bu / VEC), bu, tgt_l, rvu_l, nn};
+  constexpr int G = kLongRowDepth;
   int4 a[G], b[G];
   krt_load_group<G>(strip, 0, lane, a);
   krt_load_group<G>(strip, G * 32, lane, b);
   float* out = M + static_cast<long long>(row) * nn;
   krt_zero_row(out, nn, lane);
-  krt_stream_row<T, G>(strip, strip.vecs, a, b, lists + warp * kList, out, lane);
+  krt_stream_row<T, G>(strip, a, b, lists + warp * kList, out, lane);
 }
 
 template <typename T>
@@ -253,44 +251,27 @@ int launch_chunk(const void* W, long long ld, const int* tgt_c, const float* rvu
   return cudaGetLastError();
 }
 
-template <typename T, int G>
-int launch_hub_depth(const void* W, long long ld, const int* tgt_l, const float* rvu_l,
-                     const int* tile_col, const int* tile_lcol, const int* tile_out,
-                     const int* tile_first, int n_tiles, int bu, int nn, int warps, int grid,
-                     int smem, float* M, cudaStream_t stream) {
-  static size_t granted = 48 * 1024;
-  cudaError_t err = krt_allow_smem(hub_mass_kernel<T, G>, smem, &granted);
-  if (err != cudaSuccess) return err;
-  hub_mass_kernel<T, G><<<grid, warps * 32, smem, stream>>>(
-      static_cast<const T*>(W), ld, tgt_l, rvu_l, tile_col, tile_lcol, tile_out, tile_first,
-      n_tiles, bu, nn, M);
-  return cudaGetLastError();
-}
-
 template <typename T>
 int launch_hub(const void* W, long long ld, const int* tgt_l, const float* rvu_l,
                const int* tile_col, const int* tile_lcol, const int* tile_out,
-               const int* tile_first, int n_tiles, int n_out, int bu, int nn, int warps,
-               int grid, int smem, int depth, float* M, cudaStream_t stream) {
-  // the wrapper's geometry (`hub_mass_geometry`): whole blocks of rows of one
-  // output block, the product lists and the tile table in shared memory
+               const int* tile_first, int n_tiles, int n_out, int bu, int nn, int grid,
+               int smem, float* M, cudaStream_t stream) {
+  // the wrapper's geometry (`hub_mass_geometry`): whole blocks of
+  // kLongRowWarps rows of one output block, the product lists and the tile
+  // table in shared memory
   constexpr int VEC = 16 / sizeof(T);
-  const long long want = warps * 256LL * VEC + 8LL * n_tiles + 16;
-  if (warps < 1 || warps > 8 || kBlockR % warps ||
-      static_cast<long long>(grid) * warps != static_cast<long long>(n_out) * kBlockR ||
-      n_tiles < 0 || bu % VEC || nn < 1 || smem != want) {
+  const long long want = kLongRowWarps * krt_list_len<T>() * 8LL + 8LL * n_tiles + 16;
+  if (static_cast<long long>(grid) * kLongRowWarps != static_cast<long long>(n_out) * kBlockR ||
+      n_out < 1 || n_tiles < 0 || bu % VEC || nn < 1 || smem != want) {
     return cudaErrorInvalidValue;
   }
-#define KRT_HUB(D)                                                                       \
-  launch_hub_depth<T, D>(W, ld, tgt_l, rvu_l, tile_col, tile_lcol, tile_out, tile_first, \
-                         n_tiles, bu, nn, warps, grid, smem, M, stream)
-  switch (depth) {
-    case 2: return KRT_HUB(2);
-    case 4: return KRT_HUB(4);
-    case 8: return KRT_HUB(8);
-    default: return cudaErrorInvalidValue;
-  }
-#undef KRT_HUB
+  static size_t granted = 48 * 1024;
+  cudaError_t err = krt_allow_smem(hub_mass_kernel<T>, smem, &granted);
+  if (err != cudaSuccess) return err;
+  hub_mass_kernel<T><<<grid, kLongRowWarps * 32, smem, stream>>>(
+      static_cast<const T*>(W), ld, tgt_l, rvu_l, tile_col, tile_lcol, tile_out, tile_first,
+      n_tiles, bu, nn, M);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -314,21 +295,19 @@ KRT_EXPORT int krt_sparse_mass_launch(int device, const void* W, int w_is_bf16, 
 }
 
 // tgt_l: i32 and rvu_l: f32 group-local slabs; tile_*: i32[n_tiles]; M:
-// f32[n_out * 256, nn] output. warps, grid, smem and depth: the wrapper's
-// launch geometry (`hub_mass_geometry`).
+// f32[n_out * 256, nn] output. grid and smem: the wrapper's launch geometry
+// (`hub_mass_geometry`).
 KRT_EXPORT int krt_hub_mass_launch(int device, const void* W, int w_is_bf16, long long ld,
                                    const int* tgt_l, const float* rvu_l, const int* tile_col,
                                    const int* tile_lcol, const int* tile_out,
                                    const int* tile_first, int n_tiles, int n_out, int bu, int nn,
-                                   int warps, int grid, int smem, int depth, float* M,
-                                   void* stream) {
+                                   int grid, int smem, float* M, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
   return w_is_bf16 ? launch_hub<__nv_bfloat16>(W, ld, tgt_l, rvu_l, tile_col, tile_lcol,
                                                tile_out, tile_first, n_tiles, n_out, bu, nn,
-                                               warps, grid, smem, depth, M, s)
+                                               grid, smem, M, s)
                    : launch_hub<float>(W, ld, tgt_l, rvu_l, tile_col, tile_lcol, tile_out,
-                                       tile_first, n_tiles, n_out, bu, nn, warps, grid, smem,
-                                       depth, M, s);
+                                       tile_first, n_tiles, n_out, bu, nn, grid, smem, M, s);
 }

@@ -3,32 +3,38 @@
 // mass kernel (mass.cu) write their rows in device memory, the fused
 // mass+score kernel (mass_score.cu) in shared memory.
 //
-// One warp owns the row. It streams the row's weights (16-byte loads,
-// several vectors per lane at once), keeps the nonzero products in column
-// order in a short per-warp list in shared memory, and adds them 32 at a
-// time: the lanes of one target column form a group (found by shuffles),
-// and the group's lowest lane sums the group in lane order and writes the
-// column. No atomics: the row is the same on every run for any weights (and
-// the chunk mass and fused kernels, which share the strip form below, write
-// the same bits for the same products). For integer weights and replica
-// counts every partial sum is exact, so the row also equals the plain
-// version (an f32 product) bit for bit.
+// One warp owns the row. A row is a run of 16-byte vectors of W, described
+// by a strip (`strip.load(v)`, zeros past the end; `strip.key(v, e)`;
+// `strip.resolve(key, x, col, prod)`), streamed in groups of G vectors per
+// lane through two register buffers, so that while the warp lists one group
+// the next is in flight. A vector that is zero in every lane (the common
+// case: pair weights are sparse) costs one vote. Each nonzero weight is
+// listed as (key, weight) in a short per-warp list in shared memory, in
+// column order (vectors in order, each lane's elements in order), the key
+// naming the element (its W column, or its column in a tgt/rvu slab). The
+// keys are resolved only when the list is added, a whole list at once (the
+// target column, -1 when the element adds nothing, and the product), so a
+// row of thousands of columns waits on device memory once per list of up to
+// 256 entries, not once per vector that holds a weight. The list is added
+// 32 entries at a time: a column's group comes from one match instruction,
+// and its lowest lane sums it in lane order and writes the column.
 //
-// Two forms share that order. A strip row (the chunk mass and fused
-// kernels: krt_ordered_row) looks each nonzero weight's column up in its
-// slab (tgt, rvu) as it lists it. A long row (the dense mass and hub mass
-// kernels: krt_stream_row, at the end of this file) lists (key, weight)
-// entries and resolves the keys when it adds them, a whole list at once,
-// so a row of thousands of columns waits on device memory once per list
-// (up to 256 products), not once per vector that holds one; its weights
-// stream through two register buffers, the next group in flight while the
-// warp lists the current one.
+// No atomics: the row is the same on every run for any weights, and the
+// order does not depend on G, so two kernels that list the same strip (the
+// chunk mass and fused kernels) write the same bits. For integer weights
+// and replica counts every partial sum is exact, so the row also equals the
+// plain version (an f32 product) bit for bit.
 #pragma once
 
 #include "sparse_tile.cuh"
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kStripGroup = 4;  // 16-byte vectors of the strip each lane loads at once
+
+// The long rows of the dense mass and hub mass kernels: rows (warps) per
+// CUDA block, and vectors per lane in each register buffer (up to 2 x 8 KB
+// in flight per warp; depth 8 against 2 and 4: `bench.mass_sweep`).
+constexpr int kLongRowWarps = 4;
+constexpr int kLongRowDepth = 8;
 
 // Products one lane-round over 32 vectors of T can add: the per-warp list
 // holds this many int2 entries.
@@ -37,147 +43,20 @@ __host__ __device__ constexpr int krt_list_len() {
   return 32 * (16 / static_cast<int>(sizeof(T)));
 }
 
-// Adds a warp's listed products (column, f32 bits) into its row `out`, 32
-// at a time: the lanes of one target column form a group, whose lowest lane
-// sums the group in lane order and writes the column. `fresh` (warp
-// uniform) says no product of this row was written yet, so the first round
-// stores over the zeros instead of reading them back.
-__device__ __forceinline__ void krt_add_products(const int2* list, int count, float* out,
-                                                 bool& fresh, int lane) {
-  __syncwarp();  // the row's zeros and every lane's list entries, in order
-  for (int r0 = 0; r0 < count; r0 += 32) {
-    const int n = min(32, count - r0);
-    const int2 ent = lane < n ? list[r0 + lane] : make_int2(-1, 0);
-    const float p = __int_as_float(ent.y);
-    float sum = 0.0f;
-    int first = 32;  // the group's lowest lane
-    for (int b = 0; b < n; ++b) {
-      const int c = __shfl_sync(kFull, ent.x, b);
-      const float q = __shfl_sync(kFull, p, b);
-      if (c == ent.x) {
-        sum = __fadd_rn(sum, q);
-        first = min(first, b);
-      }
-    }
-    if (lane < n && first == lane) out[ent.x] = fresh ? sum : __fadd_rn(out[ent.x], sum);
-    fresh = false;
-    __syncwarp();
-  }
-}
-
-// Loads strip vectors g0 + q * 32 + lane (q < kStripGroup) of the row `w`
-// (`vecs` 16-byte vectors long; past the end, zeros).
-template <typename T>
-__device__ __forceinline__ void krt_load_strip(const T* __restrict__ w, int vecs, int g0,
-                                               int lane, int4 (&raw)[kStripGroup]) {
-  constexpr int VEC = 16 / sizeof(T);
-#pragma unroll
-  for (int q = 0; q < kStripGroup; ++q) {
-    const int v = g0 + q * 32 + lane;
-    raw[q] = v < vecs ? *reinterpret_cast<const int4*>(w + static_cast<long long>(v) * VEC)
-                      : make_int4(0, 0, 0, 0);
-  }
-}
-
-// out[tgt[u]] += w[u] * rvu[u] for u < vecs * VEC, tgt in [0, nn), in the
-// fixed order above. `raw` holds the strip's first group, already loaded
-// (krt_load_strip at g0 = 0), so a caller can issue those loads early;
-// `out` holds zeros; `list` is the warp's own krt_list_len<T>() entries.
-template <typename T>
-__device__ __forceinline__ void krt_ordered_row(const T* __restrict__ w, int vecs,
-                                                int4 (&raw)[kStripGroup], const int* tgt,
-                                                const float* rvu, int nn, int2* list,
-                                                float* out, int lane) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int kList = krt_list_len<T>();
-  int count = 0;      // warp uniform
-  bool fresh = true;  // warp uniform
-  for (int g0 = 0; g0 < vecs; g0 += kStripGroup * 32) {
-    if (g0 > 0) krt_load_strip(w, vecs, g0, lane, raw);
-#pragma unroll
-    for (int q = 0; q < kStripGroup; ++q) {
-      const int v = g0 + q * 32 + lane;
-      const T* wv = reinterpret_cast<const T*>(&raw[q]);
-      int col[VEC];
-      float prod[VEC];
-      int mine = 0;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        col[e] = -1;
-        const float x = krt_to_float(wv[e]);
-        if (x == 0.0f) continue;
-        const int u = v * VEC + e;
-        const int t = tgt[u];
-        const float r = krt_as_w<T>(rvu[u]);
-        if (r != 0.0f && t >= 0 && t < nn) {
-          col[e] = t;
-          prod[e] = __fmul_rn(x, r);
-          ++mine;
-        }
-      }
-      // list positions in column order: lanes in order, each lane's own in e order
-      int incl = mine;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int up = __shfl_up_sync(kFull, incl, d);
-        if (lane >= d) incl += up;
-      }
-      const int total = __shfl_sync(kFull, incl, 31);
-      if (total == 0) continue;
-      if (count + total > kList) {
-        krt_add_products(list, count, out, fresh, lane);
-        count = 0;
-      }
-      int pos = count + incl - mine;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        if (col[e] >= 0) list[pos++] = make_int2(col[e], __float_as_int(prod[e]));
-      }
-      count += total;
-    }
-  }
-  krt_add_products(list, count, out, fresh, lane);
-}
-
-// A row of M's zeros straight to device memory from one warp: 16-byte
-// stores where the row is whole float4s (nn a multiple of 4, M from the
-// allocator), else scalar ones. Nothing waits on them.
-__device__ __forceinline__ void krt_zero_row(float* out, int nn, int lane) {
-  if ((nn & 3) == 0) {
-    float4* out4 = reinterpret_cast<float4*>(out);
-    for (int c = lane; c < (nn >> 2); c += 32) out4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  } else {
-    for (int c = lane; c < nn; c += 32) out[c] = 0.0f;
-  }
-}
-
-// ---- Long rows: the dense mass and hub mass kernels.
-//
-// A long row (10,240 columns of the dense W; a hub block's tiles) holds few
-// nonzero weights, scattered. Looking up each one's column as it is listed
-// would cost the warp one wait on device memory for every vector that holds
-// one, so a long row lists each nonzero weight as (key, weight), the key
-// naming the element (its W column, or its slab column: `strip.key(v, e)`),
-// and resolves the keys only when it adds the list: one round of loads for
-// the whole list (`strip.resolve(key, x, col, prod)`: the column, -1 when
-// the element adds nothing, and the product). The order is the one above:
-// entries in list order, 32 at a time, each column's group summed in lane
-// order by its lowest lane.
-
-// A warp's ordered row between vectors (both warp uniform): the products
-// listed and not yet added, and whether the row still holds only its zeros.
+// A warp's ordered row between vectors (both warp uniform): the entries
+// listed and not yet added, and whether the row still holds only its zeros
+// (so the first round stores over them instead of reading them back).
 struct KrtRow {
   int count;
   bool fresh;
 };
 
-// Adds a long row's listed entries (at most krt_list_len<T>(), a list's
-// worth) into `out`: first every lane resolves its entries of every round
-// (one wait on device memory for the whole list), then the rounds of 32
-// are added in order; a column's group comes from one match instruction,
-// and its lowest lane sums it in lane order over as many shuffle steps as
-// the round's largest group holds (one or two on rows of sparse pair
-// weights). `fresh` as in krt_add_products.
+// Adds a row's listed entries (at most krt_list_len<T>(), a list's worth)
+// into `out`: first every lane resolves its entries of every round (one
+// wait on memory for the whole list), then the rounds of 32 are added in
+// order; a column's group comes from one match instruction, and its lowest
+// lane sums it in lane order over as many shuffle steps as the round's
+// largest group holds (one or two on rows of sparse pair weights).
 template <typename T, typename Strip>
 __device__ __forceinline__ void krt_add_entries(const Strip& strip, const int2* list, int count,
                                                 float* out, bool& fresh, int lane) {
@@ -222,8 +101,8 @@ __device__ __forceinline__ void krt_add_entries(const Strip& strip, const int2* 
 // out of line: it runs only for vectors that hold a nonzero weight, and one
 // copy serves every unrolled call site.
 template <typename T, typename Strip>
-__device__ __noinline__ KrtRow krt_list_long(int4 raw, int v, Strip strip, int2* list,
-                                             float* out, int lane, KrtRow row) {
+__device__ __noinline__ KrtRow krt_list_vector(int4 raw, int v, Strip strip, int2* list,
+                                               float* out, int lane, KrtRow row) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int kList = krt_list_len<T>();
   const T* wv = reinterpret_cast<const T*>(&raw);
@@ -256,9 +135,7 @@ __device__ __noinline__ KrtRow krt_list_long(int4 raw, int v, Strip strip, int2*
   return row;
 }
 
-// Lists the vectors of one group (G per lane, vectors g0 + q * 32 + lane);
-// a vector that is zero in every lane (the common case: pair weights are
-// sparse) costs one vote.
+// Lists the vectors of one group (G per lane, vectors g0 + q * 32 + lane).
 template <typename T, int G, typename Strip>
 __device__ __forceinline__ void krt_list_group(const int4 (&raw)[G], int g0, const Strip& strip,
                                                int2* list, float* out, int lane, KrtRow& row) {
@@ -266,7 +143,7 @@ __device__ __forceinline__ void krt_list_group(const int4 (&raw)[G], int g0, con
   for (int q = 0; q < G; ++q) {
     const int4 r = raw[q];
     if (!__any_sync(kFull, (r.x | r.y | r.z | r.w) != 0)) continue;
-    row = krt_list_long<T>(r, g0 + q * 32 + lane, strip, list, out, lane, row);
+    row = krt_list_vector<T>(r, g0 + q * 32 + lane, strip, list, out, lane, row);
   }
 }
 
@@ -277,18 +154,16 @@ __device__ __forceinline__ void krt_load_group(const Strip& strip, int g0, int l
   for (int q = 0; q < G; ++q) raw[q] = strip.load(g0 + q * 32 + lane);
 }
 
-// The whole ordered long row of `vecs` 16-byte vectors, streamed in groups
-// of G vectors per lane through two register buffers, so that while the
-// warp lists one group the next is in flight (up to 2 G vectors, 1 KB x G,
-// per warp). `strip` gives vector v (`strip.load(v)`, zeros past the end)
-// and keys and resolves its elements; `a` and `b` hold groups 0 and 1,
-// already loaded, so a caller can issue them before the row's zeros. The
-// row is complete on return.
+// The whole ordered row of `strip.vecs` vectors into `out`, which holds
+// zeros; `a` and `b` hold groups 0 and 1, already loaded (krt_load_group at
+// g0 = 0 and G * 32), so a caller can issue them before the row's zeros;
+// `list` is the warp's own krt_list_len<T>() entries. The row is complete
+// on return.
 template <typename T, int G, typename Strip>
-__device__ __forceinline__ void krt_stream_row(const Strip& strip, int vecs, int4 (&a)[G],
-                                               int4 (&b)[G], int2* list, float* out,
-                                               int lane) {
+__device__ __forceinline__ void krt_stream_row(const Strip& strip, int4 (&a)[G], int4 (&b)[G],
+                                               int2* list, float* out, int lane) {
   constexpr int kStep = G * 32;
+  const int vecs = strip.vecs;
   KrtRow row{0, true};
   for (int g0 = 0; g0 < vecs; g0 += 2 * kStep) {
     krt_list_group<T, G>(a, g0, strip, list, out, lane, row);
@@ -299,4 +174,57 @@ __device__ __forceinline__ void krt_stream_row(const Strip& strip, int vecs, int
     }
   }
   krt_add_entries<T>(strip, list, row.count, out, row.fresh, lane);
+}
+
+// Slab column u's term for weight x: tgt[u] is the target column (adds
+// nothing unless it lies in [0, nn) and the replica factor rvu[u], rounded
+// to W's type as the plain version's scaled one-hot tile holds it, is
+// nonzero), the product x * rvu[u].
+template <typename T>
+__device__ __forceinline__ void krt_slab_term(int t, float rvu, float x, int nn, int& col,
+                                              float& prod) {
+  const float r = krt_as_w<T>(rvu);
+  col = r != 0.0f && t >= 0 && t < nn ? t : -1;
+  prod = __fmul_rn(x, r);
+}
+
+// A strip row of the chunk mass and fused kernels: `vecs` vectors of W from
+// `w`, element u (key v * VEC + e) adding to column tgt[u] through the slab
+// (tgt, rvu) in shared or device memory.
+template <typename T>
+struct KrtSlabRow {
+  const T* w;
+  int vecs;
+  const int* tgt;
+  const float* rvu;
+  int nn;
+
+  __device__ __forceinline__ int4 load(int v) const {
+    return v < vecs ? __ldg(reinterpret_cast<const int4*>(w) + v) : make_int4(0, 0, 0, 0);
+  }
+
+  __device__ __forceinline__ int key(int v, int e) const {
+    return v * (16 / static_cast<int>(sizeof(T))) + e;
+  }
+
+  __device__ __forceinline__ void resolve(int u, float x, int& col, float& prod) const {
+    krt_slab_term<T>(tgt[u], rvu[u], x, nn, col, prod);
+  }
+};
+
+// Vectors per lane in each register buffer of a strip row: 4 vectors per
+// lane in flight (2 KB per warp), the whole 1024-column bf16 strip of the
+// 50k graph's chunk in its first two groups.
+constexpr int kStripDepth = 2;
+
+// A row of M's zeros straight to device memory from one warp: 16-byte
+// stores where the row is whole float4s (nn a multiple of 4, M from the
+// allocator), else scalar ones. Nothing waits on them.
+__device__ __forceinline__ void krt_zero_row(float* out, int nn, int lane) {
+  if ((nn & 3) == 0) {
+    float4* out4 = reinterpret_cast<float4*>(out);
+    for (int c = lane; c < (nn >> 2); c += 32) out4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int c = lane; c < nn; c += 32) out[c] = 0.0f;
+  }
 }

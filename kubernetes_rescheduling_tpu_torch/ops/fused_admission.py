@@ -301,17 +301,15 @@ def _flag(t: torch.Tensor) -> torch.Tensor:
     return (t != 0).to(torch.uint8)
 
 
-_MASS_WARPS = 4  # rows of M per CUDA block of the dense mass kernel, one warp each
-_MASS_DEPTH = 8  # 16-byte vectors of W each lane loads at once (up to twice that in flight)
+_MASS_WARPS = 4  # rows of M per CUDA block: kLongRowWarps of csrc/sparse_row.cuh
 
 
-def mass_geometry(C: int, SP: int, w_itemsize: int) -> tuple[int, int, int, int]:
+def mass_geometry(C: int, SP: int, w_itemsize: int) -> tuple[int, int]:
     """Launch geometry of the dense mass kernel for C rows of M over W rows
-    of SP elements of ``w_itemsize`` bytes: ``(warps per block, blocks,
-    shared bytes, depth)``. One warp writes each row, streaming its W row
-    ``depth`` 16-byte vectors per lane at a time; shared memory holds one
-    list per warp of up to 32 vectors' worth of products (8 bytes each),
-    whatever N is."""
+    of SP elements of ``w_itemsize`` bytes: ``(blocks, shared bytes)``. One
+    warp writes each row, 4 rows a block; shared memory holds one list per
+    warp of up to 32 vectors' worth of products (8 bytes each), whatever N
+    is. The launcher checks both."""
     if w_itemsize not in (2, 4):
         raise ValueError(f"W must be bf16 or f32, got {w_itemsize}-byte elements")
     vec = 16 // w_itemsize
@@ -319,7 +317,7 @@ def mass_geometry(C: int, SP: int, w_itemsize: int) -> tuple[int, int, int, int]
         raise ValueError(f"C={C} must be a positive multiple of {_MASS_WARPS}")
     if SP <= 0 or SP % vec:
         raise ValueError(f"SP={SP} must be a positive multiple of {vec} (whole 16-byte vectors)")
-    return _MASS_WARPS, C // _MASS_WARPS, _MASS_WARPS * 32 * vec * 8, _MASS_DEPTH
+    return C // _MASS_WARPS, _MASS_WARPS * 32 * vec * 8
 
 
 def fused_neighbor_mass(
@@ -358,14 +356,14 @@ def fused_neighbor_mass(
     if W.data_ptr() % 16:
         raise ValueError("W must be 16-byte aligned")
     C = KB * block_b
-    warps, blocks, smem, depth = mass_geometry(C, SP, W.element_size())
+    blocks, smem = mass_geometry(C, SP, W.element_size())
     assign_i, valid_u, blocks_i = _i32(assign), _flag(svc_valid), _i32(block_ids)
     _check_lengths((assign_i, valid_u), SP, "assign and svc_valid")
     M = torch.empty((C, N), dtype=torch.float32, device=W.device)
     lib = _build.library("mass")
     code = lib.krt_mass_launch(
         W.device.index or 0, _ptr(W), int(W.dtype == torch.bfloat16), _ptr(assign_i),
-        _ptr(valid_u), _ptr(blocks_i), SP, N, C, block_b, warps, blocks, smem, depth, _ptr(M),
+        _ptr(valid_u), _ptr(blocks_i), SP, N, C, block_b, blocks, smem, _ptr(M),
         _stream(W.device),
     )
     _build.check(lib, code, "fused_neighbor_mass")

@@ -215,27 +215,27 @@ def mass_score_geometry(n_slots: int, N: int, w_itemsize: int) -> tuple[int, int
     return threads, rows, ldm, rows * per_row
 
 
-_HUB_WARPS = 4  # rows of M per CUDA block of the hub mass kernel, one warp each
-_HUB_DEPTH = 8  # 16-byte vectors of W each lane loads at once (up to twice that in flight)
+_HUB_WARPS = 4  # rows of M per CUDA block: kLongRowWarps of csrc/sparse_row.cuh
 
 
-def hub_mass_geometry(n_out: int, n_tiles: int, w_itemsize: int) -> tuple[int, int, int, int]:
+def hub_mass_geometry(n_out: int, n_tiles: int, w_itemsize: int) -> tuple[int, int]:
     """Launch geometry of the hub mass kernel for ``n_out`` 256-row output
-    blocks over a flat list of ``n_tiles`` tiles: ``(warps per block,
-    blocks, shared bytes, depth)``. One warp writes each row, streaming its
-    tiles ``depth`` 16-byte vectors per lane at a time; a block's rows
-    share one output block, whose tiles (8 bytes each, at most the whole
-    list) sit in shared memory beside one list per warp of up to 32
-    vectors' worth of products (8 bytes each) and the tiles' count."""
+    blocks over a flat list of ``n_tiles`` tiles: ``(blocks, shared
+    bytes)``. One warp writes each row, 4 rows a block, all of one output
+    block; its tile table (8 bytes a tile, sized for the whole list, since
+    a block finds its tiles by scanning it) sits in shared memory beside
+    one list per warp of up to 32 vectors' worth of products (8 bytes each)
+    and the tiles' count. So a list may hold at most about 28,000 tiles
+    (bf16 W; 28,500 for f32), in any number of output blocks; the launcher
+    checks the geometry."""
     if n_out < 1 or n_tiles < 0:
         raise ValueError(f"{n_out} output blocks, {n_tiles} tiles: need >= 1 and >= 0")
     if w_itemsize not in (2, 4):
         raise ValueError(f"W must be bf16 or f32, got {w_itemsize}-byte elements")
-    warps = _HUB_WARPS
-    smem = warps * 32 * (16 // w_itemsize) * 8 + 8 * n_tiles + 16
+    smem = _HUB_WARPS * 32 * (16 // w_itemsize) * 8 + 8 * n_tiles + 16
     if smem > _SHARED_BYTES:
         raise ValueError(f"a list of {n_tiles} tiles does not fit one block's shared memory")
-    return warps, n_out * BLOCK_R // warps, smem, _HUB_DEPTH
+    return n_out * BLOCK_R // _HUB_WARPS, smem
 
 
 def sparse_neighbor_mass(
@@ -299,7 +299,9 @@ def hub_neighbor_mass(
     ``csrc/sparse_mass.cu``. On the card each row's products are added in
     a fixed order (the output block's tiles in list order from its last
     ``tile_first`` on), so M is the same on every run for any weights (and
-    equal to the plain version for integer ones)."""
+    equal to the plain version for integer ones). There a list of more than
+    about 28,000 tiles raises (``hub_mass_geometry``); the 50k graph's
+    groups hold at most 61."""
     N = int(num_nodes)
     tiles = (tile_col, tile_lcol, tile_out, tile_first)
     _check_lengths(tiles, tile_col.numel(), "tile arrays")
@@ -311,7 +313,7 @@ def hub_neighbor_mass(
     _check_weights(w_mm, bu)
     dev = w_mm.device
     T = tile_col.numel()
-    warps, blocks, smem, depth = hub_mass_geometry(num_hub_blocks, T, w_mm.element_size())
+    blocks, smem = hub_mass_geometry(num_hub_blocks, T, w_mm.element_size())
     tgt, rvu = _i32(tgt_l), _f32(rvu_l)
     tc, tl, to, tf = (_i32(t) for t in tiles)
     M = torch.empty((num_hub_blocks * BLOCK_R, N), dtype=torch.float32, device=dev)
@@ -319,7 +321,7 @@ def hub_neighbor_mass(
     code = lib.krt_hub_mass_launch(
         dev.index or 0, _ptr(w_mm), int(w_mm.dtype == torch.bfloat16), w_mm.shape[1],
         _ptr(tgt), _ptr(rvu), _ptr(tc), _ptr(tl), _ptr(to), _ptr(tf), T, num_hub_blocks, bu, N,
-        warps, blocks, smem, depth, _ptr(M), _stream(dev),
+        blocks, smem, _ptr(M), _stream(dev),
     )
     _build.check(lib, code, "hub_neighbor_mass")
     hub_neighbor_mass.launches += 1

@@ -458,14 +458,12 @@ def test_mass_score_geometry_is_a_legal_launch(n_slots, N, w_itemsize):
 ])
 @pytest.mark.parametrize("w_itemsize", [2, 4])
 def test_mass_geometry_is_a_legal_launch(C, SP, w_itemsize):
-    """One warp per row of M: whole blocks of at most 8 warps cover every
-    chunk row once, the per-warp product lists fit one block's shared
-    memory whatever N is, W rows are whole 16-byte vectors and the
-    prefetch depth is one the launcher instantiates."""
-    warps, blocks, smem, depth = tfa.mass_geometry(C, SP, w_itemsize)
-    assert 1 <= warps <= 8 and blocks * warps == C
-    assert smem == warps * 32 * (16 // w_itemsize) * 8 <= 227 * 1024
-    assert depth in (2, 4, 8)
+    """One warp per row of M: whole blocks of 4 warps (the kernel's block)
+    cover every chunk row once, the per-warp product lists fit one block's
+    shared memory whatever N is, and W rows are whole 16-byte vectors."""
+    blocks, smem = tfa.mass_geometry(C, SP, w_itemsize)
+    assert blocks * 4 == C
+    assert smem == 4 * 32 * (16 // w_itemsize) * 8 <= 227 * 1024
     assert SP % (16 // w_itemsize) == 0
 
 

@@ -286,22 +286,22 @@ def test_chunk_mass_geometry_covers_the_solvers_chunks():
     (1, 3),    # the hub instance of the solver tests: one hub block, bu = 128
     (8, 517),  # every tile of the 50k graph's weights in one list
     (3, 0),    # no tiles: rows of zeros
+    (1, 28_030),  # the most tiles a list may hold with bf16 W
 ])
 @pytest.mark.parametrize("w_itemsize", [2, 4])
 def test_hub_mass_geometry_is_a_legal_launch(n_out, n_tiles, w_itemsize):
-    """One warp per row of M: whole blocks of at most 8 warps cover the
-    output blocks' rows once, each block's rows within one output block,
-    and the per-warp lists, the tile table and its count fit one block's
-    shared memory; the prefetch depth is one the launcher instantiates."""
-    warps, blocks, smem, depth = tsm.hub_mass_geometry(n_out, n_tiles, w_itemsize)
-    assert 1 <= warps <= 8 and BLOCK_R % warps == 0
-    assert blocks * warps == n_out * BLOCK_R
-    assert smem == warps * 32 * (16 // w_itemsize) * 8 + 8 * n_tiles + 16 <= 227 * 1024
-    assert depth in (2, 4, 8)
+    """One warp per row of M: whole blocks of 4 warps (the kernel's block)
+    cover the output blocks' rows once, each block's rows within one output
+    block, and the per-warp lists, the tile table and its count fit one
+    block's shared memory."""
+    blocks, smem = tsm.hub_mass_geometry(n_out, n_tiles, w_itemsize)
+    assert blocks * 4 == n_out * BLOCK_R
+    assert smem == 4 * 32 * (16 // w_itemsize) * 8 + 8 * n_tiles + 16 <= 227 * 1024
 
 
 def test_hub_mass_geometry_refuses_illegal_launches():
-    for n_out, n_tiles, itemsize in ((0, 4, 2), (2, -1, 2), (2, 4, 8), (1, 40_000, 2)):
+    for n_out, n_tiles, itemsize in ((0, 4, 2), (2, -1, 2), (2, 4, 8), (1, 28_031, 2),
+                                     (1, 28_543, 4)):
         with pytest.raises(ValueError):
             tsm.hub_mass_geometry(n_out, n_tiles, itemsize)
 
