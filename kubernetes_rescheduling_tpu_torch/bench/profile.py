@@ -13,6 +13,14 @@ kernels that took the most device time. A third solve runs under
 PyTorch's sync debug mode and reports where the host waited for the device
 (``file:line`` of each synchronizing call site; the mode does not catch
 every kind of sync). Needs a CUDA device.
+
+    python -m kubernetes_rescheduling_tpu_torch.bench.profile --algorithm communication
+    python -m kubernetes_rescheduling_tpu_torch.bench.profile --algorithm global [--solver-backend sparse]
+
+``--algorithm`` profiles controller rounds instead (``run_controller``'s
+sequential schedule on the scenario, every pod piled on its first node for
+a greedy algorithm): one round to warm up, then ``--rounds`` rounds under
+the profiler, with the same device figures and each round's phase times.
 """
 
 from __future__ import annotations
@@ -35,9 +43,69 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import prepare_weigh
 SPARSE_SCENARIOS = {"sparse50k": (50_000, 2_000)}
 
 
-def profile_round(scenario: str = "large", seed: int = 0, top: int = 16) -> dict:
+def _trace(fn, top: int) -> dict:
+    """``fn()`` under ``torch.profiler``: wall ms (ending in a synchronize),
+    device kernel ms, the device's idle share and the busiest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+    ]
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        agg = by_name.setdefault(e.name, [0, 0.0])
+        agg[0] += 1
+        agg[1] += e.device_time_total / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "wall_ms": wall_ms,
+        "device_kernel_ms": device_ms,
+        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "kernel_launches": len(kernels),
+        "top_kernels": [
+            {"name": name[:120], "launches": n, "ms": ms} for name, (n, ms) in ranked
+        ],
+    }
+
+
+def profile_loop(algorithm: str, scenario: str = "large", seed: int = 0,
+                 solver_backend: str = "dense", rounds: int = 3, top: int = 16) -> dict:
+    """Controller rounds on the card: one to warm up (the sparse form's
+    build, first launches), then ``rounds`` under the profiler."""
+    from kubernetes_rescheduling_tpu_torch.bench.controller import _Runtime
+    from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
+    from kubernetes_rescheduling_tpu_torch.telemetry import MetricsRegistry
+
+    backend = make_backend(scenario, seed, device="cuda")
+    if algorithm != "global":
+        backend.inject_imbalance(backend.node_names[0])
+    cfg = RescheduleConfig(algorithm=algorithm, max_rounds=rounds + 1, sleep_after_action_s=0.0,
+                           seed=seed, solver_backend=solver_backend).validate()
+    rt = _Runtime(backend, cfg, device=torch.device("cuda"), registry=MetricsRegistry(),
+                  gumbel_rows=None, solver_plans=None)
+    rt.sequential_round(1)
+
+    def run():
+        for rnd in range(2, rounds + 2):
+            rt.sequential_round(rnd)
+
+    out = {"scenario": scenario, "algorithm": algorithm, "solver_backend": solver_backend,
+           "rounds": rounds, **_trace(run, top)}
+    out["phase_ms"] = [{k: v * 1e3 for k, v in r.phase_s.items()} for r in rt.result.rounds[1:]]
+    out["round_wall_ms"] = [r.wall_s * 1e3 for r in rt.result.rounds[1:]]
+    return out
+
+
+def profile_round(scenario: str = "large", seed: int = 0, top: int = 16) -> dict:
     cfg = GlobalSolverConfig()
     if scenario in SPARSE_SCENARIOS:
         state, sgraph = sparse_problem(*SPARSE_SCENARIOS[scenario], seed=seed, device="cuda")
@@ -54,23 +122,7 @@ def profile_round(scenario: str = "large", seed: int = 0, top: int = 16) -> dict
                                  w_mm=w_mm)
 
     solve()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solve()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-    ]
-    device_ms = sum(e.device_time_total for e in kernels) / 1e3
-    by_name: dict[str, list[float]] = {}
-    for e in kernels:
-        agg = by_name.setdefault(e.name, [0, 0.0])
-        agg[0] += 1
-        agg[1] += e.device_time_total / 1e3
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    traced = _trace(solve, top)
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -86,14 +138,7 @@ def profile_round(scenario: str = "large", seed: int = 0, top: int = 16) -> dict
             sync_sites[site] = sync_sites.get(site, 0) + 1
     return {
         "scenario": scenario,
-        "device": torch.cuda.get_device_name(0),
-        "wall_ms": wall_ms,
-        "device_kernel_ms": device_ms,
-        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-        "kernel_launches": len(kernels),
-        "top_kernels": [
-            {"name": name[:120], "launches": n, "ms": ms} for name, (n, ms) in ranked
-        ],
+        **traced,
         "host_syncs": sum(sync_sites.values()),
         "sync_sites": sync_sites,
     }
@@ -103,8 +148,17 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scenario", default="large", choices=SCENARIOS + tuple(SPARSE_SCENARIOS))
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--algorithm", default=None,
+                   help="profile controller rounds of this algorithm instead of a solve")
+    p.add_argument("--solver-backend", default="dense", choices=["dense", "sparse"])
+    p.add_argument("--rounds", type=int, default=3)
     args = p.parse_args(argv)
-    print(json.dumps(profile_round(args.scenario, args.seed)))
+    if args.algorithm is not None:
+        out = profile_loop(args.algorithm, args.scenario, args.seed, args.solver_backend,
+                           args.rounds)
+    else:
+        out = profile_round(args.scenario, args.seed)
+    print(json.dumps(out))
     return 0
 
 

@@ -36,9 +36,20 @@ def segment_sum(values: torch.Tensor, index: torch.Tensor, num_segments: int) ->
     idx = index.long()
     idx = torch.where((idx >= 0) & (idx < num_segments), idx, num_segments)
     order = torch.argsort(idx, stable=True)
-    lengths = torch.bincount(idx, minlength=num_segments + 1)
-    out = torch.segment_reduce(values[order], "sum", lengths=lengths, initial=0.0)
+    lengths = _count(idx, num_segments + 1)
+    # lengths sum to len(values) by construction: ``unsafe`` skips the check
+    # that would read that sum back to the host
+    out = torch.segment_reduce(values[order], "sum", lengths=lengths, initial=0.0, unsafe=True)
     return out[:num_segments]
+
+
+def _count(index: torch.Tensor, size: int) -> torch.Tensor:
+    """i64[size] occurrences of each value of ``index`` (all in
+    ``[0, size)``): an integer scatter-add, exact in any order and — unlike
+    ``torch.bincount``, which reads the largest index back to size its
+    output — free of host synchronization on the card."""
+    out = torch.zeros((size,), dtype=torch.int64, device=index.device)
+    return out.scatter_add_(0, index, torch.ones_like(index))
 
 
 @dataclass(frozen=True)
@@ -59,6 +70,22 @@ class CommGraph:
     @property
     def num_services(self) -> int:
         return int(self.adj.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.adj.device
+
+    def to(self, device: str | torch.device) -> "CommGraph":
+        """The same graph with its tensors on ``device`` (itself when they
+        are there already)."""
+        if self.adj.device == torch.device(device):
+            return self
+        return dataclasses.replace(
+            self, adj=self.adj.to(device), service_valid=self.service_valid.to(device)
+        )
+
+    def service_index(self, name: str) -> int:
+        return self.names.index(name)
 
     @classmethod
     def from_relation(
@@ -108,6 +135,20 @@ class CommGraph:
             names=tuple(names),
         )
 
+    def to_relation(self) -> dict[str, list[str]]:
+        """Back to the reference's ``{service: [related services]}`` dict
+        (for oracles and live adapters)."""
+        adj = self.adj.cpu().numpy()
+        valid = self.service_valid.cpu().numpy()
+        out: dict[str, list[str]] = {}
+        for i, name in enumerate(self.names):
+            if not valid[i]:
+                continue
+            out[name] = [
+                self.names[j] for j in range(len(self.names)) if valid[j] and adj[i, j] > 0
+            ]
+        return out
+
 
 @dataclass(frozen=True)
 class ClusterState:
@@ -156,6 +197,17 @@ class ClusterState:
     def replace(self, **changes) -> "ClusterState":
         return dataclasses.replace(self, **changes)
 
+    def to(self, device: str | torch.device) -> "ClusterState":
+        """The same state with its tensors on ``device`` (itself when they
+        are there already)."""
+        if self.device == torch.device(device):
+            return self
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        })
+
     # ---- derived quantities ----
 
     def _pod_slot(self) -> torch.Tensor:
@@ -163,6 +215,20 @@ class ClusterState:
         pods land in the dropped slot ``N``."""
         n = self.num_nodes
         return torch.where(self.pod_valid, self.pod_node, n)
+
+    def pod_on_node(self) -> torch.Tensor:
+        """f32[P, N] — one-hot of the assignment, masked by pod validity
+        (an unplaced pod's row is zero)."""
+        cols = torch.arange(self.num_nodes, device=self.device)
+        return ((self.pod_node[:, None] == cols[None, :]) & self.pod_valid[:, None]).float()
+
+    def node_pod_count(self) -> torch.Tensor:
+        """f32[N] — number of valid pods per node (the length of the
+        reference's per-node pod list, reference rescheduling.py:95)."""
+        n = self.num_nodes
+        slot = self._pod_slot().long()
+        slot = torch.where((slot >= 0) & (slot < n), slot, n)
+        return _count(slot, n + 1)[:n].float()
 
     def node_cpu_used(self) -> torch.Tensor:
         """f32[N] millicores — base + sum of tracked pod CPU."""
@@ -183,6 +249,16 @@ class ClusterState:
         pct = self.node_cpu_used() / cap * 100.0
         return torch.where(self.node_valid & (self.node_cpu_cap > 0), pct, 0.0)
 
+    def node_mem_pct(self) -> torch.Tensor:
+        cap = torch.where(self.node_mem_cap > 0, self.node_mem_cap, 1.0)
+        pct = self.node_mem_used() / cap * 100.0
+        return torch.where(self.node_valid & (self.node_mem_cap > 0), pct, 0.0)
+
+    def node_cpu_free(self) -> torch.Tensor:
+        """f32[N] millicores remaining — the CAR tie-break quantity
+        (reference rescheduling.py:206-208)."""
+        return self.node_cpu_cap - self.node_cpu_used()
+
     def service_node_counts(self, num_services: int) -> torch.Tensor:
         """f32[S, N] — occupancy matrix: pods of service s on node n (an
         integer count, exact in any order)."""
@@ -192,7 +268,7 @@ class ClusterState:
         node = torch.where(self.pod_valid, self.pod_node, n).long()
         node = torch.where((node >= 0) & (node < n), node, n)
         flat = svc * (n + 1) + node
-        occ = torch.bincount(flat, minlength=(num_services + 1) * (n + 1))
+        occ = _count(flat, (num_services + 1) * (n + 1))
         return occ.view(num_services + 1, n + 1)[:num_services, :n].float()
 
     # ---- host-side constructors ----

@@ -1,6 +1,7 @@
-"""Synthetic topologies and initial cluster states — the port of
-``kubernetes_rescheduling_tpu.core.topology`` for the dense, power-law and
-north-star (10k × 1k) scenarios.
+"""Scenarios and initial cluster states — the port of
+``kubernetes_rescheduling_tpu.core.topology``: the reference's own µBench
+setup (:func:`mubench_scenario`), the dense, power-law and north-star
+(10k × 1k) synthetic meshes, and the cordon-style imbalance.
 
 Generation is host-side numpy with the same ``default_rng(seed)`` call
 sequence as the JAX package, so one seed gives the identical instance in
@@ -16,7 +17,11 @@ import torch
 
 from kubernetes_rescheduling_tpu_torch._device import DEFAULT_DEVICE, resolve_device
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
-from kubernetes_rescheduling_tpu_torch.core.workmodel import ServiceSpec, Workmodel
+from kubernetes_rescheduling_tpu_torch.core.workmodel import (
+    ServiceSpec,
+    Workmodel,
+    mubench_workmodel_c,
+)
 
 
 @dataclass(frozen=True)
@@ -74,6 +79,34 @@ def state_from_workmodel(
         pod_capacity=pod_capacity,
         device=device,
     )
+
+
+def inject_imbalance(state: ClusterState, node_index: int = 0) -> ClusterState:
+    """Move every valid pod onto one node — the reference's cordon-induced
+    'Before' state (reference auto_full_pipeline_repeat.sh:48-51)."""
+    return state.replace(
+        pod_node=torch.where(state.pod_valid, node_index, state.pod_node).to(state.pod_node.dtype)
+    )
+
+
+def mubench_scenario(
+    *, imbalanced: bool = True, seed: int = 0,
+    device: str | torch.device | None = DEFAULT_DEVICE,
+) -> Scenario:
+    """The reference's own setup: 20 µBench services on 3 workers of
+    20 cores and 32 GB (reference README.md:44-46), everything initially on
+    worker1 unless ``imbalanced`` is off."""
+    dev = resolve_device(device)
+    wm = mubench_workmodel_c()
+    state = state_from_workmodel(
+        wm,
+        all_on_node=0 if imbalanced else None,
+        seed=seed,
+        node_cpu_cap_m=20_000.0,
+        node_mem_cap_b=32 * 1024**3,
+        device=dev,
+    )
+    return Scenario(name="mubench-workmodelC", state=state, graph=wm.comm_graph(device=dev))
 
 
 def _random_workmodel(

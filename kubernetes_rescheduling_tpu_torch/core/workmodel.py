@@ -1,16 +1,21 @@
 """µBench workmodel: ordered services plus the derived communication graph —
-the part of ``kubernetes_rescheduling_tpu.core.workmodel`` that the
-scenarios need (pure Python, no tensors until :meth:`Workmodel.comm_graph`).
+the port of ``kubernetes_rescheduling_tpu.core.workmodel`` (pure Python, no
+tensors until :meth:`Workmodel.comm_graph`): the in-memory model, the
+µBench JSON parser (:meth:`Workmodel.from_dict` / :meth:`Workmodel.from_file`)
+and the reference's own s0–s19 topology (:func:`mubench_workmodel_c`).
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
-from typing import Mapping, Sequence
+from pathlib import Path
+from typing import Any, Mapping, Sequence
 
 import torch
 
 from kubernetes_rescheduling_tpu_torch._device import DEFAULT_DEVICE
+from kubernetes_rescheduling_tpu_torch.core.quantities import cpu_to_millicores, mem_to_bytes
 from kubernetes_rescheduling_tpu_torch.core.state import CommGraph
 
 
@@ -63,6 +68,72 @@ class Workmodel:
         return CommGraph.from_relation(
             self.relation(), capacity=capacity, names=list(self.names), device=device
         )
+
+    @classmethod
+    def from_dict(cls, data: Mapping[str, Any], source: str = "<memory>") -> "Workmodel":
+        """Parse a µBench workmodel dict: service name → stanza, with
+        ``external_services`` groups of callee names, ``cpu-requests`` /
+        ``memory-requests`` quantities, optional ``replicas``, and the
+        ``internal_service.loader.cpu_stress`` parameters behind
+        ``proc_cost``. Entries whose value is not a mapping are skipped."""
+        services = []
+        for name, stanza in data.items():
+            if not isinstance(stanza, Mapping):
+                continue
+            callees: list[str] = []
+            for group in stanza.get("external_services", []) or []:
+                for callee in group.get("services", []) or []:
+                    if callee != name and callee not in callees:
+                        callees.append(callee)
+            services.append(
+                ServiceSpec(
+                    name=name,
+                    callees=tuple(callees),
+                    cpu_request_millicores=cpu_to_millicores(stanza.get("cpu-requests", "100m")),
+                    mem_request_bytes=mem_to_bytes(stanza.get("memory-requests", "0")),
+                    replicas=int(stanza.get("replicas", 1)),
+                    proc_cost=_parse_proc_cost(stanza),
+                )
+            )
+        return cls(services=tuple(services), source=source)
+
+    @classmethod
+    def from_file(cls, path: str | Path) -> "Workmodel":
+        p = Path(path)
+        return cls.from_dict(json.loads(p.read_text()), source=str(p))
+
+
+# the builtin workmodelC loader: 100 complexity × 10 trials / 1 thread —
+# proc_cost is normalized so that stanza scores 1.0
+_BASELINE_STRESS = 100.0 * 10.0
+
+
+def _parse_proc_cost(stanza: Mapping[str, Any]) -> float:
+    """Relative per-request CPU cost from a stanza's cpu_stress:
+    ``mean(range_complexity) · trials / thread_pool_size`` over the builtin
+    loader's. No loader keeps 1.0; a disabled one (``run: false``) gets the
+    floor 0.05."""
+    stress = _get_path(stanza, "internal_service", "loader", "cpu_stress")
+    if not isinstance(stress, Mapping):
+        return 1.0
+    if not stress.get("run", True):
+        return 0.05
+    rc = stress.get("range_complexity", [100, 100]) or [100, 100]
+    try:
+        complexity = (float(rc[0]) + float(rc[-1])) / 2.0
+    except (TypeError, ValueError, IndexError):
+        complexity = 100.0
+    trials = float(stress.get("trials", 10) or 10)
+    threads = max(float(stress.get("thread_pool_size", 1) or 1), 1.0)
+    return max(complexity * trials / threads / _BASELINE_STRESS, 0.05)
+
+
+def _get_path(obj: Any, *names: str):
+    for name in names:
+        if not isinstance(obj, Mapping):
+            return None
+        obj = obj.get(name)
+    return obj
 
 
 def kahn_traversal(
@@ -132,3 +203,24 @@ def propagate_entry_rate(
         for callee in out_edges.get(svc, ()):
             rps[callee] += rps[svc] * fanout_frac
     return rps
+
+
+def mubench_workmodel_c() -> Workmodel:
+    """The reference's s0–s19 topology: the directed call graph whose
+    undirected closure is the dict at reference main.py:31-52 (from
+    workmodelC.json ``external_services``). Every service requests 100m."""
+    edges: dict[str, tuple[str, ...]] = {
+        "s0": ("s1", "s3", "s7", "s16"),
+        "s1": ("s2", "s4", "s13", "s15"),
+        "s3": ("s5", "s6", "s8", "s9", "s12"),
+        "s5": ("s14",),
+        "s6": ("s10", "s17"),
+        "s7": ("s19",),
+        "s9": ("s11",),
+        "s15": ("s18",),
+    }
+    services = tuple(
+        ServiceSpec(name=f"s{i}", callees=edges.get(f"s{i}", ()), cpu_request_millicores=100)
+        for i in range(20)
+    )
+    return Workmodel(services=services, source="builtin:workmodelC")

@@ -1,9 +1,13 @@
 """Objective metrics as tensor reductions — the port of
-``kubernetes_rescheduling_tpu.objectives.metrics`` used by the global round.
+``kubernetes_rescheduling_tpu.objectives.metrics`` used by the global round
+and the control loop: the communication cost (dense quadratic form, and the
+edge-list form the round end reads), the load spread, and the rounded CPU
+percent that hazard detection compares.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
@@ -34,6 +38,54 @@ def communication_cost(state: ClusterState, graph: CommGraph) -> torch.Tensor:
         adj = graph.adj[r0:r1] * valid[r0:r1, None] * valid[None, :]
         total = total + torch.sum(adj * cross)
     return 0.5 * total
+
+
+def comm_edge_list(graph: CommGraph):
+    """Host-side: the masked adjacency's upper-triangle nonzero edges as
+    ``(src i64[E], dst i64[E], w f32[E])`` tensors on the graph's device —
+    the static structure :func:`communication_cost_edges` contracts.
+
+    E is padded up to the next power of two (floor 8) with zero-weight
+    self-edges, as in the JAX package (a padding row adds ``0·cross``).
+    Build once per graph and reuse."""
+    adj = graph.adj.cpu().numpy()
+    valid = graph.service_valid.cpu().numpy()
+    masked = adj * valid[:, None] * valid[None, :]
+    src, dst = np.nonzero(np.triu(masked, k=1))
+    w = masked[src, dst].astype(np.float32)
+    cap = 8
+    while cap < src.size:
+        cap *= 2
+    pad = cap - src.size
+    src = np.concatenate([src, np.zeros(pad, np.int64)])
+    dst = np.concatenate([dst, np.zeros(pad, np.int64)])
+    w = np.concatenate([w, np.zeros(pad, np.float32)])
+    dev = graph.device
+    return (
+        torch.as_tensor(src, device=dev),
+        torch.as_tensor(dst, device=dev),
+        torch.as_tensor(w, device=dev),
+    )
+
+
+def communication_cost_edges(state: ClusterState, num_services: int, edges) -> torch.Tensor:
+    """:func:`communication_cost` contracted over a precomputed edge list
+    (:func:`comm_edge_list`): Σ_{i<j} w_ij·(tot_i·tot_j − occ_i·occ_j), in
+    O(E·N) instead of O(S²·N). Equal to the dense form for integer weights
+    and counts below 2^24; in general the two sum in different orders."""
+    src, dst, w = edges
+    occ = state.service_node_counts(num_services)        # f32[S, N]
+    tot = occ.sum(dim=1)                                 # f32[S]
+    cross = tot[src] * tot[dst] - torch.sum(occ[src] * occ[dst], dim=1)
+    return torch.sum(w * cross)
+
+
+def node_cpu_pct_rounded(state: ClusterState) -> torch.Tensor:
+    """i32[N] — ``int(round(pct))`` per node, -1 for invalid or zero-capacity
+    nodes (reference get_resource_usage.py:37). ``torch.round`` rounds half
+    to even, like Python's ``round`` and ``jnp.round``."""
+    rounded = torch.round(state.node_cpu_pct()).to(torch.int32)
+    return torch.where(state.node_valid & (state.node_cpu_cap > 0), rounded, -1)
 
 
 def load_std(state: ClusterState) -> torch.Tensor:

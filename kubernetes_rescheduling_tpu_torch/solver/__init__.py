@@ -1,4 +1,5 @@
-"""The batched global assignment solvers: dense, sparse and per-pod."""
+"""The batched global assignment solvers (dense, sparse and per-pod) and
+the greedy round loop."""
 
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     GlobalSolverConfig,
@@ -10,6 +11,7 @@ from kubernetes_rescheduling_tpu_torch.solver.pod_mode import (
     global_assign_pods,
     pod_level_graph,
 )
+from kubernetes_rescheduling_tpu_torch.solver.round_loop import RoundTelemetry, run_rounds
 from kubernetes_rescheduling_tpu_torch.solver.sparse_solver import (
     SparseSweepPlan,
     global_assign_sparse,
@@ -19,6 +21,7 @@ from kubernetes_rescheduling_tpu_torch.solver.sparse_solver import (
 
 __all__ = [
     "GlobalSolverConfig",
+    "RoundTelemetry",
     "SparseSweepPlan",
     "SweepPlan",
     "global_assign",
@@ -26,6 +29,7 @@ __all__ = [
     "global_assign_sparse",
     "pod_level_graph",
     "prepare_weights",
+    "run_rounds",
     "sparse_layout",
     "sparse_pod_comm_cost",
 ]

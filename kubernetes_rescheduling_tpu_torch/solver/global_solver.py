@@ -47,6 +47,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from kubernetes_rescheduling_tpu_torch._random import gumbel as _gumbel
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph, segment_sum
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import (
     ROW_BLOCK,
@@ -683,10 +684,3 @@ def global_assign(
         "inline_mass": torch.tensor(inline_mass),
     }
     return new_state, info
-
-
-def _gumbel(shape, generator, device) -> torch.Tensor:
-    """Unit gumbel noise ``-log(-log(u))`` from ``generator``."""
-    u = torch.rand(shape, generator=generator, device=device)
-    u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))

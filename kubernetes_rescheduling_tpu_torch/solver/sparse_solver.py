@@ -69,11 +69,11 @@ from kubernetes_rescheduling_tpu_torch.ops.sparse_mass import (
     sparse_mass_score,
     sparse_neighbor_mass,
 )
+from kubernetes_rescheduling_tpu_torch._random import gumbel as _gumbel
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     _DTYPES,
     _EPILOGUES,
     GlobalSolverConfig,
-    _gumbel,
     _pad_to,
     _service_aggregates,
     auto_chunk,

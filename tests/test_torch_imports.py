@@ -44,6 +44,16 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import kubernetes_rescheduling_tpu_torch.ops.sparse_mass\n"
         "import kubernetes_rescheduling_tpu_torch.bench.harness\n"
         "import kubernetes_rescheduling_tpu_torch.bench.profile\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.controller\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.boundary\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.round_end\n"
+        "import kubernetes_rescheduling_tpu_torch.backends.base\n"
+        "import kubernetes_rescheduling_tpu_torch.config\n"
+        "import kubernetes_rescheduling_tpu_torch.core.quantities\n"
+        "import kubernetes_rescheduling_tpu_torch.policies.proactive\n"
+        "import kubernetes_rescheduling_tpu_torch.solver.round_loop\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry\n"
+        "import kubernetes_rescheduling_tpu_torch.utils.retry\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -79,13 +89,26 @@ def test_chip_smoke_alone_fails_without_the_package(tmp_path):
 
 def _entry_points():
     from kubernetes_rescheduling_tpu_torch import cli, convert
+    from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller
     from kubernetes_rescheduling_tpu_torch.bench.harness import make_backend, sparse_problem
+    from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
     from kubernetes_rescheduling_tpu_torch.core import sparsegraph, topology
     from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
     from kubernetes_rescheduling_tpu_torch.core.workmodel import ServiceSpec, Workmodel
+    from kubernetes_rescheduling_tpu_torch.solver import run_rounds
+
+    def cpu_mubench():
+        return topology.mubench_scenario(device="cpu")
 
     return {
         "make_backend": lambda: make_backend("dense", 0),
+        "make_backend mubench": lambda: make_backend("mubench", 0),
+        "mubench_scenario": lambda: topology.mubench_scenario(),
+        "run_rounds": lambda: run_rounds(cpu_mubench().state, cpu_mubench().graph, 4),
+        "run_controller": lambda: run_controller(make_backend("mubench", 0, device="cpu"),
+                                                 RescheduleConfig(max_rounds=1)),
+        "cli reschedule": lambda: cli.main(["reschedule", "--rounds", "1"]),
+        "cli reschedule global": lambda: cli.main(["reschedule", "--algorithm", "global"]),
         "synthetic_scenario": lambda: topology.synthetic_scenario(n_pods=20, n_nodes=4),
         "powerlaw_2000x200": lambda: topology.powerlaw_2000x200(),
         "ClusterState.build": lambda: ClusterState.build(

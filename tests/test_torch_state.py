@@ -71,7 +71,7 @@ def test_large_workmodel_matches_jax():
     assert t.directed_relation() == j.directed_relation()
     assert t.names == j.names
     with pytest.raises(ValueError, match="unknown scenario"):
-        tharness.make_backend("xlarge", 0, device="cpu")
+        tharness.make_backend("huge", 0, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -236,3 +236,139 @@ def test_solver_helpers_match_jax():
     W_t = tgs.build_pair_weights(t.graph.adj, torch.as_tensor(rv), SP=32, dtype=torch.bfloat16)
     W_j = jgs.build_pair_weights(j.graph.adj, jnp.asarray(rv), SP=32, dtype=jnp.bfloat16)
     np.testing.assert_array_equal(W_t.float().numpy(), np.asarray(W_j, np.float32))
+
+
+# ---- the control loop's foundation: quantities, workmodels, accessors ----
+
+QUANTITIES_CPU = ["53m", "2", "1500000n", "1500u", "0.5", "1.5k", " 250m ", "1e3m", 7, 0.25]
+QUANTITIES_MEM = ["536Mi", "2Gi", "1Ki", "1k", "3M", "5G", "1e6", "3988799488m", "1500u",
+                  "2000000000n", 4096, "12345"]
+
+
+def test_quantities_match_jax():
+    from kubernetes_rescheduling_tpu.core import quantities as jq
+    from kubernetes_rescheduling_tpu_torch.core import quantities as tq
+
+    for q in QUANTITIES_CPU:
+        assert tq.cpu_to_millicores(q) == jq.cpu_to_millicores(q), q
+    for q in QUANTITIES_MEM:
+        assert tq.mem_to_bytes(q) == jq.mem_to_bytes(q), q
+    for v in (1234, 99.9):
+        assert tq.format_millicores(v) == jq.format_millicores(v)
+    assert tq.format_bytes_as_mi(536 * 2**20) == jq.format_bytes_as_mi(536 * 2**20)
+    for bad in ("", "  "):
+        with pytest.raises(ValueError):
+            tq.cpu_to_millicores(bad)
+        with pytest.raises(ValueError):
+            tq.mem_to_bytes(bad)
+
+
+WORKMODEL_DICT = {
+    "s0": {"external_services": [{"services": ["s1", "s2"]}, {"services": ["s2", "s0"]}],
+           "cpu-requests": "250m", "memory-requests": "128Mi", "replicas": 2,
+           "internal_service": {"loader": {"cpu_stress": {
+               "range_complexity": [50, 150], "trials": 20, "thread_pool_size": 2}}}},
+    "s1": {"external_services": [{"services": ["s3"]}], "cpu-requests": "0.5",
+           "internal_service": {"loader": {"cpu_stress": {"run": False}}}},
+    "s2": {"cpu-requests": "100m", "internal_service": {"loader": {"cpu_stress": {
+        "range_complexity": "bad", "trials": 0}}}},
+    "s3": {},
+    "notes": "not a service",
+}
+
+
+def test_workmodel_from_dict_and_file_match_jax(tmp_path):
+    import json
+
+    path = tmp_path / "wm.json"
+    path.write_text(json.dumps(WORKMODEL_DICT))
+    for j, t in ((jwm.Workmodel.from_dict(WORKMODEL_DICT), twm.Workmodel.from_dict(WORKMODEL_DICT)),
+                 (jwm.Workmodel.from_file(path), twm.Workmodel.from_file(path))):
+        assert [dataclasses.asdict(s) for s in t.services] == [
+            dataclasses.asdict(s) for s in j.services]
+        assert t.source == j.source
+        assert t.relation() == j.relation()
+    c_j, c_t = jwm.mubench_workmodel_c(), twm.mubench_workmodel_c()
+    assert [dataclasses.asdict(s) for s in c_t.services] == [
+        dataclasses.asdict(s) for s in c_j.services]
+    assert c_t.source == c_j.source
+    assert_graph_equal(c_t.comm_graph(device="cpu"), c_j.comm_graph())
+
+
+@pytest.mark.parametrize("imbalanced", [True, False])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_mubench_scenario_and_imbalance_match_jax(imbalanced, seed):
+    j = jtopo.mubench_scenario(imbalanced=imbalanced, seed=seed)
+    t = ttopo.mubench_scenario(imbalanced=imbalanced, seed=seed, device="cpu")
+    assert t.name == j.name
+    assert_state_equal(t.state, j.state)
+    assert_graph_equal(t.graph, j.graph)
+    for node in (0, 2):
+        assert_state_equal(ttopo.inject_imbalance(t.state, node),
+                           jtopo.inject_imbalance(j.state, node))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_pods=60, n_nodes=6, seed=5, node_cpu_cap_m=1500.0, imbalance_frac=0.5),
+    dict(n_pods=90, n_nodes=10, seed=1, replicas=3, powerlaw=True),
+])
+def test_state_accessors_match_jax(kw):
+    j = jtopo.synthetic_scenario(**kw)
+    t = ttopo.synthetic_scenario(**kw, device="cpu")
+    for name in ("pod_on_node", "node_pod_count", "node_mem_pct", "node_cpu_free"):
+        np.testing.assert_array_equal(getattr(t.state, name)().numpy(),
+                                      np.asarray(getattr(j.state, name)()), err_msg=name)
+    assert t.graph.to_relation() == j.graph.to_relation()
+    for name in t.graph.names[:5]:
+        assert t.graph.service_index(name) == j.graph.service_index(name)
+
+
+def test_padding_accessors_match_jax():
+    """An unplaced pod, a dead node and padded capacities, as in
+    ``test_padding_and_unassigned_pods_match_jax``."""
+    kw = dict(
+        node_names=["b", "a", "c"], node_cpu_cap=[1000.0, 2000.0, 0.0],
+        node_mem_cap=[1e9, 2e9, 0.0], pod_services=[0, 1, 1, 2],
+        pod_nodes=[0, -1, 2, 1], pod_cpu=[100.5, 200.25, 300.0, 50.0],
+        pod_mem=[1.0, 2.0, 3.0, 4.0], node_alive=[True, True, False],
+        node_capacity=5, pod_capacity=7,
+    )
+    j = jstate.ClusterState.build(**kw)
+    t = tstate.ClusterState.build(**kw, device="cpu")
+    for name in ("pod_on_node", "node_pod_count", "node_mem_pct", "node_cpu_free"):
+        np.testing.assert_array_equal(getattr(t, name)().numpy(),
+                                      np.asarray(getattr(j, name)()), err_msg=name)
+    np.testing.assert_array_equal(tmetrics.node_cpu_pct_rounded(t).numpy(),
+                                  np.asarray(jmetrics.node_cpu_pct_rounded(j)))
+
+
+def test_rounded_cpu_pct_rounds_half_to_even_like_jax():
+    """Percents of exactly 12.5, 37.5, 62.5 and 87.5 (exact in f32) round
+    to 12, 38, 62 and 88 in both packages (XLA and ``torch.round`` round
+    half to even)."""
+    kw = dict(node_names=["a", "b", "c", "d"], node_cpu_cap=[1000.0] * 4,
+              node_mem_cap=[1e9] * 4, pod_services=[0, 1, 2, 3], pod_nodes=[0, 1, 2, 3],
+              pod_cpu=[125.0, 375.0, 625.0, 875.0], pod_mem=[1.0] * 4)
+    t_state = tstate.ClusterState.build(**kw, device="cpu")
+    assert t_state.node_cpu_pct().tolist() == [12.5, 37.5, 62.5, 87.5]
+    j = jmetrics.node_cpu_pct_rounded(jstate.ClusterState.build(**kw))
+    t = tmetrics.node_cpu_pct_rounded(t_state)
+    assert t.tolist() == np.asarray(j).tolist() == [12, 38, 62, 88]
+
+
+@pytest.mark.parametrize("scenario,seed", [("mubench", 0), ("dense", 1), ("powerlaw", 2)])
+def test_edge_list_cost_matches_jax(scenario, seed):
+    """The edge list (padded to a power of two) is the JAX package's, and
+    the edge-list cost equals JAX's and the dense form exactly (integer
+    pair counts)."""
+    jb, tb = jharness.make_backend(scenario, seed), tharness.make_backend(scenario, seed,
+                                                                         device="cpu")
+    j_edges, t_edges = jmetrics.comm_edge_list(jb.comm_graph()), tmetrics.comm_edge_list(
+        tb.comm_graph())
+    for a, b in zip(t_edges, j_edges):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    t_state, j_state = tb.monitor(), jb.monitor()
+    S = tb.comm_graph().num_services
+    t_cost = float(tmetrics.communication_cost_edges(t_state, S, t_edges))
+    assert t_cost == float(jmetrics.communication_cost_edges(j_state, S, j_edges))
+    assert t_cost == float(tmetrics.communication_cost(t_state, tb.comm_graph()))
