@@ -3,9 +3,11 @@
 calls it: the load model, the seeded initial placement, ``comm_graph``,
 ``monitor``, Deployment moves under each pinning mechanism
 (``apply_move``, with the simulated scheduler behind ``affinityOnly``),
-the simulated clock (``advance``), the event list and the cordon-style
-imbalance. Node faults, churn, restore and per-pod move waves wait for a
-later slice, so every node is alive and every pod placed.
+the simulated clock (``advance``), the event list, the cordon-style
+imbalance, per-pod move waves (``apply_pod_moves``), a checkpoint's
+placement (``restore_placement``) and another actor's moves
+(``external_move``). Node faults and churn wait for a later slice, so
+every node is alive and every pod placed.
 
 All bookkeeping is host-side Python and numpy; ``monitor`` hands out a
 fresh padded :class:`ClusterState` on the backend's device. Pods are
@@ -108,6 +110,17 @@ class SimBackend:
             cache = self._rps_cache = (self.workmodel, load, self.load.service_rps(self.workmodel))
         return cache[2]
 
+    def _stable_names(self, attr: str, names) -> tuple:
+        """The same name tuple object from one snapshot to the next while
+        the names are unchanged, so identity-keyed memos downstream (the
+        admission guard's duplicate scan and name maps) keep hitting."""
+        t = tuple(names)
+        cached = getattr(self, attr, None)
+        if cached is not None and cached == t:
+            return cached
+        setattr(self, attr, t)
+        return t
+
     def _monitor(self) -> ClusterState:
         rps = self._service_rps()
         replicas = {s.name: max(1, s.replicas) for s in self.workmodel.services}
@@ -129,14 +142,14 @@ class SimBackend:
             mems.append(float(spec.mem_request_bytes))
             names.append(name)
         return ClusterState.build(
-            node_names=list(self.node_names),
+            node_names=self._stable_names("_node_names_memo", self.node_names),
             node_cpu_cap=[self.node_cpu_cap_m] * len(self.node_names),
             node_mem_cap=[self.node_mem_cap_b] * len(self.node_names),
             pod_services=services,
             pod_nodes=nodes,
             pod_cpu=cpus,
             pod_mem=mems,
-            pod_names=names,
+            pod_names=self._stable_names("_pod_names_memo", names),
             device=self.device,
         )
 
@@ -212,6 +225,80 @@ class SimBackend:
             if used[i] < best_used:
                 best, best_used = i, float(used[i])
         return best
+
+    def apply_pod_moves(self, moves) -> dict[str, str]:
+        """A batch of per-pod moves as ONE reconcile wave: one pass over the
+        pod table and one clock advance (kubelets reconcile in parallel).
+        Returns the moved pods as ``{pod name: landed node name}``."""
+        target_of: dict[str, int] = {}
+        for mv in moves:
+            t = self._node_index.get(mv.target_node)
+            if t is not None and mv.pod is not None:
+                target_of[mv.pod] = t
+        landed: dict[str, str] = {}
+        for pod in self._pods:
+            t = target_of.get(pod[2])
+            if t is not None:
+                pod[1] = t
+                landed[pod[2]] = self.node_names[t]
+        self.clock_s += self.reconcile_delay_s
+        if landed:
+            count_reconcile("sim", len(landed))
+        self.events.append(
+            {"t": self.clock_s, "event": "pod_moves", "pods": len(landed),
+             "requested": len(moves)}
+        )
+        return landed
+
+    def external_move(self, pod_name: str, node: str) -> bool:
+        """Move one named pod to ``node`` behind the controller's back
+        (another scheduler, a human ``kubectl``): no reconcile count and no
+        clock charge — the controller sees it only in its next snapshot.
+        Returns whether the pod and the node exist."""
+        target = self._node_index.get(node)
+        if target is None:
+            return False
+        for pod in self._pods:
+            if pod[2] == pod_name:
+                pod[1] = target
+                self.events.append(
+                    {"t": self.clock_s, "event": "external_move", "pod": pod_name,
+                     "node": node}
+                )
+                return True
+        return False
+
+    def external_move_random(self, rng) -> dict | None:
+        """Drift one random placed pod to a random other node through
+        :meth:`external_move`; ``rng`` is the caller's seeded
+        ``random.Random``, so drift streams repeat."""
+        placed = [p for p in self._pods if p[1] >= 0]
+        if not placed:
+            return None
+        pod = placed[rng.randrange(len(placed))]
+        others = [n for i, n in enumerate(self.node_names) if i != pod[1]]
+        if not others:
+            return None
+        src = self.node_names[pod[1]]
+        dst = others[rng.randrange(len(others))]
+        if not self.external_move(pod[2], dst):
+            return None
+        return {"pod": pod[2], "from": src, "to": dst}
+
+    def restore_placement(self, state: ClusterState) -> int:
+        """Pin pods back to the placement a checkpoint recorded (pods are
+        matched by name)."""
+        pod_node = state.pod_node.cpu().numpy()
+        valid = state.pod_valid.cpu().numpy()
+        node_of = {name: int(pod_node[i]) for i, name in enumerate(state.pod_names)
+                   if valid[i]}
+        restored = 0
+        for pod in self._pods:
+            if pod[2] in node_of:
+                pod[1] = node_of[pod[2]]
+                restored += 1
+        self.events.append({"t": self.clock_s, "event": "restore", "pods": restored})
+        return restored
 
     # ---- fault injection ----
 

@@ -169,6 +169,17 @@ class BoundaryClient:
     def monitor(self):
         return self._call("monitor", self.backend.monitor)
 
+    def admission_reject(self, reason: str) -> None:
+        """An admission-guard rejection (``bench/admission.py``): the
+        monitor call succeeded but its payload was unusable (duplicate pods,
+        unknown node references, a mostly-garbage metrics wave). Charged as
+        a failure, so the round's failure budget burns and the caller treats
+        the snapshot as ``None`` (a degraded round on the last good one).
+        The transport success already reset the breaker's consecutive
+        count: a backend that is reachable but lying reads as degraded
+        rounds, not as an open breaker."""
+        self._failed()
+
     def apply_move(self, move: MoveRequest) -> str | None:
         if self.moves_frozen:
             return None  # safe mode: the round's remaining moves are dropped
@@ -180,12 +191,28 @@ class BoundaryClient:
     def advance(self, seconds: float) -> None:
         self.backend.advance(seconds)
 
+    @property
+    def raw_backend(self):
+        """The innermost backend (unwrapping layers that keep theirs in
+        ``inner``): the host of caches that must outlive a run's wrappers."""
+        b = self.backend
+        while hasattr(b, "inner"):
+            b = b.inner
+        return b
+
     def solver_cache(self, name: str) -> dict:
-        """A named mutable cache slot kept on the backend, so a value
-        derived from its graph (the sparse form) outlives one run; callers
-        own its contents and their invalidation rule."""
-        caches = getattr(self.backend, "_solver_caches", None)
+        """A named mutable cache slot kept on the raw backend, so a value
+        derived from its graph (the sparse form, the pod graph) outlives one
+        run and its wrappers; callers own its contents and their
+        invalidation rule."""
+        host = self.raw_backend
+        caches = getattr(host, "_solver_caches", None)
         if caches is None:
             caches = {}
-            self.backend._solver_caches = caches
+            host._solver_caches = caches
         return caches.setdefault(name, {})
+
+    def __getattr__(self, name: str) -> Any:
+        # simulator-only calls (apply_pod_moves, restore_placement,
+        # external_move, ...) pass through to the backend un-retried
+        return getattr(self.backend, name)

@@ -10,11 +10,22 @@ This is the loop the reference runs against a real cluster
 The ``global`` algorithm (and ``moves_per_round="all"``) routes a round
 through the batched solver instead: one solve — dense, or block-local
 sparse with ``solver_backend="sparse"`` — then every service whose node
-changed is moved.
+changed is moved, or with a numeric ``global_moves_cap`` k only the k
+best strictly improving moves (the wave cap). ``placement_unit="pod"``
+solves on the pod-level graph and moves single replicas in one wave.
+
+Around the rounds: every monitor snapshot passes the admission guard
+(``bench/admission.py``), the intent ledger (``bench/reconcile.py``) diffs
+it against the controller's own moves and repairs drift, rounds carry
+decision explanations when a logger listens, and a checkpoint directory
+makes a run resumable.
 
 Host reads per executed round: one batched :func:`~bench.round_end.fence`
-per decision or solve, and one :meth:`~bench.round_end.RoundCloser.flush`
-that carries the round's closing metrics and the solver's objectives.
+per decision or solve (two in a pod round: the pod set before the solve,
+the placement after it), one :meth:`~bench.round_end.RoundCloser.flush`
+that carries the round's closing metrics, the solver's objectives and the
+explanation bundles, one admission read per monitor, and on capped or
+explained global rounds one read of the move-scoring inputs.
 
 Randomness: round ``r`` draws from the generator of ``(config.seed, r)``
 (``_random.round_generator``), so a round's decisions do not depend on
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Callable
 
 import torch
@@ -35,12 +47,22 @@ import torch
 from kubernetes_rescheduling_tpu_torch._device import DEFAULT_DEVICE, resolve_device
 from kubernetes_rescheduling_tpu_torch._random import gumbel as draw_gumbel
 from kubernetes_rescheduling_tpu_torch._random import round_generator
+import numpy as np
+
 from kubernetes_rescheduling_tpu_torch.backends.base import Backend, MoveRequest, PlacementMechanism
+from kubernetes_rescheduling_tpu_torch.bench.admission import AdmissionGuard
 from kubernetes_rescheduling_tpu_torch.bench.boundary import (
     HALF_OPEN,
     OPEN,
     BoundaryClient,
     CircuitBreaker,
+)
+from kubernetes_rescheduling_tpu_torch.bench.reconcile import (
+    KIND_UNKNOWN_LANDING,
+    IntentLedger,
+    count_divergence,
+    move_intent,
+    reconcile_round_block,
 )
 from kubernetes_rescheduling_tpu_torch.bench.round_end import (
     METRIC_COST,
@@ -53,9 +75,24 @@ from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import comm_edge_list
 from kubernetes_rescheduling_tpu_torch.policies.proactive import scoring_policy
 from kubernetes_rescheduling_tpu_torch.policies.scoring import POLICY_IDS
-from kubernetes_rescheduling_tpu_torch.solver.global_solver import GlobalSolverConfig, global_assign
-from kubernetes_rescheduling_tpu_torch.solver.round_loop import decide
+from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
+    GlobalSolverConfig,
+    global_assign,
+    pct_balance_terms,
+)
+from kubernetes_rescheduling_tpu_torch.solver.round_loop import decide, decide_explain
+from kubernetes_rescheduling_tpu_torch.telemetry.accounting import pull_arrays
+from kubernetes_rescheduling_tpu_torch.telemetry.explain import (
+    greedy_explanation,
+    solver_explanation,
+)
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import MetricsRegistry, get_registry
+from kubernetes_rescheduling_tpu_torch.utils.checkpoint import CheckpointManager
+from kubernetes_rescheduling_tpu_torch.utils.logging import StructuredLogger
+
+# the wave cap's and the global explanation's host read of the move-scoring
+# inputs (device_transfers_total{site=...})
+MOVE_GAINS_SITE = "move_gains"
 
 
 @dataclass
@@ -78,11 +115,19 @@ class RoundRecord:
     breaker_state: str = "closed"
     degraded: bool = False
     boundary_failures: int = 0
+    # one DecisionExplanation dict per decide/solve (telemetry.explain);
+    # empty when explanations are off
+    explanations: tuple[dict, ...] = ()
     # every move that LANDED this round as (service, landed_node) pairs
     applied_moves: tuple[tuple[str, str], ...] = ()
+    # the reconcile and admission planes' activity this round: admission
+    # quarantine/reject counts, classified divergences, corrective moves
+    # and the pods still diverged — None when the round was clean
+    reconcile: dict | None = None
     # timing fields: execute start to record finalize, and wall seconds of
-    # the round's phases ("decide" or "solve", "apply", "monitor",
-    # "round_end")
+    # the round's phases ("decide" or "solve", "select" on capped or
+    # explained global rounds, "apply", "monitor", "admission",
+    # "reconcile", "round_end")
     wall_s: float = 0.0
     phase_s: dict[str, float] = field(default_factory=dict)
 
@@ -106,6 +151,7 @@ class RoundRecord:
 @dataclass
 class ControllerResult:
     rounds: list[RoundRecord] = field(default_factory=list)
+    resumed_from_round: int = 0  # > 0 when a checkpoint resume skipped rounds
     # rounds the open breaker froze: max_rounds == len(rounds) + skipped_rounds
     skipped_rounds: int = 0
     breaker_transitions: list[dict] = field(default_factory=list)
@@ -181,16 +227,20 @@ def observe_wall_round(registry: MetricsRegistry, mode: str, wall_s: float) -> N
 
 
 class _Runtime:
-    """The loop's machinery: boundary, breaker, the round-end protocol and
-    the per-round helpers of the sequential schedule."""
+    """The loop's machinery: boundary, breaker, admission guard, intent
+    ledger, checkpoints, the round-end protocol and the per-round helpers
+    of the sequential schedule."""
 
     def __init__(self, backend, config: RescheduleConfig, *, device, registry,
-                 gumbel_rows, solver_plans):
+                 gumbel_rows=None, solver_plans=None, logger: StructuredLogger | None = None,
+                 checkpoint_dir: str | None = None, graph=None, on_round=None):
         self.config = config
         self.registry = registry
         self.device = device
         self.gumbel_rows = gumbel_rows
         self.solver_plans = solver_plans
+        self.logger = logger
+        self.on_round = on_round
         self.breaker = CircuitBreaker(
             max_consecutive_failures=config.max_consecutive_failures,
             cooldown_rounds=config.breaker_cooldown_rounds,
@@ -203,9 +253,54 @@ class _Runtime:
             failure_budget_per_round=config.failure_budget_per_round,
             registry=registry,
         )
-        self.graph = self.boundary.comm_graph().to(device)
-        self._edges = comm_edge_list(self.graph)
+        # every monitor result passes the admission guard before it becomes
+        # device state (monitor_admitted), and the intent ledger closes the
+        # loop on this controller's own moves
+        self.guard = (
+            AdmissionGuard(max_quarantine_frac=config.max_quarantine_frac, registry=registry,
+                           logger=logger, on_reject=self.boundary.admission_reject)
+            if config.reconcile_admission else None
+        )
+        self.ledger = (IntentLedger(registry=registry, logger=logger)
+                       if config.reconcile_enabled else None)
+        # explanations: on when configured AND a logger listens
+        self.explain_k = config.explain_top_k if config.explain and logger is not None else 0
+        # decisions may run on a caller's graph (a callable is re-read each
+        # round); the round-end metrics always use the backend's declared one
+        self.metric_graph = self.boundary.comm_graph().to(device)
+        self._edges = comm_edge_list(self.metric_graph)
+        if graph is None:
+            self.graph_src = lambda: self.metric_graph
+        elif callable(graph):
+            self.graph_src = lambda: graph().to(device)
+        else:
+            static = graph.to(device)
+            self.graph_src = lambda: static
         self.result = ControllerResult()
+
+        self.mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+        self.start_round = 1
+        if self.mgr is not None:
+            latest = self.mgr.latest(device=device)
+            if latest is not None:
+                done_round, saved_state, extra = latest
+                restore = getattr(backend, "restore_placement", None)
+                if restore is not None:
+                    restore(saved_state)
+                if self.ledger is not None:
+                    # the first admitted snapshot is reconciled against the
+                    # checkpointed intent instead of trusted: whatever moved
+                    # while the controller was down is a counted divergence
+                    self.ledger.restore(extra.get("reconcile"))
+                self.start_round = done_round + 1
+                self.result.resumed_from_round = self.start_round
+                if logger is not None:
+                    logger.info("resume", round=self.start_round, checkpoint=done_round)
+
+        # the previous round's unrepaired drift: a round that resolves it
+        # still carries an explicit drift_pods=0
+        self._last_drift = 0
+        self._admit_s = self._diff_s = 0.0
         # one snapshot per round: the post-move snapshot gives this round's
         # metrics AND the next round's state. Startup has no last good
         # snapshot to fall back on, so the first monitor gets a bounded
@@ -213,7 +308,7 @@ class _Runtime:
         self.state = None
         self._pending_end: dict | None = None
         for _ in range(max(3, config.max_consecutive_failures + 1)):
-            probe = self.monitor()
+            probe = self.monitor_admitted()
             if probe is not None:
                 self.note_fresh_snapshot(probe)
                 break
@@ -222,11 +317,41 @@ class _Runtime:
                 "backend unavailable: initial monitor() failed after retries "
                 "(no last good snapshot to degrade to)"
             )
+        if self.ledger is not None and not self.ledger.intent:
+            # startup baseline: intent := the first admitted snapshot (a
+            # restored intent is reconciled at the first observe instead)
+            arrays = self.guard.host_arrays(self.state) if self.guard is not None else None
+            self.ledger.rebase(self.state, service_names=self.metric_graph.names,
+                               host_arrays=arrays)
 
-    def monitor(self):
-        """A boundary monitor, on the controller's device."""
+    def monitor_admitted(self):
+        """A boundary monitor on the controller's device, through the
+        admission guard: the loop's only call of ``boundary.monitor()``. A
+        rejection returns None (the protocol's failure signal) after
+        charging the boundary."""
         out = self.boundary.monitor()
-        return out.to(self.device) if out is not None else None
+        if out is not None:
+            out = out.to(self.device)
+        t0 = time.perf_counter()
+        if self.guard is not None:
+            out = self.guard.admit(out)
+        self._admit_s = time.perf_counter() - t0
+        return out
+
+    def ckpt_extra(self, **extra) -> dict:
+        """The checkpoint's sidecar payload: the algorithm and the intent
+        ledger as of the last closed round (a save follows a round's close,
+        or a skipped round that moved nothing), which a resume reconciles
+        against."""
+        extra["algorithm"] = self.config.algorithm
+        if self.ledger is not None:
+            extra["reconcile"] = self.ledger.snapshot()
+        return extra
+
+    def save_checkpoint(self, rnd: int, **extra) -> None:
+        if self.mgr is not None:
+            self.mgr.save(rnd, self.state, extra=self.ckpt_extra(**extra),
+                          registry=self.registry)
 
     # ---- round-end protocol ----
 
@@ -234,7 +359,9 @@ class _Runtime:
         """Adopt a fresh snapshot and queue its round-end metrics on the
         device; they are read only when a record closes on them."""
         self.state = state
-        self._pending_end = {"dev": dispatch_round_end(state, self.graph, edges=self._edges)}
+        self._pending_end = {
+            "dev": dispatch_round_end(state, self.metric_graph, edges=self._edges)
+        }
 
     def _attach_metrics(self, record: RoundRecord, closer: RoundCloser) -> None:
         """Register the record's closing metrics on the closer: the pending
@@ -259,39 +386,69 @@ class _Runtime:
 
     def begin_close(self, record: RoundRecord, closer: RoundCloser, new_state) -> None:
         if new_state is None:
-            # the post-move snapshot failed: finish DEGRADED on the last
-            # good snapshot instead of crashing
+            # the post-move snapshot failed (or was rejected): finish
+            # DEGRADED on the last good snapshot instead of crashing
             record.degraded = True
         else:
             self.note_fresh_snapshot(new_state)
+        t0 = time.perf_counter()
+        self._reconcile_round(record, fresh=new_state is not None)
+        self._diff_s = time.perf_counter() - t0
+        # the ledger's time this round: its intents at apply and its diff
+        record.phase_s["reconcile"] = record.phase_s.get("reconcile", 0.0) + self._diff_s
+        # the counters after the repairs: a corrective move is a boundary
+        # move like any other, and a failed one shows in this round
         record.breaker_state = self.breaker.state
         record.boundary_failures = self.boundary.round_failures
         self._attach_metrics(record, closer)
 
+    def _reconcile_round(self, record: RoundRecord, *, fresh: bool) -> None:
+        """The reconcile plane's step: the admission counts, and on a fresh
+        snapshot the ledger's diff and rate-limited repairs. A degraded
+        round carries only the admission counts and the standing drift."""
+        record.reconcile, self._last_drift = reconcile_round_block(
+            self.guard,
+            self.ledger,
+            state=self.state,
+            service_names=self.metric_graph.names,
+            fresh=fresh,
+            last_drift=self._last_drift,
+            boundary=self.boundary,
+            repair_budget=self.config.repair_budget_per_round,
+        )
+
     # ---- per-round helpers ----
 
-    def skip_round(self) -> None:
-        """Safe mode: the open breaker froze this round — count it, pace."""
+    def skip_round(self, rnd: int) -> None:
+        """Safe mode: the open breaker froze this round — count it, pace,
+        and checkpoint the carried-over snapshot so resume holds."""
         self.result.skipped_rounds += 1
         self.registry.counter(
             "rounds_skipped_total", "rounds frozen by the open circuit breaker",
             labelnames=("algorithm",),
         ).labels(algorithm=self.config.algorithm).inc()
+        # a rejection in this round's probe belongs to this skip
+        adm = self.guard.take_info() if self.guard is not None else {}
+        if self.logger is not None:
+            self.logger.info("round_skipped", round=rnd, breaker=self.breaker.state,
+                             consecutive_failures=self.breaker.consecutive_failures,
+                             **({"admission": adm} if adm else {}))
         self.boundary.advance(self.config.sleep_after_action_s)
+        self.save_checkpoint(rnd, skipped=True)
 
     def preamble(self, rnd: int) -> bool:
         """The breaker gate and the half-open probe. Returns False when the
         round was a counted skip."""
         mode = self.boundary.begin_round(rnd)
         if mode == OPEN:
-            self.skip_round()
+            self.skip_round(rnd)
             return False
         if mode == HALF_OPEN:
             # one probe before trusting the backend with a full round; a
             # success closes the breaker and refreshes the stale snapshot
-            probe = self.monitor()
+            probe = self.monitor_admitted()
             if probe is None:
-                self.skip_round()
+                self.skip_round(rnd)
                 return False
             self.note_fresh_snapshot(probe)
         return True
@@ -299,27 +456,40 @@ class _Runtime:
     def execute_round(self, rnd: int, closer: RoundCloser) -> RoundRecord:
         """Decide and apply one round's moves (no advance or monitor)."""
         config = self.config
+        graph = self.graph_src()
+        # every boundary move this round, as the ledger's intents
+        intents: list | None = [] if self.ledger is not None else None
         if config.algorithm == "global" or config.moves_per_round == "all":
-            return _global_round(
-                self.boundary, self.state, self.graph, config, rnd,
+            record = _global_round(
+                self.boundary, self.state, graph, config, rnd,
                 generator=round_generator(config.seed, rnd),
                 plan=self.solver_plans(rnd) if self.solver_plans is not None else None,
-                closer=closer, registry=self.registry,
+                closer=closer, registry=self.registry, logger=self.logger,
+                explain=self.explain_k > 0, intents=intents,
             )
-        if self.gumbel_rows is not None:
-            def noise(i: int) -> torch.Tensor:
-                return self.gumbel_rows(rnd, i).to(self.device)
         else:
-            gen = round_generator(config.seed, rnd)
+            if self.gumbel_rows is not None:
+                def noise(i: int) -> torch.Tensor:
+                    return self.gumbel_rows(rnd, i).to(self.device)
+            else:
+                gen = round_generator(config.seed, rnd)
 
-            def noise(i: int) -> torch.Tensor:
-                return draw_gumbel((self.state.num_nodes,), gen, "cpu").to(self.device)
+                def noise(i: int) -> torch.Tensor:
+                    return draw_gumbel((self.state.num_nodes,), gen, "cpu").to(self.device)
 
-        return _greedy_round(self.boundary, self.state, self.graph, config, rnd,
-                             noise=noise, registry=self.registry)
+            record = _greedy_round(self.boundary, self.state, graph, config, rnd,
+                                   noise=noise, registry=self.registry, closer=closer,
+                                   logger=self.logger, explain_k=self.explain_k,
+                                   intents=intents)
+        if intents:
+            t0 = time.perf_counter()
+            self.ledger.record_moves(intents)
+            record.phase_s["reconcile"] = time.perf_counter() - t0
+        return record
 
     def emit(self, record: RoundRecord) -> None:
-        """The record's host tail: the result and the round's metrics."""
+        """The record's host tail: the result, the round's metrics, the
+        logger's round event and ``on_round``."""
         self.result.rounds.append(record)
         _emit_round_metrics(self.registry, self.config.algorithm, record)
         observe_wall_round(self.registry, "sequential", record.wall_s)
@@ -329,10 +499,28 @@ class _Runtime:
                 "rounds completed on a stale snapshot after boundary failure",
                 labelnames=("algorithm",),
             ).labels(algorithm=self.config.algorithm).inc()
+        if self.logger is not None:
+            self.logger.info(
+                "round",
+                round=record.round,
+                moved=record.moved,
+                services=list(record.services_moved),
+                most_hazard=record.most_hazard,
+                communication_cost=record.communication_cost,
+                load_std=record.load_std,
+                decision_latency_s=record.decision_latency_s,
+                objective_before=record.objective_before,
+                objective_after=record.objective_after,
+                breaker=record.breaker_state,
+                degraded=record.degraded,
+                boundary_failures=record.boundary_failures,
+            )
+        if self.on_round is not None:
+            self.on_round(record, self.state)
 
     def sequential_round(self, rnd: int) -> None:
         """One full round: preamble, execute, advance + monitor, close,
-        flush, emit."""
+        flush, emit, checkpoint."""
         if not self.preamble(rnd):
             return
         t0 = time.perf_counter()
@@ -340,15 +528,18 @@ class _Runtime:
         record = self.execute_round(rnd, closer)
         self.boundary.advance(self.config.sleep_after_action_s)
         t_mon = time.perf_counter()
-        new_state = self.monitor()
+        new_state = self.monitor_admitted()
         t_end = time.perf_counter()
         self.begin_close(record, closer, new_state)
         closer.flush()
         t_done = time.perf_counter()
-        record.phase_s["monitor"] = t_end - t_mon
-        record.phase_s["round_end"] = t_done - t_end
+        record.phase_s["admission"] = self._admit_s
+        record.phase_s["monitor"] = t_end - t_mon - self._admit_s
+        record.phase_s["round_end"] = t_done - t_end - self._diff_s
         record.wall_s = t_done - t0
         self.emit(record)
+        # checkpoint last: a crash in on_round replays this round on resume
+        self.save_checkpoint(rnd)
 
 
 def run_controller(
@@ -357,6 +548,10 @@ def run_controller(
     *,
     device: str | torch.device | None = DEFAULT_DEVICE,
     registry: MetricsRegistry | None = None,
+    logger: StructuredLogger | None = None,
+    checkpoint_dir: str | None = None,
+    graph=None,
+    on_round: Callable | None = None,
     gumbel_rows: Callable[[int, int], torch.Tensor] | None = None,
     solver_plans: Callable[[int], list] | None = None,
 ) -> ControllerResult:
@@ -369,40 +564,72 @@ def run_controller(
     snapshot is kept, and each frozen round is a COUNTED skip
     (``max_rounds == len(result.rounds) + result.skipped_rounds``).
 
+    Every monitor snapshot passes the admission guard
+    (``config.reconcile_admission``): poisoned readings are quarantined to
+    last-good values, structurally broken snapshots degrade the round. The
+    intent ledger (``config.reconcile_enabled``) diffs each admitted
+    snapshot against the controller's recorded moves, classifies and counts
+    divergences, and issues up to ``config.repair_budget_per_round``
+    corrective moves a round. A clean run is identical to one with both
+    planes off; rounds with activity carry a ``reconcile`` block.
+
     ``registry`` (default: the process registry) receives one metric
     sample set per round: ``rounds_total``, ``services_moved_total``, the
     ``decision_seconds`` and ``wall_round_ms`` histograms, the cost and
     objective gauges, and the ``device_transfers_total`` of the loop's
     host reads.
 
+    ``logger`` records one structured ``round`` event per round; with
+    ``config.explain`` on, each decide or solve also records a
+    ``DecisionExplanation`` (``record.explanations`` and a ``decision``
+    event), its device bundle riding the round-end transfer.
+
+    ``checkpoint_dir`` makes the run resumable: the post-move snapshot and
+    the ledger's intent are saved every round (the JAX package's format),
+    and a start finds the latest checkpoint, restores the simulator's
+    placement (``restore_placement``) and skips the completed rounds.
+    Round ``r``'s draws depend only on ``(config.seed, r)``, so a resumed
+    run decides as the uninterrupted one would.
+
+    ``graph`` overrides the backend's declared graph for the decisions (a
+    zero-argument callable is re-read every round); the metrics stay on the
+    declared graph. ``on_round(record, state)`` runs after each round with
+    the post-move snapshot.
+
     ``gumbel_rows(round, i)`` gives the ``random`` policy's noise row of the
-    round's ``i``-th decision and ``solver_plans(round)`` the global
+    round's ``i``-th decision and ``solver_plans(round)`` the global or pod
     solver's per-sweep plans, in place of the round's generator (the tests
     feed both from the JAX package's key stream).
 
     Not carried yet (refused by ``config.validate()``): the pipelined and
-    scanned schedules, checkpoints, the logger and ops plane, explanations,
-    reconcile and admission, churn, forecast and chaos.
+    scanned schedules, the ops plane, churn, forecast, chaos and shadow.
     """
     config = config.validate()
     dev = resolve_device(device)
     registry = registry if registry is not None else get_registry()
-    rt = _Runtime(backend, config, device=dev, registry=registry,
-                  gumbel_rows=gumbel_rows, solver_plans=solver_plans)
-    for rnd in range(1, config.max_rounds + 1):
+    rt = _Runtime(backend, config, device=dev, registry=registry, gumbel_rows=gumbel_rows,
+                  solver_plans=solver_plans, logger=logger, checkpoint_dir=checkpoint_dir,
+                  graph=graph, on_round=on_round)
+    for rnd in range(rt.start_round, config.max_rounds + 1):
         rt.sequential_round(rnd)
     rt.result.breaker_transitions = list(rt.breaker.transitions)
     rt.result.boundary_failures = rt.boundary.total_failures
     return rt.result
 
 
-def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry) -> RoundRecord:
+def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry, closer,
+                  logger=None, explain_k: int = 0, intents=None) -> RoundRecord:
     """Up to ``config.moves_per_round`` greedy moves: after each move the
     working snapshot re-homes the moved service (reference main.py:73's
     ``edit_cluster`` intent, done correctly), so the next decision sees the
     drained hazard node and stops once nothing is hazardous any more.
     ``noise(i)`` is the ``random`` policy's noise row of the ``i``-th
-    decision."""
+    decision.
+
+    With ``explain_k > 0`` each decide is :func:`decide_explain` (the same
+    decision) and its bundle rides the round's single round-end transfer;
+    the ``DecisionExplanation`` is built at flush, with the apply outcome
+    recorded during the round."""
     scoring = scoring_policy(config.algorithm)
     pid = POLICY_IDS[scoring]
     mechanism = PlacementMechanism[scoring]
@@ -411,46 +638,99 @@ def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry) -> Ro
     moved_names: list[str] = []
     applied_moves: list[tuple[str, str]] = []
     latencies: list[float] = []
+    explanations: list[dict] = []
     apply_s = 0.0
     degraded = False
+
+    def defer_explanation(bundle, meta) -> None:
+        def decode(flat) -> None:
+            expl = greedy_explanation(
+                flat, meta["node_names"], round=rnd, seq=meta["seq"], policy=config.algorithm,
+                service=meta["service"], hazard_node=meta["hazard_node"], chosen=meta["chosen"],
+            )
+            if meta.get("applied_known"):
+                expl["landed"] = meta["landed"]
+                expl["applied"] = meta["landed"] is not None
+            stop = meta.get("stop")
+            if stop is not None:
+                expl["stop"] = stop
+                expl["why"] += f" ({stop})"
+            explanations.append(expl)
+            if logger is not None:
+                logger.info("decision", **expl)
+
+        closer.defer(bundle, decode)
+
     for i in range(config.moves_per_round):
         t0 = time.perf_counter()
         g = noise(i) if scoring == "random" else None
-        most, hazard_mask, victim, svc, target = decide(
-            state, graph, pid, config.hazard_threshold_pct, g
-        )
+        if explain_k > 0:
+            most, hazard_mask, victim, svc, target, bundle = decide_explain(
+                state, graph, pid, config.hazard_threshold_pct, g, top_k=explain_k
+            )
+        else:
+            bundle = None
+            most, hazard_mask, victim, svc, target = decide(
+                state, graph, pid, config.hazard_threshold_pct, g
+            )
         # the apply boundary: ONE batched host read of the decision
         scalars, hazard = fence([torch.stack([most, victim, svc.long(), target]), hazard_mask],
                                 registry)
         latencies.append(time.perf_counter() - t0)
         most_i, victim_i, svc_i, target_i = (int(v) for v in scalars)
+        service_name = graph.names[svc_i] if victim_i >= 0 else None
+        target_name = state.node_names[target_i] if target_i >= 0 else None
+        meta = None
+        if bundle is not None:
+            meta = {
+                "node_names": state.node_names,
+                "seq": i,
+                "service": service_name,
+                "hazard_node": state.node_names[most_i] if most_i >= 0 else None,
+                "chosen": target_name if victim_i >= 0 else None,
+            }
+            defer_explanation(bundle, meta)
         if first_hazard is None and most_i >= 0:
             first_hazard = state.node_names[most_i]
         if most_i < 0 or victim_i < 0 or target_i < 0:
             break  # no hazard left (or nowhere to go): the round is done
-        service_name = graph.names[svc_i]
         if service_name in moved_names:
             # the drain started ping-ponging (the move made the target the
             # new hazard node and elected the same service back)
+            if meta is not None:
+                meta["stop"] = "ping-pong stop: service already moved this round"
             break
         t_apply = time.perf_counter()
         landed = boundary.apply_move(
             MoveRequest(
                 service=service_name,
-                target_node=state.node_names[target_i],
+                target_node=target_name,
                 hazard_nodes=tuple(n for n, h in zip(state.node_names, hazard) if h),
                 mechanism=mechanism,
             )
         )
         apply_s += time.perf_counter() - t_apply
+        if intents is not None:
+            intents.append(move_intent(mechanism, service_name, target_name, landed))
+        if meta is not None:
+            meta["applied_known"] = True
+            meta["landed"] = landed
+            if landed is None:
+                meta["stop"] = "boundary move failed"
         if landed is None:
             break
         moved_names.append(service_name)
         applied_moves.append((service_name, landed))
         if landed not in node_index:
-            # landed on a node the working snapshot does not know: stop and
-            # close the round degraded; the next monitor realigns
+            # landed on a node the working snapshot does not know: count
+            # the divergence, stop, and close the round degraded; the next
+            # monitor realigns and the reconcile plane repairs the pod
+            count_divergence(registry, KIND_UNKNOWN_LANDING)
             degraded = True
+            if meta is not None:
+                meta["stop"] = "landed on a node unknown to the snapshot"
+            if logger is not None:
+                logger.warn("unknown_landing", round=rnd, service=service_name, landed=landed)
             break
         if i + 1 < config.moves_per_round:
             # re-home the moved service where it actually LANDED (the
@@ -460,7 +740,7 @@ def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry) -> Ro
                 pod_node=torch.where(svc_pods, node_index[landed], state.pod_node)
                 .to(state.pod_node.dtype)
             )
-    return RoundRecord(
+    record = RoundRecord(
         round=rnd,
         moved=bool(moved_names),
         most_hazard=first_hazard,
@@ -474,6 +754,165 @@ def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry) -> Ro
         degraded=degraded,
         phase_s={"decide": sum(latencies), "apply": apply_s},
     )
+    if explain_k > 0:
+        # the decodes above fill `explanations` at flush; land them on the
+        # record after the last one ran
+        closer.defer_host(lambda: setattr(record, "explanations", tuple(explanations)))
+    return record
+
+
+# ---- the wave cap: host-side move scoring with the solver's accounting ----
+
+
+def _move_scoring_env(state, graph, solver_cfg, services=None, *, placement=None,
+                      registry=None):
+    """Host-side scoring context over one snapshot, shared by the wave cap
+    (:func:`_top_gain_moves`) and the global explanation's per-move gains.
+
+    The device inputs come home in ONE counted transfer
+    (``site="move_gains"``): pod loads, node capacities, validity and used
+    loads, and only the adjacency rows of ``services`` (every service when
+    None) — the gains read no other row. ``placement`` is the host
+    ``(pod_node, pod_valid, pod_service)`` a round already fenced; without
+    it they ride the same transfer. The arrays keep the JAX package's
+    host dtypes (f32 loads and capacities, f64 per-service sums, i64
+    replica counts), which decide its ties and its 1e-9 threshold."""
+    S = graph.num_services
+    rows = sorted(set(int(s) for s in services)) if services is not None else list(range(S))
+    parts = {
+        "pod_cpu": state.pod_cpu,
+        "pod_mem": state.pod_mem,
+        "node_cpu_cap": state.node_cpu_cap,
+        "node_mem_cap": state.node_mem_cap,
+        "node_valid": state.node_valid,
+        "used": state.node_cpu_used(),
+        "mem_used": state.node_mem_used(),
+        "adj": graph.adj.index_select(0, torch.as_tensor(rows, dtype=torch.long,
+                                                         device=graph.adj.device)),
+    }
+    if placement is None:
+        parts.update(pod_node=state.pod_node, pod_valid=state.pod_valid,
+                     pod_service=state.pod_service)
+    host = pull_arrays(parts, MOVE_GAINS_SITE, registry)
+    old_nodes, valid, svc_arr = placement if placement is not None else (
+        host["pod_node"], host["pod_valid"], host["pod_service"])
+    pod_cpu, pod_mem = host["pod_cpu"], host["pod_mem"]
+    svc_node = np.full(S, -1, dtype=np.int64)
+    svc_cpu = np.zeros(S)
+    svc_mem = np.zeros(S)
+    for i in np.flatnonzero(valid):
+        s = int(svc_arr[i])
+        if 0 <= s < S:
+            if svc_node[s] < 0:
+                svc_node[s] = old_nodes[i]
+            svc_cpu[s] += float(pod_cpu[i])
+            svc_mem[s] += float(pod_mem[i])
+    replicas = np.bincount(svc_arr[valid & (svc_arr >= 0) & (svc_arr < S)], minlength=S)
+    placed = svc_node >= 0
+
+    node_valid = host["node_valid"]
+    ow = solver_cfg.overload_weight if solver_cfg.enforce_capacity else 0.0
+    cpu_cap = host["node_cpu_cap"]
+    cap = np.where(cpu_cap > 0, cpu_cap, 1.0) * solver_cfg.capacity_frac
+    mem_cap_raw = host["node_mem_cap"]
+    mem_cap = np.where(mem_cap_raw > 0, mem_cap_raw, np.inf) * solver_cfg.capacity_frac
+
+    def balance_terms(loads):
+        # the solver's own expression, evaluated host-side
+        return float(pct_balance_terms(loads, cap, node_valid, solver_cfg.balance_weight, ow,
+                                       xp=np))
+
+    return SimpleNamespace(
+        svc_node=svc_node, svc_cpu=svc_cpu, svc_mem=svc_mem,
+        replicas=replicas, adj=dict(zip(rows, host["adj"])), placed=placed,
+        cap=cap, mem_cap=mem_cap, used=host["used"], mem_used=host["mem_used"],
+        enforce_capacity=solver_cfg.enforce_capacity,
+        balance_terms=balance_terms,
+    )
+
+
+def _move_gain(env, work_node, loads, mem_loads, bal_now, s, t):
+    """(gain, feasible) of relocating service ``s`` to ``t`` at the given
+    working state: the solver's own accounting (comm cut + balance terms,
+    capacity feasibility when enforced)."""
+    w = env.adj[s] * env.replicas[s] * env.replicas
+    cut_before = float(np.sum(w[env.placed & (work_node != work_node[s])]))
+    cut_after = float(np.sum(w[env.placed & (work_node != t)]))
+    new_loads = loads.copy()
+    if 0 <= work_node[s] < len(new_loads):
+        new_loads[work_node[s]] -= env.svc_cpu[s]
+    new_loads[t] += env.svc_cpu[s]
+    feasible = not (
+        env.enforce_capacity
+        and t != work_node[s]
+        and (new_loads[t] > env.cap[t] or mem_loads[t] + env.svc_mem[s] > env.mem_cap[t])
+    )
+    gain = cut_before - cut_after + bal_now - env.balance_terms(new_loads)
+    return gain, feasible
+
+
+def _individual_move_gains(changed: list[tuple[int, int]], state=None, graph=None,
+                           solver_cfg=None, *, env=None) -> list[tuple[int, int, float]]:
+    """Each candidate move's INDIVIDUAL gain at the round-start state
+    (every other service held in place): what the uncapped global round's
+    explanation records as candidate scores."""
+    if env is None:
+        env = _move_scoring_env(state, graph, solver_cfg, [s for s, _ in changed])
+    work_node = env.svc_node.copy()
+    loads = env.used.copy()
+    mem_loads = env.mem_used.copy()
+    bal_now = env.balance_terms(loads)
+    return [
+        (s, t, _move_gain(env, work_node, loads, mem_loads, bal_now, s, t)[0])
+        for s, t in changed
+    ]
+
+
+def _top_gain_moves(changed: list[tuple[int, int]], state=None, graph=None, solver_cfg=None,
+                    k: int = 0, *, env=None) -> list[tuple[int, int, float]]:
+    """≤ ``k`` strictly improving moves selected greedily and sequentially
+    with the solver's own accounting (comm + λ·std of CPU-% of the packing
+    budget + the over-budget term when capacity is enforced).
+
+    Each accepted move updates the working placement and loads, and every
+    remaining candidate is re-scored against them, so the wave is jointly
+    consistent: two moves cannot together over-budget one node, and a move
+    that only pays off once an earlier one vacates its target is scored
+    with that vacancy. A candidate whose gain is ≤ 1e-9 is never taken
+    (the capped loop converges when no single move helps); ties go to the
+    earliest candidate. Returns ``(service, target, gain)`` triples in
+    ``changed``'s order, each gain at its evaluation state."""
+    if env is None:
+        env = _move_scoring_env(state, graph, solver_cfg, [s for s, _ in changed])
+    work_node = env.svc_node.copy()
+    loads = env.used.copy()
+    mem_loads = env.mem_used.copy()
+    picked: list[int] = []
+    gains: dict[int, float] = {}
+    remaining = list(range(len(changed)))
+    for _ in range(min(k, len(changed))):
+        bal_now = env.balance_terms(loads)
+        best_i, best_gain = None, 1e-9
+        for i in remaining:
+            s, t = changed[i]
+            gain, feasible = _move_gain(env, work_node, loads, mem_loads, bal_now, s, t)
+            if not feasible:
+                continue  # would newly exceed a budget at the CURRENT loads
+            if gain > best_gain:  # strict: ties go to the earliest candidate
+                best_i, best_gain = i, gain
+        if best_i is None:
+            break  # no remaining move helps on its own: the wave converged
+        s, t = changed[best_i]
+        if 0 <= work_node[s] < len(loads):
+            loads[work_node[s]] -= env.svc_cpu[s]
+            mem_loads[work_node[s]] -= env.svc_mem[s]
+        loads[t] += env.svc_cpu[s]
+        mem_loads[t] += env.svc_mem[s]
+        work_node[s] = t
+        picked.append(best_i)
+        gains[best_i] = best_gain
+        remaining.remove(best_i)
+    return [(*changed[i], gains[i]) for i in sorted(picked)]
 
 
 def _defer_solver_objectives(closer: RoundCloser, info: dict, apply_cb) -> None:
@@ -487,19 +926,123 @@ def _defer_solver_objectives(closer: RoundCloser, info: dict, apply_cb) -> None:
                               ("objective_before", "objective_after", "improved")]), decode)
 
 
-def _global_round(boundary, state, graph, config, rnd, *, generator, plan, closer,
-                  registry) -> RoundRecord:
-    """One batched solve (one restart, tp 1, service unit), then every
-    service whose node changed is moved. The JAX package can donate the
-    snapshot's buffers to the solve and resurrect them afterwards; torch
-    has nothing to donate, so that path does not exist here."""
-    cfg = GlobalSolverConfig(
+def _solver_config(config: RescheduleConfig) -> GlobalSolverConfig:
+    return GlobalSolverConfig(
         sweeps=config.global_solver_iters,
         balance_weight=config.balance_weight,
         enforce_capacity=config.enforce_capacity,
         capacity_frac=config.capacity_frac,
         move_cost=config.move_cost,
     )
+
+
+def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, registry,
+               logger=None, explain=False, intents=None) -> RoundRecord:
+    """Per-replica global round: one solve on the pod-level graph, then the
+    moved pods in one ``apply_pod_moves`` wave (the simulator's; the JAX
+    package's per-pod ``apply_move`` for a backend without it waits with
+    the k8s backend, ROADMAP Queue 1 item 4). The pod graph is cached per
+    (declared graph, pod set)."""
+    from kubernetes_rescheduling_tpu_torch.solver.pod_mode import (
+        global_assign_pods,
+        pod_level_graph,
+    )
+
+    t0 = time.perf_counter()
+    # the pod set keys the pod-graph cache, so it is read before the solve
+    old_nodes, valid, svc_arr = fence([state.pod_node, state.pod_valid, state.pod_service],
+                                      registry)
+    sig = (svc_arr.tobytes(), valid.tobytes())
+    cache = boundary.solver_cache("pod_graph")
+    if cache.get("graph") is not graph or cache.get("sig") != sig:
+        # build BEFORE keying: a failed build must not leave a matching
+        # key over a stale value
+        value = pod_level_graph(state, graph)
+        cache["graph"], cache["sig"], cache["value"] = graph, sig, value
+    pod_graph = cache["value"]
+    new_state, info = global_assign_pods(state, graph, generator, _solver_config(config),
+                                         pod_graph=pod_graph, plan=plan)
+    # the apply boundary: ONE batched host read of the new placement
+    (new_nodes,) = fence([new_state.pod_node], registry)
+    latency = time.perf_counter() - t0
+
+    t_apply = time.perf_counter()
+    mechanism = PlacementMechanism["global"]
+    moves = [
+        MoveRequest(
+            service=graph.names[int(svc_arr[i])],
+            pod=state.pod_names[int(i)],
+            target_node=state.node_names[int(new_nodes[i])],
+            mechanism=mechanism,
+        )
+        for i in np.flatnonzero(valid & (old_nodes != new_nodes))
+    ]
+    # one reconcile wave for the whole round's replica moves, past the
+    # retry wrapper (the simulator's wave cannot transiently fail)
+    landed_of = dict(boundary.apply_pod_moves(moves)) if moves else {}
+    landed_moves = [mv for mv in moves if mv.pod in landed_of]
+    applied_moves = [(mv.service, landed_of[mv.pod]) for mv in landed_moves]  # LANDED node
+    if intents is not None:
+        intents.extend(move_intent(mv.mechanism, mv.service, mv.target_node,
+                                   landed_of.get(mv.pod), pod=mv.pod) for mv in moves)
+    moved_services = {mv.service for mv in landed_moves}
+
+    # services_moved carries the SERVICE names of moves that landed
+    record = RoundRecord(
+        round=rnd,
+        moved=bool(moved_services),
+        most_hazard=None,
+        service=None,
+        target=None,
+        communication_cost=0.0,  # filled at the round-end flush
+        load_std=0.0,
+        services_moved=tuple(sorted(moved_services)),
+        decision_latencies_s=(latency,),
+        applied_moves=tuple(applied_moves),
+        phase_s={"solve": latency, "apply": time.perf_counter() - t_apply},
+    )
+
+    def apply_objectives(before, after, improved) -> None:
+        record.objective_before = before
+        record.objective_after = after
+        record.solver_improved = improved
+        if not explain:
+            return
+        # per-service candidates scored by replicas relocated; chosen = the
+        # most-relocated service
+        per_svc: dict[str, dict] = {}
+        for mv in landed_moves:
+            d = per_svc.setdefault(mv.service, {"service": mv.service, "node": mv.target_node,
+                                                "node_index": None, "score": 0.0,
+                                                "applied": True})
+            d["score"] += 1.0
+        expl = solver_explanation(
+            kind="pod", round=rnd, policy=config.algorithm,
+            candidates=sorted(per_svc.values(), key=lambda d: d["service"]),
+            objective_before=before, objective_after=after,
+            applied=len(landed_moves), proposed=len(moves),
+        )
+        if logger is not None:
+            logger.info("decision", **expl)
+        record.explanations = (expl,)
+
+    _defer_solver_objectives(closer, info, apply_objectives)
+    return record
+
+
+def _global_round(boundary, state, graph, config, rnd, *, generator, plan, closer,
+                  registry, logger=None, explain=False, intents=None) -> RoundRecord:
+    """One batched solve (one restart, tp 1), then every service whose node
+    changed is moved — or, with a numeric ``global_moves_cap``, the wave
+    cap's selection. ``placement_unit="pod"`` takes :func:`_pod_round`. The
+    JAX package can donate the snapshot's buffers to the solve and
+    resurrect them afterwards; torch has nothing to donate, so that path
+    does not exist here."""
+    if config.placement_unit == "pod":
+        return _pod_round(boundary, state, graph, config, rnd, generator=generator, plan=plan,
+                          closer=closer, registry=registry, logger=logger, explain=explain,
+                          intents=intents)
+    cfg = _solver_config(config)
     t0 = time.perf_counter()
     if config.solver_backend == "sparse":
         from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
@@ -521,26 +1064,47 @@ def _global_round(boundary, state, graph, config, rnd, *, generator, plan, close
 
     changed: list[tuple[int, int]] = []  # (service, target node), first pod order
     seen: set[int] = set()
-    for i in (valid & (old_nodes != new_nodes)).nonzero()[0]:
+    for i in np.flatnonzero(valid & (old_nodes != new_nodes)):
         s = int(svc_arr[i])
         if s not in seen:
             seen.add(s)
             changed.append((s, int(new_nodes[i])))
 
+    proposed = len(changed)
+    cap = config.global_moves_cap
+    gains: dict[tuple[int, int], float] = {}
+    phase_s = {"solve": latency}
+    if isinstance(cap, int) or (explain and changed):
+        t_sel = time.perf_counter()
+        env = _move_scoring_env(state, graph, cfg, [s for s, _ in changed],
+                                placement=(old_nodes, valid, svc_arr), registry=registry)
+        if isinstance(cap, int):
+            # the wave cap: only the k best strictly improving moves; the
+            # rest of the solve is re-derived next round
+            scored = _top_gain_moves(changed, k=cap, env=env)
+            changed = [(s, t) for s, t, _ in scored]
+        else:
+            # uncapped rounds score the moves once, for the explanation
+            scored = _individual_move_gains(changed, env=env)
+        gains = {(s, t): g for s, t, g in scored}
+        phase_s["select"] = time.perf_counter() - t_sel
+
     t_apply = time.perf_counter()
+    mechanism = PlacementMechanism["global"]
     moved_names: list[str] = []
     applied_moves: list[tuple[str, str]] = []
     for s, target in changed:
         landed = boundary.apply_move(
-            MoveRequest(
-                service=graph.names[s],
-                target_node=state.node_names[target],
-                mechanism=PlacementMechanism["global"],
-            )
+            MoveRequest(service=graph.names[s], target_node=state.node_names[target],
+                        mechanism=mechanism)
         )
+        if intents is not None:
+            intents.append(move_intent(mechanism, graph.names[s], state.node_names[target],
+                                       landed))
         if landed is not None:
             moved_names.append(graph.names[s])
             applied_moves.append((graph.names[s], landed))
+    phase_s["apply"] = time.perf_counter() - t_apply
     record = RoundRecord(
         round=rnd,
         moved=bool(moved_names),
@@ -552,13 +1116,34 @@ def _global_round(boundary, state, graph, config, rnd, *, generator, plan, close
         services_moved=tuple(moved_names),
         decision_latencies_s=(latency,),
         applied_moves=tuple(applied_moves),
-        phase_s={"solve": latency, "apply": time.perf_counter() - t_apply},
+        phase_s=phase_s,
     )
 
     def apply_objectives(before, after, improved) -> None:
         record.objective_before = before
         record.objective_after = after
         record.solver_improved = improved
+        if not explain:
+            return
+        moved = set(moved_names)
+        candidates = [
+            {
+                "service": graph.names[s],
+                "node": state.node_names[t],
+                "node_index": int(t),
+                "score": float(gains.get((s, t), 0.0)),
+                "applied": graph.names[s] in moved,
+            }
+            for s, t in changed
+        ]
+        expl = solver_explanation(
+            kind="global", round=rnd, policy=config.algorithm, candidates=candidates,
+            objective_before=before, objective_after=after,
+            applied=len(moved_names), proposed=proposed,
+        )
+        if logger is not None:
+            logger.info("decision", **expl)
+        record.explanations = (expl,)
 
     _defer_solver_objectives(closer, info, apply_objectives)
     return record

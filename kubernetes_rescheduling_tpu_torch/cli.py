@@ -4,6 +4,8 @@ keys of the JAX package's commands for what the port computes.
 
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm car --imbalance
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm global --scenario large
+    python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm global --global-moves-cap 10
+    python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm global --placement-unit pod
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --sparse
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --placement-unit pod
@@ -89,6 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "inside the global solve (0 = moves are free)")
     r.add_argument("--solver-backend", default="dense", choices=["dense", "sparse"],
                    help="pair-weight storage for global rounds (sparse = block-local form)")
+    r.add_argument("--global-moves-cap", type=_moves_per_round, default="all",
+                   help="apply only the k highest-gain improving moves per "
+                        "global round ('all' = uncapped)")
+    r.add_argument("--placement-unit", default="service", choices=["service", "pod"],
+                   help="pod = every replica places independently (global algorithm)")
     r.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
 
@@ -124,6 +131,8 @@ def cmd_reschedule(args) -> dict:
         balance_weight=args.balance_weight,
         move_cost=args.move_cost,
         solver_backend=args.solver_backend,
+        global_moves_cap=args.global_moves_cap,
+        placement_unit=args.placement_unit,
         enforce_capacity=args.capacity_frac is not None,
         capacity_frac=args.capacity_frac if args.capacity_frac is not None else 1.0,
         seed=args.seed,

@@ -2,11 +2,12 @@
 ``kubernetes_rescheduling_tpu.config.RescheduleConfig`` as far as the
 sequential control loop on the simulator reads it.
 
-The JAX package's config also carries planes this port does not have yet.
-Each one keeps a field here (flat, named after the JAX package's nested
-block) whose default is off, and :meth:`RescheduleConfig.validate` refuses
-it, naming the ROADMAP item that brings it — a run never quietly does
-something else.
+Fields of the JAX package's nested blocks are flat here, named after
+their block (``reconcile_admission`` is ``reconcile.admission``), with the
+JAX package's defaults. The config also carries planes this port does not
+have yet: each keeps a field whose default is off, and
+:meth:`RescheduleConfig.validate` refuses it, naming the ROADMAP item that
+brings it — a run never quietly does something else.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ class RescheduleConfig:
     # to k victims drained from the hazard node; "all" = the round goes
     # through the global solver whatever the algorithm
     moves_per_round: int | str = 1
-    # global rounds apply every changed service ("all"); a numeric wave
-    # cap is refused below
+    # global rounds apply every changed service ("all") or, with an int k,
+    # the wave cap: at most k strictly improving moves a round
     global_moves_cap: int | str = "all"
 
     backend: str = "sim"
@@ -46,7 +47,7 @@ class RescheduleConfig:
     solver_restarts: int = 1
     solver_tp: int = 1
     solver_backend: str = "dense"          # "dense" | "sparse"
-    placement_unit: str = "service"
+    placement_unit: str = "service"        # "service" | "pod" (global only)
     seed: int = 0
 
     # resilience: every controller→backend call goes through the retry
@@ -59,6 +60,21 @@ class RescheduleConfig:
     breaker_cooldown_rounds: int = 2
     failure_budget_per_round: int = 0
 
+    # the reconciliation and admission planes (reconcile.*): every monitor
+    # snapshot passes the admission guard (quarantine or reject), and the
+    # intent ledger diffs each admitted snapshot against the controller's
+    # own moves, repairing up to `repair_budget_per_round` pods a round
+    # (0 = detect and count only)
+    reconcile_admission: bool = True
+    reconcile_enabled: bool = True
+    repair_budget_per_round: int = 2
+    max_quarantine_frac: float = 0.5
+
+    # decision explanations (obs.explain, obs.explain_top_k): recorded when
+    # on AND a logger is attached to the run
+    explain: bool = True
+    explain_top_k: int = 3
+
     # planes of the JAX package that this port does not carry yet
     chaos: str = "none"          # chaos.profile
     elastic: str = "none"        # elastic.profile
@@ -67,8 +83,6 @@ class RescheduleConfig:
     serving: bool = False        # serving.enabled
     pipeline: bool = False       # controller.pipeline
     scan_block: int = 0          # controller.scan_block
-    reconcile: bool = False      # reconcile.enabled / reconcile.admission
-    explain: bool = False        # obs.explain
 
     def validate(self) -> "RescheduleConfig":
         if self.algorithm == "proactive":
@@ -86,12 +100,7 @@ class RescheduleConfig:
         if not (mpr == "all" or (isinstance(mpr, int) and mpr >= 1)):
             raise ValueError(f"moves_per_round must be a positive int or 'all', got {mpr!r}")
         gmc = self.global_moves_cap
-        if isinstance(gmc, int) and gmc >= 1:
-            raise ValueError(
-                "a numeric global_moves_cap (the wave cap, _top_gain_moves) is not ported "
-                "yet (ROADMAP Queue 1 item 1)"
-            )
-        if gmc != "all":
+        if not (gmc == "all" or (isinstance(gmc, int) and gmc >= 1)):
             raise ValueError(f"global_moves_cap must be a positive int or 'all', got {gmc!r}")
         if self.solver_backend not in ("dense", "sparse"):
             raise ValueError(
@@ -102,10 +111,16 @@ class RescheduleConfig:
                 f"placement_unit must be 'service' or 'pod', got {self.placement_unit!r}"
             )
         if self.placement_unit == "pod":
-            raise ValueError(
-                "placement_unit='pod' (the controller's pod round) is not ported yet "
-                "(ROADMAP Queue 1 item 1)"
-            )
+            if self.algorithm != "global":
+                raise ValueError(
+                    "placement_unit='pod' requires algorithm='global' "
+                    "(the greedy policies score whole services)"
+                )
+            if isinstance(gmc, int):
+                raise ValueError(
+                    "placement_unit='pod' does not support global_moves_cap "
+                    "(use move_cost: disruption pricing inside the solve)"
+                )
         if self.solver_restarts > 1 or self.solver_tp > 1:
             raise ValueError(
                 "solver_restarts > 1 and solver_tp > 1 run across devices, which the port "
@@ -127,8 +142,6 @@ class RescheduleConfig:
             (self.serving, "the serving plane", 3),
             (self.pipeline, "the pipelined schedule", 3),
             (self.scan_block > 0, "the scanned schedule (bench/scan.py)", 3),
-            (self.reconcile, "the reconcile and admission planes", 1),
-            (self.explain, "decision explanations (decide_explain, telemetry/explain.py)", 1),
         )
         for on, what, item in refused:
             if on:
@@ -141,4 +154,15 @@ class RescheduleConfig:
             raise ValueError("breaker_cooldown_rounds must be >= 1")
         if self.failure_budget_per_round < 0:
             raise ValueError("failure_budget_per_round must be >= 0")
+        if self.repair_budget_per_round < 0:
+            raise ValueError(
+                "repair_budget_per_round must be >= 0 (0 = detect only), got "
+                f"{self.repair_budget_per_round}"
+            )
+        if not 0.0 < self.max_quarantine_frac <= 1.0:
+            raise ValueError(
+                f"max_quarantine_frac must be in (0, 1], got {self.max_quarantine_frac}"
+            )
+        if self.explain_top_k < 1:
+            raise ValueError("explain_top_k must be >= 1")
         return self

@@ -163,16 +163,31 @@ def sweep_composition(
     return ids.reshape(n_chunks, C), bp.reshape(n_chunks, C // B)
 
 
-def pct_balance_terms(loads, cap, node_valid, balance_weight, overload_weight):
+class _TorchNamespace:
+    """The few array functions :func:`pct_balance_terms` calls, in torch."""
+
+    where = staticmethod(torch.where)
+    sum = staticmethod(torch.sum)
+    sqrt = staticmethod(torch.sqrt)
+    maximum = staticmethod(torch.clamp_min)
+
+
+def pct_balance_terms(loads, cap, node_valid, balance_weight, overload_weight,
+                      xp=_TorchNamespace):
     """The objective's balance + over-budget terms: ``balance_weight·std(pct
     of budget) + overload_weight·Σ relu(pct − 100)``. ``cap`` must already
-    be ``capacity_frac``-scaled."""
-    pct = torch.where(node_valid, loads / cap * 100.0, 0.0)
-    n = torch.clamp_min(torch.sum(node_valid), 1)
-    mean = torch.sum(pct) / n
-    var = torch.sum(torch.where(node_valid, (pct - mean) ** 2, 0.0)) / n
-    over = torch.sum(torch.clamp_min(pct - 100.0, 0.0))
-    return balance_weight * torch.sqrt(var) + overload_weight * over
+    be ``capacity_frac``-scaled.
+
+    ``xp`` is the array namespace: torch for the solvers, ``numpy`` for the
+    controller's wave-cap ranking on the host, so the cap ranks moves by
+    the very expression the solver optimizes (the JAX package evaluates it
+    host-side the same way, with numpy's dtype rules)."""
+    pct = xp.where(node_valid, loads / cap * 100.0, 0.0)
+    n = xp.maximum(xp.sum(node_valid), 1)
+    mean = xp.sum(pct) / n
+    var = xp.sum(xp.where(node_valid, (pct - mean) ** 2, 0.0)) / n
+    over = xp.sum(xp.maximum(pct - 100.0, 0.0))
+    return balance_weight * xp.sqrt(var) + overload_weight * over
 
 
 def check_weight_budget(SP: int, config: GlobalSolverConfig) -> None:

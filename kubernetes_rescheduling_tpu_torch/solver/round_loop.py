@@ -25,10 +25,18 @@ from kubernetes_rescheduling_tpu_torch._device import DEFAULT_DEVICE, resolve_de
 from kubernetes_rescheduling_tpu_torch._random import gumbel as draw_gumbel
 from kubernetes_rescheduling_tpu_torch._random import round_generator
 from kubernetes_rescheduling_tpu_torch.core.state import UNASSIGNED, ClusterState, CommGraph
-from kubernetes_rescheduling_tpu_torch.objectives.metrics import communication_cost, load_std
+from kubernetes_rescheduling_tpu_torch.objectives.metrics import (
+    communication_cost,
+    load_std,
+    node_cpu_pct_rounded,
+)
 from kubernetes_rescheduling_tpu_torch.policies._index import take
 from kubernetes_rescheduling_tpu_torch.policies.hazard import detect_hazard
-from kubernetes_rescheduling_tpu_torch.policies.scoring import POLICY_IDS, choose_node
+from kubernetes_rescheduling_tpu_torch.policies.scoring import (
+    POLICY_IDS,
+    lex_argmax,
+    policy_scores,
+)
 from kubernetes_rescheduling_tpu_torch.policies.victim import deployment_group, pick_victim
 
 
@@ -63,6 +71,29 @@ def finite_guard(state: ClusterState) -> ClusterState:
     )
 
 
+def _decide_scored(
+    state: ClusterState,
+    graph: CommGraph,
+    policy_id: int,
+    threshold: float,
+    gumbel: torch.Tensor | None,
+) -> tuple[ClusterState, tuple[torch.Tensor, ...], tuple[torch.Tensor, ...]]:
+    """The decision shared by :func:`decide` and :func:`decide_explain`:
+    the guarded state, ``(most_hazard, hazard_mask, victim, service,
+    target)`` and the policy's ``(k1, k2, cand)`` rows it was taken from."""
+    state = finite_guard(state)
+    most, hazard_mask = detect_hazard(state, threshold)
+    victim = torch.where(most >= 0, pick_victim(state, most), -1)
+    group = deployment_group(state, victim)
+    svc = take(state.pod_service, torch.clamp(victim, 0, state.num_pods - 1))
+    removed = state.replace(
+        pod_node=torch.where(group, UNASSIGNED, state.pod_node).to(state.pod_node.dtype)
+    )
+    k1, k2, cand = policy_scores(policy_id, removed, graph, svc, hazard_mask, gumbel)
+    target = torch.where(victim >= 0, lex_argmax([k1, k2], cand), -1)
+    return state, (most, hazard_mask, victim, svc, target), (k1, k2, cand)
+
+
 def decide(
     state: ClusterState,
     graph: CommGraph,
@@ -78,17 +109,54 @@ def decide(
     snapshot with the victim Deployment's pods removed (the foreground
     cascade delete completes first, reference delete_replaced_pod.py:173-177).
     ``gumbel`` is the ``random`` policy's noise row."""
-    state = finite_guard(state)
-    most, hazard_mask = detect_hazard(state, threshold)
-    victim = torch.where(most >= 0, pick_victim(state, most), -1)
-    group = deployment_group(state, victim)
-    svc = take(state.pod_service, torch.clamp(victim, 0, state.num_pods - 1))
-    removed = state.replace(
-        pod_node=torch.where(group, UNASSIGNED, state.pod_node).to(state.pod_node.dtype)
-    )
-    target = choose_node(policy_id, removed, graph, svc, hazard_mask, gumbel)
-    target = torch.where(victim >= 0, target, -1)
-    return most, hazard_mask, victim, svc, target
+    return _decide_scored(state, graph, policy_id, threshold, gumbel)[1]
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values of ``x`` and their indices, descending,
+    ties to the lower index (``lax.top_k``'s order; ``torch.topk`` promises
+    none among ties, so this is a stable sort)."""
+    values, idx = torch.sort(x, descending=True, stable=True)
+    return values[:k], idx[:k]
+
+
+def decide_explain(
+    state: ClusterState,
+    graph: CommGraph,
+    policy_id: int,
+    threshold: float,
+    gumbel: torch.Tensor | None = None,
+    *,
+    top_k: int = 3,
+) -> tuple[torch.Tensor, ...]:
+    """:func:`decide` plus a compact explanation bundle, from the same
+    ``policy_scores`` rows the decision was taken from. The extra output is
+    one f32[6, k] tensor (k = min(top_k, N)) that rides the round's single
+    host read:
+
+    - rows 0-1: top-k hazard — node index, CPU percent (-inf where fewer
+      valid nodes exist);
+    - rows 2-4: top-k candidate targets by primary score — node index,
+      primary score ``k1``, tie-break ``k2``;
+    - row 5: 1.0 where the slot is a real candidate.
+
+    The chosen node is always among the recorded candidates (the last slot
+    is overwritten when top-k by ``k1`` alone misses a tie-break winner),
+    so the argmax over the recorded rows reproduces the decision."""
+    state, decision, (k1, k2, cand) = _decide_scored(state, graph, policy_id, threshold, gumbel)
+    target = decision[-1]
+    k = min(int(top_k), state.num_nodes)
+    neg_inf = float("-inf")
+    pct = node_cpu_pct_rounded(state).float()
+    hz_v, hz_i = _top_k(torch.where(state.node_valid, pct, neg_inf), k)
+    _, c_i = _top_k(torch.where(cand, k1, neg_inf), k)
+    # top-k by k1 alone can miss the lexicographic winner when more than k
+    # nodes tie on the primary key: the chosen node takes the last slot
+    missing = (target >= 0) & ~(c_i == target).any()
+    c_i = torch.cat([c_i[:-1], torch.where(missing, target, c_i[-1]).reshape(1)])
+    bundle = torch.stack([hz_i.float(), hz_v, c_i.float(), k1[c_i].float(), k2[c_i].float(),
+                          cand[c_i].float()])
+    return (*decision, bundle)
 
 
 def round_step(

@@ -3,7 +3,8 @@
 
 :func:`pull` is the one way the control loop reads the device: it copies a
 tensor to the host and counts the transfer as
-``device_transfers_total{site=...}``. :func:`timed_call` and
+``device_transfers_total{site=...}``; :func:`pull_arrays` packs several
+tensors of mixed dtypes into one such transfer. :func:`timed_call` and
 :func:`count_reconcile` instrument the backends. The JAX package's
 ``instrument_jit`` counts compilations; the port compiles nothing, so it
 has no counterpart (a counter of CUDA-graph captures comes with the
@@ -38,6 +39,24 @@ def pull(x: torch.Tensor, site: str = "unnamed",
         "bytes pulled device->host through telemetry.pull",
         labelnames=("site",),
     ).labels(site=site).inc(float(out.nbytes))
+    return out
+
+
+def pull_arrays(parts: dict[str, torch.Tensor], site: str,
+                registry: MetricsRegistry | None = None) -> dict[str, np.ndarray]:
+    """Several tensors of any dtypes and shapes read back as ONE counted
+    transfer (:func:`pull`): their bytes are packed into one buffer on the
+    device and split on the host, so every value comes back exactly, in its
+    own dtype and shape."""
+    flat = torch.cat([p.detach().contiguous().reshape(-1).view(torch.uint8)
+                      for p in parts.values()])
+    host = pull(flat, site=site, registry=registry)
+    out, off = {}, 0
+    for name, p in parts.items():
+        n = p.numel() * p.element_size()
+        dtype = torch.empty((), dtype=p.dtype).numpy().dtype
+        out[name] = host[off:off + n].copy().view(dtype).reshape(tuple(p.shape))
+        off += n
     return out
 
 

@@ -16,10 +16,11 @@ communication cost is exactly equal (integer pair counts); the load spread
 is within rel 1e-6 (an f32 standard deviation whose reductions may run in
 another order); global rounds' objectives are exactly equal.
 
-The JAX runs turn its reconcile and admission planes off wherever the
-port's run is compared with them under faults (the port has neither yet);
-``test_jax_planes_left_out_do_not_move_decisions`` shows that they change
-no decision on a clean simulator.
+Under faults the JAX runs turn the reconcile and admission planes off
+while the port runs at its default (both on); on these faults the planes
+change no decision (``test_jax_planes_left_out_do_not_move_decisions``),
+and ``test_default_config_matches_jax_default`` holds the defaults to each
+other.
 """
 
 import json
@@ -131,16 +132,55 @@ def test_jax_planes_left_out_do_not_move_decisions():
 
 
 def test_controller_host_reads_per_round():
-    """One batched fence per decision and one round-end transfer per
-    executed round; nothing else is read back."""
+    """One batched fence per decision, one round-end transfer per executed
+    round, and — with admission on, the default — one admission read per
+    monitor (the startup probe and each round's post-move snapshot); with
+    admission off, none. Nothing else is read back."""
     reg = TRegistry()
     _, _, _, t = greedy_pair("communication", 3, registry=reg)
     decisions = sum(r.decisions for r in t.rounds)
     assert reg.value("device_transfers_total", site="fence") == decisions
     assert reg.value("device_transfers_total", site="round_end") == len(t.rounds)
+    assert reg.value("device_transfers_total", site="admission") == len(t.rounds) + 1
+    assert reg.value("device_transfers_total", site="reconcile") == 0
     assert reg.value("rounds_total", algorithm="communication") == len(t.rounds)
     assert reg.value("services_moved_total", algorithm="communication") == sum(
         len(r.services_moved) for r in t.rounds)
+    tb = t_make("mubench", 1, device="cpu")
+    tb.inject_imbalance("worker1")
+    off = TRegistry()
+    t_run(tb, TConfig(algorithm="communication", max_rounds=8, sleep_after_action_s=0.0,
+                      seed=1, moves_per_round=3, reconcile_admission=False,
+                      reconcile_enabled=False), device="cpu", registry=off)
+    assert off.value("device_transfers_total", site="admission") == 0
+    for site in ("fence", "round_end"):
+        assert off.value("device_transfers_total", site=site) == reg.value(
+            "device_transfers_total", site=site)
+
+
+@pytest.mark.parametrize("algorithm", ["communication", "global"])
+def test_default_config_matches_jax_default(algorithm):
+    """The port's default config is the JAX package's default on the sim
+    loop (admission and the intent ledger on, explanations on with a
+    logger): the same records, reconcile blocks included."""
+    seed = 2
+    jb, tb = j_make("mubench", seed), t_make("mubench", seed, device="cpu")
+    jb.inject_imbalance("worker1")
+    tb.inject_imbalance("worker1")
+    kw = dict(algorithm=algorithm, max_rounds=3, sleep_after_action_s=0.0, seed=seed)
+    assert (TConfig().reconcile_admission, TConfig().reconcile_enabled,
+            TConfig().repair_budget_per_round, TConfig().max_quarantine_frac,
+            TConfig().explain, TConfig().explain_top_k) == (
+        JConfig().reconcile.admission, JConfig().reconcile.enabled,
+        JConfig().reconcile.repair_budget_per_round, JConfig().reconcile.max_quarantine_frac,
+        JConfig().obs.explain, JConfig().obs.explain_top_k)
+    j = j_run(jb, JConfig(**kw), registry=JRegistry())
+    seam = ({"solver_plans": _global_plans(tb, seed, 9, "dense")[0]} if algorithm == "global"
+            else {"gumbel_rows": jax_greedy_gumbel(seed, 3)})
+    t = t_run(tb, TConfig(**kw), device="cpu", registry=TRegistry(), **seam)
+    assert_same_records(t, j)
+    assert [r.reconcile for r in t.rounds] == [r.reconcile for r in j.rounds]
+    assert tb.events == jb.events
 
 
 def _global_plans(backend, seed: int, sweeps: int, solver_backend: str):
@@ -369,8 +409,6 @@ def test_cli_reschedule_global(capsys, solver_backend):
 
 REFUSED = [
     (dict(algorithm="proactive"), 3),
-    (dict(placement_unit="pod", algorithm="global"), 1),
-    (dict(global_moves_cap=2, algorithm="global"), 1),
     (dict(solver_restarts=2), 5),
     (dict(solver_tp=2), 5),
     (dict(backend="k8s"), 4),
@@ -381,8 +419,6 @@ REFUSED = [
     (dict(serving=True), 3),
     (dict(pipeline=True), 3),
     (dict(scan_block=8), 3),
-    (dict(reconcile=True), 1),
-    (dict(explain=True), 1),
 ]
 
 

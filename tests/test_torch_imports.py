@@ -96,6 +96,7 @@ def _entry_points():
     from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
     from kubernetes_rescheduling_tpu_torch.core.workmodel import ServiceSpec, Workmodel
     from kubernetes_rescheduling_tpu_torch.solver import run_rounds
+    from kubernetes_rescheduling_tpu_torch.utils.checkpoint import load_state
 
     def cpu_mubench():
         return topology.mubench_scenario(device="cpu")
@@ -126,6 +127,7 @@ def _entry_points():
         "sparsegraph.from_workmodel": lambda: sparsegraph.from_workmodel(
             Workmodel(services=(ServiceSpec("a", callees=("b",)), ServiceSpec("b")))
         ),
+        "load_state": lambda: load_state("round_000001"),
         "sparse_graph_from_arrays": lambda: convert.sparse_graph_from_arrays(
             {k: [] for k in convert.SPARSE_ARRAYS + convert.SPARSE_STATIC}
         ),
