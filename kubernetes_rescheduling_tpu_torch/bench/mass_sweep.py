@@ -151,7 +151,8 @@ def hub_operands():
     assign = torch.where(svc_valid, torch.clamp(cur_s, 0, N - 1), 0).to(torch.int32)
     hubs = []
     for blocks_g in lay.hub_groups:
-        u_g, rvu_g = ss.hub_slab(sgraph, blocks_g, rv_s, lay.spx)
+        u_g = ss.hub_slab_ids(sgraph, blocks_g)
+        rvu_g = ss.hub_rvu(sgraph, u_g, rv_s, lay.spx)
         tgt = assign[torch.clamp(u_g.long(), 0, lay.spx - 1)]
         hubs.append((tgt, rvu_g, sm.hub_tile_arrays(sgraph, blocks_g, "cuda"), len(blocks_g)))
     spans = [(sgraph.block_toff[b] * sgraph.bu,

@@ -1,6 +1,7 @@
 """Command line of the port: ``reschedule`` (the control loop on the
-simulator) and ``solve`` (one global rescheduling round), printing the JSON
-keys of the JAX package's commands for what the port computes.
+simulator), ``solve`` (one global rescheduling round) and ``trace`` (online
+rescheduling over a streaming trace), printing the JSON keys of the JAX
+package's commands for what the port computes.
 
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm car --imbalance
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm global --scenario large
@@ -9,16 +10,24 @@ keys of the JAX package's commands for what the port computes.
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --sparse
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --placement-unit pod
+    python -m kubernetes_rescheduling_tpu_torch solve --scenario large --latency-budget 100
+    python -m kubernetes_rescheduling_tpu_torch trace --steps 12
 
-Both run on the card unless ``--device cpu`` is given. ``--sparse`` (and
+All run on the card unless ``--device cpu`` is given. ``--sparse`` (and
 ``reschedule --solver-backend sparse``) solves on the block-local sparse
 form of the scenario's graph; ``--placement-unit pod`` re-places every pod
-on its own, on the pod-level sparse graph.
+on its own, on the pod-level sparse graph; ``--latency-budget`` picks the
+sweep count that fills that many ms of device time a round
+(``solver/autotune.py``). Best-of-N restarts and node sharding
+(``--restarts``, ``--tp`` above 1) and the telemetry files
+(``--metrics-out``, ``--trace-out``) are refused, naming the ROADMAP item
+that brings them.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -26,15 +35,25 @@ import torch
 
 from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller
 from kubernetes_rescheduling_tpu_torch.bench.harness import SCENARIOS, make_backend
+from kubernetes_rescheduling_tpu_torch.bench.trace import (
+    bookinfo_workmodel,
+    canary_trace,
+    load_trace,
+    replay,
+)
 from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
-from kubernetes_rescheduling_tpu_torch.objectives import communication_cost, load_std
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
+from kubernetes_rescheduling_tpu_torch.core.topology import state_from_workmodel
+from kubernetes_rescheduling_tpu_torch.core.workmodel import Workmodel
+from kubernetes_rescheduling_tpu_torch.objectives import communication_cost, load_std
 from kubernetes_rescheduling_tpu_torch.solver import (
     GlobalSolverConfig,
     global_assign,
     global_assign_pods,
     global_assign_sparse,
+    pod_level_graph,
 )
+from kubernetes_rescheduling_tpu_torch.solver.autotune import tune_sweeps
 
 
 ALGO_ALIASES = {"car": "communication"}
@@ -115,9 +134,59 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--placement-unit", choices=("service", "pod"), default="service",
                    help="pod: re-place every pod independently on the pod-level graph")
     s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--restarts", type=int, default=1,
+                   help="best-of-N independent solves (only 1 is ported)")
+    s.add_argument("--tp", type=int, default=1,
+                   help="node-axis devices per solve (only 1 is ported)")
+    s.add_argument("--latency-budget", type=float, default=None,
+                   help="auto-tune the sweep count to fill this many ms of "
+                        "device time per round (overrides --sweeps)")
     s.add_argument("--device", default="cuda",
                    help="torch device to solve on (default: cuda)")
+
+    t = sub.add_parser(
+        "trace",
+        help="streaming trace replay: online rescheduling as edge weights "
+             "shift (external workmodel + trace stream, or the builtin "
+             "Bookinfo canary rollout demo)",
+    )
+    t.add_argument("--workmodel", default=None,
+                   help="external µBench workmodel JSON to replay over "
+                        "(default: builtin Bookinfo)")
+    t.add_argument("--trace", default=None,
+                   help="external trace stream (JSONL, one step per line: "
+                        '{"t": 1.0, "weights": [["a", "b", 0.9], ...]}); '
+                        "default: the builtin canary schedule")
+    t.add_argument("--steps", type=int, default=12,
+                   help="builtin canary steps (ignored with --trace)")
+    t.add_argument("--replicas", type=int, default=1,
+                   help="replicas per service (builtin workmodel only)")
+    t.add_argument("--nodes", type=int, default=3)
+    t.add_argument("--sweeps", type=int, default=4)
+    t.add_argument("--balance-weight", type=float, default=0.5)
+    t.add_argument("--capacity-frac", type=float, default=None,
+                   help="enable capacity enforcement with this packing "
+                        "budget (fraction of node capacity)")
+    t.add_argument("--restarts", type=int, default=1,
+                   help="best-of-N solves per trace step (only 1 is ported)")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--metrics-out", default=None, metavar="PATH",
+                   help="the metrics registry as JSONL (not ported)")
+    t.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="host-side spans as Chrome trace JSON (not ported)")
+    t.add_argument("--device", default="cuda",
+                   help="torch device to replay on (default: cuda)")
     return p
+
+
+def _refuse_unported(command: str, args) -> None:
+    """Exit naming the ROADMAP item of a flag the port does not carry yet."""
+    if getattr(args, "restarts", 1) > 1 or getattr(args, "tp", 1) > 1:
+        raise SystemExit(f"{command}: --restarts and --tp above 1 need parallel/sharded.py, "
+                         "not ported yet (ROADMAP Queue 1 item 5)")
+    if getattr(args, "metrics_out", None) or getattr(args, "trace_out", None):
+        raise SystemExit(f"{command}: --metrics-out and --trace-out need the telemetry "
+                         "plane (telemetry/spans.py), not ported yet (ROADMAP Queue 1 item 4)")
 
 
 def cmd_reschedule(args) -> dict:
@@ -159,7 +228,47 @@ def cmd_reschedule(args) -> dict:
     }
 
 
+def cmd_trace(args) -> dict:
+    _refuse_unported("trace", args)
+    wm = (
+        Workmodel.from_file(args.workmodel)
+        if args.workmodel
+        else bookinfo_workmodel(replicas=args.replicas)
+    )
+    steps = load_trace(args.trace) if args.trace else canary_trace(steps=args.steps)
+    state = state_from_workmodel(
+        wm,
+        node_names=[f"worker{i}" for i in range(args.nodes)],
+        node_cpu_cap_m=20_000.0,
+        seed=args.seed,
+        device=args.device,
+    )
+    _, records = replay(
+        state,
+        wm.comm_graph(device=args.device),
+        steps,
+        generator=torch.Generator().manual_seed(args.seed),
+        config=GlobalSolverConfig(
+            sweeps=args.sweeps,
+            balance_weight=args.balance_weight,
+            enforce_capacity=args.capacity_frac is not None,
+            capacity_frac=args.capacity_frac if args.capacity_frac is not None else 1.0,
+        ),
+        restarts=args.restarts,
+    )
+    return {
+        "workmodel": wm.source,
+        "trace": args.trace or f"builtin:canary[{args.steps}]",
+        "balance_weight": args.balance_weight,
+        "restarts": args.restarts,
+        "steps": [dataclasses.asdict(r) for r in records],
+        "total_moves": sum(r.moves for r in records),
+        "final_cost": records[-1].cost_after_solve if records else None,
+    }
+
+
 def cmd_solve(args) -> dict:
+    _refuse_unported("solve", args)
     backend = make_backend(args.scenario, args.seed, device=args.device,
                            workmodel_path=args.workmodel)
     state = backend.monitor()
@@ -170,13 +279,21 @@ def cmd_solve(args) -> dict:
         capacity_frac=args.capacity_frac,
         move_cost=args.move_cost,
     )
-    generator = torch.Generator().manual_seed(args.seed)
+    # the solver and the graph it takes as an argument, as the JAX package
+    # tunes and runs them
     if args.placement_unit == "pod":
-        new_state, info = global_assign_pods(state, graph, generator, cfg)
+        solve_graph = pod_level_graph(state, graph)
+
+        def solver(st, g, generator, c):
+            return global_assign_pods(st, None, generator, c, pod_graph=g)
     elif args.sparse:
-        new_state, info = global_assign_sparse(state, from_comm_graph(graph), generator, cfg)
+        solve_graph, solver = from_comm_graph(graph), global_assign_sparse
     else:
-        new_state, info = global_assign(state, graph, generator, cfg)
+        solve_graph, solver = graph, global_assign
+    tune_info = None
+    if args.latency_budget is not None:
+        cfg, tune_info = tune_sweeps(state, solve_graph, cfg, args.latency_budget, solver=solver)
+    new_state, info = solver(state, solve_graph, torch.Generator().manual_seed(args.seed), cfg)
     out = {
         "scenario": args.scenario,
         "restarts": 1,
@@ -194,12 +311,16 @@ def cmd_solve(args) -> dict:
         out["sparse"] = True
     if args.placement_unit != "service":
         out["placement_unit"] = args.placement_unit
+    if tune_info is not None:
+        out["autotune"] = tune_info
+        out["sweeps"] = tune_info["sweeps"]
     return out
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    out = {"reschedule": cmd_reschedule, "solve": cmd_solve}[args.command](args)
+    out = {"reschedule": cmd_reschedule, "solve": cmd_solve,
+           "trace": cmd_trace}[args.command](args)
     json.dump(out, sys.stdout, indent=2)
     print()
     return 0

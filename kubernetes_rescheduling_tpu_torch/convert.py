@@ -1,7 +1,8 @@
 """Carry state across from the JAX package: its ``ClusterState``,
-``CommGraph``, ``SparseCommGraph`` and ``GlobalSolverConfig`` fields,
-handed over as numpy arrays and plain values, become the port's — the
-scheduler's equivalent of carrying weights across. Nothing here imports
+``CommGraph``, ``SparseCommGraph``, ``TraceLocator`` and
+``GlobalSolverConfig`` fields, handed over as numpy arrays and plain
+values, become the port's — the scheduler's equivalent of carrying
+weights across. Nothing here imports
 the JAX package; a caller that holds JAX objects turns them into arrays
 first (``np.asarray`` of each field).
 """
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from kubernetes_rescheduling_tpu_torch._device import DEFAULT_DEVICE, resolve_device
-from kubernetes_rescheduling_tpu_torch.core.sparsegraph import SparseCommGraph
+from kubernetes_rescheduling_tpu_torch.core.sparsegraph import SparseCommGraph, TraceLocator
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import GlobalSolverConfig
 
@@ -29,6 +30,7 @@ _DTYPES = {
     "node_lex_rank": torch.int32, "pod_node": torch.int32, "pod_service": torch.int32,
     "u_ids": torch.int32, "edges_src": torch.int32, "edges_dst": torch.int32,
     "perm": torch.int32, "inv": torch.int32,
+    "coo": torch.int32, "w_rows": torch.int32, "w_cols": torch.int32,
 }
 
 
@@ -95,6 +97,18 @@ def sparse_graph_from_arrays(
         dense_adj=None if dense is None else _tensor("dense_adj", dense, dev),
         names=tuple(d.get("names", ())),
         **static,
+    )
+
+
+def trace_locator_from_arrays(
+    d: Mapping[str, Any], device: str | torch.device | None = DEFAULT_DEVICE
+) -> TraceLocator:
+    """A :class:`TraceLocator` from the JAX locator's fields: ``coo``,
+    ``w_rows``, ``w_cols``, ``base_w`` (arrays) and ``canonical``."""
+    dev = resolve_device(device)
+    return TraceLocator(
+        **{k: _tensor(k, d[k], dev) for k in ("coo", "w_rows", "w_cols", "base_w")},
+        canonical=bool(d.get("canonical", False)),
     )
 
 

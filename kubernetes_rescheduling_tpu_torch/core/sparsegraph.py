@@ -19,7 +19,9 @@ not over all SP services (``ops/sparse_mass.py``). Regular blocks share a
 uniform width ``u_reg = reg_tiles·bu``; wider ones become *hub blocks*
 with ragged widths. A trailing all-zero strip backs the dummy blocks the
 solver pads chunks with. The exact objective is a cut sum over the
-symmetric COO edge list stored beside it.
+symmetric COO edge list stored beside it. A streaming trace updates the
+weights in place of their positions (:class:`TraceLocator`,
+:func:`with_edge_weights`): the structure stays, the weights are data.
 
 :func:`from_edges` is host numpy, operation for operation the JAX
 package's, so one edge list builds identical arrays in both packages; only
@@ -283,6 +285,116 @@ def from_workmodel(
         np.asarray(src), np.asarray(dst), np.ones(len(src)), len(wm.services),
         names=wm.names, bu=bu, reg_tiles=reg_tiles, device=device,
     )
+
+
+@dataclass(frozen=True)
+class TraceLocator:
+    """Where every undirected edge's weight lives in a
+    :class:`SparseCommGraph` — the bridge from a streaming trace to the
+    block-local form (*static structure, dynamic weights*). Each undirected
+    edge sits at two COO slots and two ``w_local`` cells (row i / col j and
+    row j / col i), found once on the host, so a step's weight update is
+    one small scatter, not a rebuild.
+
+    ``coo``, ``w_rows``, ``w_cols``: i32[2E] per slot, forward slots then
+    reverse; ``base_w``: f32[E] the build-time weight per undirected edge;
+    ``canonical``: the graph's COO list is in this [forward..., reverse...]
+    order (:func:`reorder_for_trace`), so a step writes ``edges_w`` whole
+    instead of scattering it."""
+
+    coo: torch.Tensor
+    w_rows: torch.Tensor
+    w_cols: torch.Tensor
+    base_w: torch.Tensor
+    canonical: bool = False
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.base_w.shape[0])
+
+    def replace(self, **changes) -> "TraceLocator":
+        return dataclasses.replace(self, **changes)
+
+
+def trace_locator(sgraph: SparseCommGraph) -> TraceLocator:
+    """The graph's :class:`TraceLocator`, found on the host (numpy,
+    operation for operation the JAX package's), on the graph's device."""
+    src = sgraph.edges_src.cpu().numpy().astype(np.int64)
+    dst = sgraph.edges_dst.cpu().numpy().astype(np.int64)
+    w = sgraph.edges_w.cpu().numpy()
+    E2 = len(src)
+    SP = sgraph.sp
+    bu = sgraph.bu
+
+    # w_local cell per directed COO entry: the row's block strip, column =
+    # position of dst in the block's ascending distinct-neighbor list
+    rows = (src % BLOCK_R).astype(np.int64)
+    cols = np.empty(E2, dtype=np.int64)
+    u_all = sgraph.u_ids.cpu().numpy()
+    blk = src // BLOCK_R
+    for b in np.unique(blk):
+        m = blk == b
+        lo = sgraph.block_toff[b] * bu
+        width = sgraph.block_ntiles[b] * bu
+        u = u_all[lo:lo + width]
+        nu = int(np.searchsorted(u, SP))  # distinct count (SP-padded tail)
+        cols[m] = lo + np.searchsorted(u[:nu], dst[m])
+
+    # pair the two directed slots of each undirected edge
+    key = np.minimum(src, dst) * SP + np.maximum(src, dst)
+    order = np.argsort(key, kind="stable")
+    fwd, rev = order[0::2], order[1::2]
+    if not np.array_equal(key[fwd], key[rev]):
+        raise AssertionError("COO list does not carry each undirected edge exactly twice")
+    both = np.concatenate([fwd, rev])
+    dev = sgraph.device
+    return TraceLocator(
+        coo=torch.as_tensor(both.astype(np.int32), device=dev),
+        w_rows=torch.as_tensor(rows[both].astype(np.int32), device=dev),
+        w_cols=torch.as_tensor(cols[both].astype(np.int32), device=dev),
+        base_w=torch.as_tensor(w[fwd].astype(np.float32), device=dev),
+    )
+
+
+def reorder_for_trace(sgraph: SparseCommGraph) -> tuple[SparseCommGraph, TraceLocator]:
+    """Permute the graph's COO list into the locator's canonical
+    [forward..., reverse...] order (every consumer of the edge list is
+    order-independent) and return it with its canonical locator: a step's
+    ``edges_w`` update then needs no scatter."""
+    loc = trace_locator(sgraph)
+    coo = loc.coo.long()
+    sg2 = sgraph.replace(
+        edges_src=sgraph.edges_src[coo],
+        edges_dst=sgraph.edges_dst[coo],
+        edges_w=sgraph.edges_w[coo],
+    )
+    E2 = coo.shape[0]
+    return sg2, loc.replace(
+        coo=torch.arange(E2, dtype=torch.int32, device=sgraph.device), canonical=True
+    )
+
+
+def with_edge_weights(
+    sgraph: SparseCommGraph, loc: TraceLocator, new_w: torch.Tensor
+) -> SparseCommGraph:
+    """A new graph with per-undirected-edge weights ``new_w`` (f32[E], in
+    the locator's canonical edge order): a 2E-element scatter into the
+    block-local strips, and either the weights written whole (canonical
+    locator) or a 2E scatter into the COO list. Reads nothing back, so it
+    runs inside a captured step."""
+    if sgraph.dense_adj is not None:
+        # single-block graphs carry a dense twin for the solver's
+        # delegation path; updating only the sparse storage would leave
+        # that twin stale and the solver silently optimizing old weights
+        raise ValueError(
+            "with_edge_weights does not support single-block graphs "
+            "(their dense_adj delegation twin would go stale) — use the "
+            "dense trace path (bench.trace.replay_on_device) at this size"
+        )
+    w2 = torch.cat([new_w, new_w])
+    w_local = sgraph.w_local.index_put((loc.w_rows.long(), loc.w_cols.long()), w2)
+    edges_w = w2 if loc.canonical else sgraph.edges_w.index_put((loc.coo.long(),), w2)
+    return sgraph.replace(w_local=w_local, edges_w=edges_w)
 
 
 def rv_weighted_edge_w(sgraph: SparseCommGraph, rv_sorted: torch.Tensor) -> torch.Tensor:

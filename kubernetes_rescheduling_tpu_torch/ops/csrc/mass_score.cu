@@ -25,7 +25,8 @@
 //
 // Seed law: the noise seed is seed + i for block slot i of the chunk (the
 // standalone score kernel tiled at 256 rows gives the same), and the
-// mixer's row index is the row within the 256-row block.
+// mixer's row index is the row within the 256-row block. The seed and the
+// temperature are read from device memory, as in score.cu.
 //
 // Bound on the card: operations, those of the score body (see
 // score_core.cuh) over C x N pairs; it reads the chunk's W strips once
@@ -49,7 +50,8 @@ mass_score_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
                   const uint8_t* __restrict__ valid, const float* __restrict__ cpu_load,
                   const float* __restrict__ mem_load, const float* __restrict__ cap,
                   const float* __restrict__ mem_cap, const uint8_t* __restrict__ node_valid,
-                  float lam, float ow, float temp, int seed, int N, int enforce_capacity,
+                  float lam, float ow, const float* __restrict__ temp_p,
+                  const int* __restrict__ seed_p, int N, int enforce_capacity,
                   int use_move_pen, int* __restrict__ prop_out, float* __restrict__ gain_out,
                   int* __restrict__ wants_out, float* __restrict__ slack_cpu_out,
                   float* __restrict__ slack_mem_out) {
@@ -78,8 +80,9 @@ mass_score_kernel(const T* __restrict__ W, long long ld, const int* __restrict__
     krt_load_group<kStripDepth>(strip, 0, lane, a);
     krt_load_group<kStripDepth>(strip, kStripDepth * 32, lane, b);
   }
-  krt_score_stage(sh, g0, R, cur, home, pen, c_cpu, c_mem, static_cast<uint32_t>(seed),
+  krt_score_stage(sh, g0, R, cur, home, pen, c_cpu, c_mem, static_cast<uint32_t>(*seed_p),
                   kBlockR);
+  const float temp = NOISE ? *temp_p : 0.0f;
   float rv[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) rv[r] = rv_row[g0 + r];
@@ -108,9 +111,9 @@ cudaError_t launch(int grid, int threads, int smem, cudaStream_t s, const void* 
                    const int* cur, const int* home, const float* pen, const float* c_cpu,
                    const float* c_mem, const uint8_t* valid, const float* cpu_load,
                    const float* mem_load, const float* cap, const float* mem_cap,
-                   const uint8_t* node_valid, float lam, float ow, float temp, int seed, int N,
-                   int enforce_capacity, int use_move_pen, int* prop, float* gain, int* wants,
-                   float* slack_cpu, float* slack_mem) {
+                   const uint8_t* node_valid, float lam, float ow, const float* temp,
+                   const int* seed, int N, int enforce_capacity, int use_move_pen, int* prop,
+                   float* gain, int* wants, float* slack_cpu, float* slack_mem) {
   static size_t granted = 48 * 1024;
   cudaError_t err = krt_allow_smem(mass_score_kernel<T, R, NOISE>, smem, &granted);
   if (err != cudaSuccess) return err;
@@ -133,17 +136,18 @@ LaunchFn<T> pick(int rows, int use_noise) {
 }  // namespace
 
 // W, tgt_c, rvu_c, blocks, toff as krt_sparse_mass_launch; rv_row: f32[C]
-// with C = n_slots * 256; the score operands as krt_score_launch. threads,
-// rows, ldm and smem: the wrapper's launch geometry (`mass_score_geometry`).
+// with C = n_slots * 256; the score operands (temp and seed in device
+// memory) as krt_score_launch. threads, rows, ldm and smem: the wrapper's
+// launch geometry (`mass_score_geometry`).
 KRT_EXPORT int krt_mass_score_launch(
     int device, const void* W, int w_is_bf16, long long ld, const int* tgt_c,
     const float* rvu_c, const int* blocks, const int* toff, const float* rv_row, int n_slots,
     int bu, int reg_tiles, int threads, int rows, int ldm, int smem, const int* cur,
     const int* home, const float* pen, const float* c_cpu, const float* c_mem,
     const uint8_t* valid, const float* cpu_load, const float* mem_load, const float* cap,
-    const float* mem_cap, const uint8_t* node_valid, float lam, float ow, float temp, int seed,
-    int N, int enforce_capacity, int use_noise, int use_move_pen, int* prop, float* gain,
-    int* wants, float* slack_cpu, float* slack_mem, void* stream) {
+    const float* mem_cap, const uint8_t* node_valid, float lam, float ow, const float* temp,
+    const int* seed, int N, int enforce_capacity, int use_noise, int use_move_pen, int* prop,
+    float* gain, int* wants, float* slack_cpu, float* slack_mem, void* stream) {
   const int list_bytes = 8 * (w_is_bf16 ? krt_list_len<__nv_bfloat16>() : krt_list_len<float>());
   if (N < 1 || n_slots < 1 || (rows != 1 && rows != 2) || threads < 32 * rows ||
       threads > kScoreMaxThreads || threads % 32 || ldm < N || ldm % 4 ||

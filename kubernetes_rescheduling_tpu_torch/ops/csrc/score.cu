@@ -11,7 +11,9 @@
 // memory.
 //
 // Seed law: tile t = row / block_c uses seed + t, and the mixer's row
-// index is the row within the tile.
+// index is the row within the tile. The seed and the temperature are read
+// from device memory, so a captured solve replays with the values its
+// buffers hold at each replay.
 
 #include "score_core.cuh"
 
@@ -25,14 +27,16 @@ score_kernel(const float* __restrict__ M, const int* __restrict__ cur,
              const uint8_t* __restrict__ valid, const float* __restrict__ cpu_load,
              const float* __restrict__ mem_load, const float* __restrict__ cap,
              const float* __restrict__ mem_cap, const uint8_t* __restrict__ node_valid,
-             float lam, float ow, float temp, int seed, int C, int N, int block_c,
-             int enforce_capacity, int use_move_pen, int vec_ok, int* __restrict__ prop_out,
+             float lam, float ow, const float* __restrict__ temp_p,
+             const int* __restrict__ seed_p, int C, int N, int block_c, int enforce_capacity,
+             int use_move_pen, int vec_ok, int* __restrict__ prop_out,
              float* __restrict__ gain_out, int* __restrict__ wants_out,
              float* __restrict__ slack_cpu_out, float* __restrict__ slack_mem_out) {
   __shared__ KrtScoreShared<R> sh;
   const int g0 = blockIdx.x * R;
   const int nr = min(R, C - g0);
-  krt_score_stage(sh, g0, nr, cur, home, pen, c_cpu, c_mem, static_cast<uint32_t>(seed),
+  const float temp = NOISE ? *temp_p : 0.0f;
+  krt_score_stage(sh, g0, nr, cur, home, pen, c_cpu, c_mem, static_cast<uint32_t>(*seed_p),
                   block_c);
   __syncthreads();
   krt_score_tile<R, NOISE>(sh, M + static_cast<long long>(g0) * N, N, vec_ok != 0, g0, nr,
@@ -46,7 +50,7 @@ cudaError_t launch(int threads, int blocks, cudaStream_t s, const float* M, cons
                    const int* home, const float* pen, const float* c_cpu, const float* c_mem,
                    const uint8_t* valid, const float* cpu_load, const float* mem_load,
                    const float* cap, const float* mem_cap, const uint8_t* node_valid, float lam,
-                   float ow, float temp, int seed, int C, int N, int block_c,
+                   float ow, const float* temp, const int* seed, int C, int N, int block_c,
                    int enforce_capacity, int use_move_pen, int vec_ok, int* prop, float* gain,
                    int* wants, float* slack_cpu, float* slack_mem) {
   score_kernel<R, NOISE><<<blocks, threads, 0, s>>>(
@@ -60,6 +64,7 @@ cudaError_t launch(int threads, int blocks, cudaStream_t s, const float* M, cons
 
 // Row vectors [C]: cur, home (i32), pen, c_cpu, c_mem (f32), valid (u8).
 // Node vectors [N]: cpu_load, mem_load, cap, mem_cap (f32), node_valid (u8).
+// temp (f32) and seed (i32): one value each, in device memory.
 // Outputs [C]: prop (i32), gain (f32), wants (i32), slack_cpu, slack_mem (f32).
 // threads, rows, blocks: the wrapper's launch geometry (`score_geometry`);
 // vec_ok: M is 16-byte aligned and N a multiple of 4.
@@ -67,8 +72,9 @@ KRT_EXPORT int krt_score_launch(int device, const float* M, const int* cur, cons
                                 const float* pen, const float* c_cpu, const float* c_mem,
                                 const uint8_t* valid, const float* cpu_load,
                                 const float* mem_load, const float* cap, const float* mem_cap,
-                                const uint8_t* node_valid, float lam, float ow, float temp,
-                                int seed, int C, int N, int block_c, int enforce_capacity,
+                                const uint8_t* node_valid, float lam, float ow,
+                                const float* temp, const int* seed, int C, int N, int block_c,
+                                int enforce_capacity,
                                 int use_noise, int use_move_pen, int threads, int rows,
                                 int blocks, int vec_ok, int* prop, float* gain, int* wants,
                                 float* slack_cpu, float* slack_mem, void* stream) {

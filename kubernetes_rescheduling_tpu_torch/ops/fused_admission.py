@@ -32,7 +32,11 @@ its kernel launches in a plain integer attribute, ``launches``.
 
 Annealing noise is the u32 mixer :func:`_stateless_uniform` on both
 devices (the TPU core PRNG has no counterpart): the kernels and their
-plain versions draw the same bits.
+plain versions draw the same bits. The score kernels read the chunk's
+noise seed and temperature from device memory (one-element tensors, or
+Python numbers the wrapper places there), so a solve captured as a CUDA
+graph replays with the values its seed and temperature tables hold at
+each replay.
 """
 
 from __future__ import annotations
@@ -64,12 +68,14 @@ def _mul32(x, k: int):
 def _stateless_uniform(seed, shape, device=None) -> torch.Tensor:
     """Deterministic per-(seed, row, col) uniform in (0, 1) over ``shape``
     (rows, cols) from the u32 finalizer-style mixer: bit-identical to the
-    JAX package's ``_stateless_uniform`` and to ``csrc/score.cu``. A host
-    integer seed stays on the host (no device copy)."""
+    JAX package's ``_stateless_uniform`` and to ``csrc/score.cu``. The seed
+    is a host integer (it stays on the host) or a one-element integer
+    tensor (read where it lies, never on the host)."""
     rows, cols = shape
     r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
     c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
-    x = _mul32(int(seed) & _M32, 0x9E3779B9)
+    s = seed.reshape(()).long() if isinstance(seed, torch.Tensor) else int(seed)
+    x = _mul32(s & _M32, 0x9E3779B9)
     x = x ^ _mul32(r, 0x85EBCA6B) ^ _mul32(c, 0xC2B2AE35)
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
@@ -104,7 +110,8 @@ def score_core(
 
     Shapes: ``m`` [BC, N]; ``cur/home/pen/c_cpu/c_mem/valid`` [BC];
     ``cpu_load/mem_load/cap/mem_cap/node_valid`` [N]; ``seed`` is the
-    tile's seed (the mixer's row index is the row within the tile).
+    tile's seed (the mixer's row index is the row within the tile);
+    ``temp`` and ``seed`` are numbers or one-element tensors.
     Returns ``(prop i32, gain f32, wants i32, slack_cpu, slack_mem)``,
     each [BC]."""
     bc, n = m.shape
@@ -119,7 +126,8 @@ def score_core(
         score = score - torch.where(col == home[:, None], 0.0, pen[:, None])
     if use_noise:
         u = _stateless_uniform(seed, (bc, n), device=m.device)
-        score = score + temp * (-torch.log(-torch.log(u)))
+        t = temp.reshape(()) if isinstance(temp, torch.Tensor) else temp
+        score = score + t * (-torch.log(-torch.log(u)))
 
     if enforce_capacity:
         proj_mem = mem_load[None, :] + torch.where(is_cur, 0.0, c_mem[:, None])
@@ -293,6 +301,28 @@ def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
+def _device_scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """One value a kernel reads from device memory: a one-element tensor on
+    ``device`` as it is (a view into a solver's seed or temperature table),
+    or a Python number written there by a fill kernel — never a host copy,
+    so a captured graph may hold it (with its value fixed)."""
+    if isinstance(x, torch.Tensor):
+        if x.numel() != 1 or x.device != device:
+            raise ValueError(f"a kernel scalar must be one value on {device}, got "
+                             f"{tuple(x.shape)} on {x.device}")
+        return x.reshape(()).to(dtype).contiguous()
+    if dtype == torch.int32:
+        x = (int(x) + 2**31) % 2**32 - 2**31  # the seed's u32 bits
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def _tile_seed(seed, t: int):
+    """Seed of score tile ``t``: ``seed + t`` (a number or a 0-d tensor)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).long() + t
+    return int(seed) + t
+
+
 def _flag(t: torch.Tensor) -> torch.Tensor:
     """One byte per entry, nonzero where true, as the kernels read flags: a
     bool (or uint8) tensor is passed as it is, with no conversion copy."""
@@ -388,7 +418,7 @@ def score_stage_plain(
             home[t0:t0 + block_c], move_pen[t0:t0 + block_c], c_cpu[t0:t0 + block_c],
             c_mem[t0:t0 + block_c], valid_c[t0:t0 + block_c],
             cpu_load, mem_load, cap, mem_cap, node_valid,
-            lam, overload_weight, temp, int(seed) + t0 // block_c,
+            lam, overload_weight, temp, _tile_seed(seed, t0 // block_c),
             enforce_capacity=enforce_capacity, use_noise=use_noise,
             use_move_pen=use_move_pen,
         )
@@ -426,10 +456,12 @@ def score_stage(
            _flag(valid_c), _f32(cpu_load), _f32(mem_load), _f32(cap), _f32(mem_cap),
            _flag(node_valid))
     vec_ok = N % 4 == 0 and ops[0].data_ptr() % 16 == 0  # 16-byte loads of M's rows
+    temp_t = _device_scalar(temp, torch.float32, M.device)
+    seed_t = _device_scalar(seed, torch.int32, M.device)
     lib = _build.library("score")
     code = lib.krt_score_launch(
         M.device.index or 0, *(_ptr(t) for t in ops),
-        float(lam), float(overload_weight), float(temp), int(seed), C, N, bc,
+        float(lam), float(overload_weight), _ptr(temp_t), _ptr(seed_t), C, N, bc,
         int(enforce_capacity), int(use_noise), int(use_move_pen), threads, rows, blocks,
         int(vec_ok), _ptr(prop), _ptr(gain), _ptr(wants), _ptr(slack_cpu), _ptr(slack_mem),
         _stream(M.device),
@@ -454,8 +486,9 @@ def fused_score_admission(
     mem_cap,      # f32[N]
     node_valid,   # bool[N]
     lam,          # balance weight
-    temp,         # gumbel temperature
-    seed,         # int: noise seed for this chunk (tile t uses seed + t)
+    temp,         # gumbel temperature: a number or a one-element f32 tensor
+    seed,         # noise seed for this chunk (tile t uses seed + t): an int
+                  # or a one-element i32 tensor
     overload_weight=0.0,
     home=None,    # i32[C] round-start node (move-cost anchor; default cur)
     move_pen=None,  # f32[C] disruption cost charged off-home (default 0)

@@ -39,6 +39,7 @@ from kubernetes_rescheduling_tpu_torch.ops import _build
 from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
     _SHARED_BYTES,
     _check_lengths,
+    _device_scalar,
     _f32,
     _flag,
     _i32,
@@ -345,7 +346,7 @@ def sparse_mass_score(
     c_mem,     # f32[C]
     valid_c,   # bool[C]
     cpu_load, mem_load, cap, mem_cap, node_valid,  # [N] tables
-    lam, temp, seed,                               # scalars
+    lam, temp, seed,  # scalars; temp and seed also as one-element tensors
     overload_weight=0.0,
     *,
     num_nodes: int,
@@ -388,12 +389,14 @@ def sparse_mass_score(
     score_ops = (_i32(cur), _i32(home), _f32(move_pen), _f32(c_cpu), _f32(c_mem),
                  _flag(valid_c), _f32(cpu_load), _f32(mem_load), _f32(cap), _f32(mem_cap),
                  _flag(node_valid))
+    temp_t = _device_scalar(temp, torch.float32, dev)
+    seed_t = _device_scalar(seed, torch.int32, dev)
     lib = _build.library("mass_score")
     code = lib.krt_mass_score_launch(
         dev.index or 0, _ptr(w_mm), int(w_mm.dtype == torch.bfloat16), w_mm.shape[1],
         *(_ptr(t) for t in mass_ops), KB, bu, reg_tiles, threads, rows, ldm, smem,
         *(_ptr(t) for t in score_ops),
-        float(lam), float(overload_weight), float(temp), int(seed), N,
+        float(lam), float(overload_weight), _ptr(temp_t), _ptr(seed_t), N,
         int(enforce_capacity), int(use_noise), int(use_move_pen),
         _ptr(prop), _ptr(gain), _ptr(wants), _ptr(slack_cpu), _ptr(slack_mem), _stream(dev),
     )

@@ -34,21 +34,31 @@ Randomness comes from a ``torch.Generator`` through a per-sweep
 the parity tests build it from the JAX package's key stream and so compare
 the two solvers decision by decision.
 
-The chunk loop never reads a device value on the host: move and swap
-counts stay on the device and are read once, and the one host sync per
-solve is the collapsed-placement branch of :func:`input_comm_cost`. State
+A solve reads nothing back to the host: move and swap counts stay on the
+device, the seed and temperature tables live there, and the input
+placement's cost takes both branches of :func:`input_comm_cost` and picks
+one on the device. So on CUDA the whole solve — set-up, sweeps, epilogue —
+runs as one replay of a CUDA graph captured once per solve shape
+(``solver/compiled.py``, the counterpart of the JAX package's jit); on the
+CPU, and under ``compiled.eager()``, the same body runs op by op. State
 that the JAX package carries functionally (``assign``, the occupancy
 matrix) is updated in place here.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+import dataclasses
+from dataclasses import dataclass
 
 import torch
 
 from kubernetes_rescheduling_tpu_torch._random import gumbel as _gumbel
-from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph, segment_sum
+from kubernetes_rescheduling_tpu_torch.core.state import (
+    ClusterState,
+    CommGraph,
+    _count,
+    segment_sum,
+)
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import (
     ROW_BLOCK,
     communication_cost,
@@ -59,6 +69,7 @@ from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
     fused_score_admission,
     reference_score_admission,
 )
+from kubernetes_rescheduling_tpu_torch.solver.compiled import CACHE, to_device
 from kubernetes_rescheduling_tpu_torch.solver.swap import (
     BIG_CAP,
     chunk_swap,
@@ -108,9 +119,10 @@ class SweepPlan:
     ``chunk_ids`` [n_chunks, C]: which services form each chunk;
     ``block_rows`` [n_chunks, C // B]: the same composition as W row-block
     ids (B = 256 on the inline path, 1 elsewhere); ``seeds`` [n_chunks]:
-    per-chunk noise seeds of the score kernel (kept on the host); ``gumbel``
-    [n_chunks, C, N] or None: unit gumbel noise of the plain ``sweep``
-    path (None there draws it from the solver's generator)."""
+    per-chunk noise seeds of the score kernel (which reads them from
+    device memory); ``gumbel`` [n_chunks, C, N] or None: unit gumbel noise
+    of the plain ``sweep`` path (None there draws it from the solver's
+    generator before the solve)."""
 
     chunk_ids: torch.Tensor
     block_rows: torch.Tensor
@@ -125,7 +137,7 @@ def _service_aggregates(state: ClusterState, num_services: int):
     dev = state.device
     svc = torch.where(state.pod_valid, state.pod_service, num_services).long()
     svc = torch.where((svc >= 0) & (svc < num_services), svc, num_services)
-    replicas = torch.bincount(svc, minlength=num_services + 1)[:num_services].float()
+    replicas = _count(svc, num_services + 1)[:num_services].float()
     cpu = segment_sum(torch.where(state.pod_valid, state.pod_cpu, 0.0), svc, num_services)
     mem = segment_sum(torch.where(state.pod_valid, state.pod_mem, 0.0), svc, num_services)
     pod_idx = torch.where(state.pod_valid, torch.arange(p, device=dev), p)
@@ -247,7 +259,7 @@ def collapsed_placement(idx, node, counted, size: int, n):
     nmin = nmin.scatter_reduce(0, idx_c, node_c, reduce="amin")[:size]
     nmax = torch.full((size + 1,), -1, dtype=torch.int64, device=idx.device)
     nmax = nmax.scatter_reduce(0, idx_c, torch.where(counted, node_c, -1), reduce="amax")[:size]
-    rv_eff = torch.bincount(idx_c, minlength=size + 1)[:size].float()
+    rv_eff = _count(idx_c, size + 1)[:size].float()
     return nmin.to(torch.int32), rv_eff, torch.all((rv_eff == 0) | (nmin == nmax))
 
 
@@ -267,11 +279,15 @@ def comm_cost_collapse(state: ClusterState, graph: CommGraph):
 def input_comm_cost(state: ClusterState, graph: CommGraph) -> torch.Tensor:
     """``communication_cost`` with the collapsed fast path: when every
     service's pods sit on one node, the direct cut-sum; otherwise the
-    general quadratic form. The branch is taken on the host (one sync)."""
+    general quadratic form. Both are computed and the branch is picked on
+    the device (the JAX package's ``lax.cond`` runs one side; a CUDA graph
+    can skip one only through a conditional node, which PyTorch 2.11 does
+    not expose), so the solve reads nothing back; the general form's
+    work is the price of that on collapsed inputs, which every solver
+    output is."""
     nmin, rv_eff, collapsed = comm_cost_collapse(state, graph)
-    if bool(collapsed):
-        return exact_comm_cost(graph.adj, rv_eff * graph.service_valid, nmin)
-    return communication_cost(state, graph)
+    fast = exact_comm_cost(graph.adj, rv_eff * graph.service_valid, nmin)
+    return torch.where(collapsed, fast, communication_cost(state, graph))
 
 
 def pod_restart_bill(state: ClusterState, tgt, move_cost) -> torch.Tensor:
@@ -332,6 +348,103 @@ def kernel_lowering(config: GlobalSolverConfig, device) -> bool:
     )
 
 
+STATE_TENSORS = tuple(f.name for f in dataclasses.fields(ClusterState)
+                      if f.name not in ("node_names", "pod_names"))
+
+
+def state_inputs(state: ClusterState) -> dict[str, torch.Tensor]:
+    """The state's arrays, as a solve's inputs."""
+    return {name: getattr(state, name) for name in STATE_TENSORS}
+
+
+def state_from_inputs(t: dict) -> ClusterState:
+    """The state a solve body reads: its arrays from the inputs ``t``."""
+    return ClusterState(**{name: t[name] for name in STATE_TENSORS})
+
+
+@dataclass(frozen=True)
+class DenseLayout:
+    """The static shape of one dense solve: ``services`` padded to
+    ``n_chunks`` chunks of ``chunk`` rows, ``nodes``, and the lowering —
+    the kernels or the plain twin (``use_fused``), and the inline-mass path
+    with its contraction tile ``mass_bj``."""
+
+    services: int
+    nodes: int
+    chunk: int
+    n_chunks: int
+    use_fused: bool
+    inline_mass: bool
+    mass_bj: int | None
+
+    @property
+    def sp(self) -> int:
+        return self.n_chunks * self.chunk
+
+
+def dense_layout(S: int, N: int, config: GlobalSolverConfig, device) -> DenseLayout:
+    C = min(auto_chunk(S, config.chunk_size), S)
+    n_chunks = -(-S // C)
+    SP = n_chunks * C
+    use_fused = kernel_lowering(config, device)
+    mass_bj = next((b for b in (1024, 512, 256) if SP % b == 0), None)
+    # inline-mass lowering: the composition is block-granular (256 | C and
+    # 256 | SP), so the mass kernel gathers W row-blocks by id and no
+    # occupancy matrix exists
+    inline = (use_fused and C % COMPOSITION_BLOCK == 0 and SP % COMPOSITION_BLOCK == 0
+              and mass_bj is not None)
+    return DenseLayout(S, N, C, n_chunks, use_fused, inline, mass_bj)
+
+
+def sweep_temps(config: GlobalSolverConfig) -> torch.Tensor:
+    """f32[sweeps] annealing temperatures, decayed linearly to zero: the
+    last sweeps polish greedily (the JAX package's f32 values)."""
+    return config.noise_temp * (
+        1.0 - torch.arange(config.sweeps, dtype=torch.float32) / max(config.sweeps - 1, 1)
+    )
+
+
+def noise_generator(generator: torch.Generator | None, device) -> torch.Generator:
+    """The device generator a plain solve draws its gumbel noise from,
+    seeded from the host one."""
+    if generator is None:
+        raise ValueError("a plan without gumbel noise needs a generator")
+    noise_gen = torch.Generator(device=device)
+    noise_gen.manual_seed(int(torch.randint(0, 2**62, (1,), generator=generator)))
+    return noise_gen
+
+
+def _stacked(parts, empty_shape, dtype, dev) -> torch.Tensor:
+    x = torch.stack(parts) if parts else torch.zeros(empty_shape, dtype=dtype)
+    return to_device(x.to(dtype), dev)
+
+
+def dense_plan_inputs(plan, lay: DenseLayout, config: GlobalSolverConfig, dev,
+                      generator=None) -> dict[str, torch.Tensor]:
+    """A solve's plans as inputs, stacked over the sweeps and on ``dev``:
+    ``chunk_ids``, ``block_rows``, ``seeds`` (i32) and ``temps``; on the
+    plain path with noise also ``gumbel`` [sweeps, n_chunks, C, N], drawn
+    here from ``generator`` for a plan that has none. All of it reaches the
+    device before the solve starts and without a wait."""
+    n, C = lay.n_chunks, lay.chunk
+    t = {
+        "chunk_ids": _stacked([p.chunk_ids for p in plan], (0, n, C), torch.int64, dev),
+        "block_rows": _stacked([p.block_rows for p in plan], (0, n, 1), torch.int32, dev),
+        "seeds": _stacked([p.seeds for p in plan], (0, n), torch.int32, dev),
+        "temps": to_device(sweep_temps(config), dev),
+    }
+    if not lay.use_fused and config.noise_temp > 0:
+        noise_gen = None
+        if any(p.gumbel is None for p in plan):
+            noise_gen = noise_generator(generator, dev)
+        t["gumbel"] = _stacked(
+            [p.gumbel.to(dev) if p.gumbel is not None
+             else _gumbel((n, C, lay.nodes), noise_gen, dev) for p in plan],
+            (0, n, C, lay.nodes), torch.float32, dev,
+        )
+    return t
+
+
 def global_assign(
     state: ClusterState,
     graph: CommGraph,
@@ -347,7 +460,8 @@ def global_assign(
     than the input. ``generator`` (a CPU ``torch.Generator``) draws the
     per-sweep plans unless ``plan`` gives them; ``w_mm`` injects a prebuilt
     pair-weight matrix (:func:`prepare_weights`). The solve runs on the
-    state's device."""
+    state's device; on CUDA as a replay of the graph captured for its
+    shape, config and operands (``solver/compiled.py``)."""
     if not config.capacity_frac > 0:
         raise ValueError(f"capacity_frac must be > 0, got {config.capacity_frac}")
     if config.fused_epilogue not in _EPILOGUES:
@@ -359,15 +473,48 @@ def global_assign(
     if plan is None and generator is None:
         raise ValueError("global_assign needs a generator or an explicit plan")
     dev = state.device
+    lay = dense_layout(graph.num_services, state.num_nodes, config, dev)
+    check_weight_budget(lay.sp, config)
+    if plan is None:
+        plan = draw_plans(generator, config.sweeps, lay.sp, lay.chunk, lay.n_chunks,
+                          COMPOSITION_BLOCK if lay.inline_mass else 1)
+    inputs = {**state_inputs(state), "service_valid": graph.service_valid,
+              **dense_plan_inputs(plan, lay, config, dev, generator)}
+    adj = graph.adj
+
+    def make_body():
+        def body(t):
+            g = CommGraph(adj=adj, service_valid=t["service_valid"])
+            return dense_solve(state_from_inputs(t), g, config, lay, t, w_mm)
+        return body
+
+    out = CACHE.run("global_assign", (config, lay), inputs, make_body,
+                    operands=(adj, w_mm))
+    return solve_result(state, out, inline_mass=torch.tensor(lay.inline_mass))
+
+
+def solve_result(state: ClusterState, out: dict, **static) -> tuple[ClusterState, dict]:
+    """``(new state, info)`` from a solve body's outputs."""
+    info = {k: v for k, v in out.items() if k != "pod_node"}
+    return state.replace(pod_node=out["pod_node"]), dict(info, **static)
+
+
+def dense_solve(
+    state: ClusterState,
+    graph: CommGraph,
+    config: GlobalSolverConfig,
+    lay: DenseLayout,
+    t: dict,
+    w_mm: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """One dense solve as a function of device tensors that reads nothing
+    back to the host: ``t`` holds the plans (:func:`dense_plan_inputs`).
+    Returns the new ``pod_node`` and the info tensors."""
+    dev = state.device
     f32 = torch.float32
     # over-budget repulsion only exists alongside budget enforcement
     ow = config.overload_weight if config.enforce_capacity else 0.0
-    S = graph.num_services
-    N = state.num_nodes
-    C = min(auto_chunk(S, config.chunk_size), S)
-    n_chunks = -(-S // C)
-    SP = n_chunks * C  # padded service count
-    check_weight_budget(SP, config)
+    S, N, C, n_chunks, SP = lay.services, lay.nodes, lay.chunk, lay.n_chunks, lay.sp
 
     replicas, svc_cpu, svc_mem, cur_node, has_pods = _service_aggregates(state, S)
     svc_valid = graph.service_valid & has_pods
@@ -434,17 +581,7 @@ def global_assign(
         obj = 0.5 * (w_total - kept) + _balance_terms(cpu_load)
         return obj + move_penalty(assign) if mc_on else obj
 
-    use_fused = kernel_lowering(config, dev)
-    # inline-mass lowering: the composition is block-granular (256 | C and
-    # 256 | SP), so the mass kernel gathers W row-blocks by id and no
-    # occupancy matrix exists
-    mass_bj = next((b for b in (1024, 512, 256) if SP % b == 0), None)
-    inline_mass = (
-        use_fused
-        and C % COMPOSITION_BLOCK == 0
-        and SP % COMPOSITION_BLOCK == 0
-        and mass_bj is not None
-    )
+    use_fused, inline_mass, mass_bj = lay.use_fused, lay.inline_mass, lay.mass_bj
     use_noise = config.noise_temp > 0
 
     use_swaps = config.swap_every > 0 and C >= 2
@@ -452,26 +589,13 @@ def global_assign(
     mem_cap_sw = torch.where(torch.isinf(mem_cap), BIG_CAP, mem_cap)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
 
-    if plan is None:
-        plan = draw_plans(
-            generator, config.sweeps, SP, C, n_chunks,
-            COMPOSITION_BLOCK if inline_mass else 1,
-        )
-    # the plans go to the device once, before any sweep: a host-to-device
-    # copy between sweeps would stall the host until the device drained
+    gumbel = t.get("gumbel")
     plan = [
-        replace(p, chunk_ids=p.chunk_ids.to(dev), block_rows=p.block_rows.to(dev),
-                seeds=p.seeds.cpu(), gumbel=None if p.gumbel is None else p.gumbel.to(dev))
-        for p in plan
+        SweepPlan(t["chunk_ids"][i], t["block_rows"][i], t["seeds"][i],
+                  None if gumbel is None else gumbel[i])
+        for i in range(config.sweeps)
     ]
-    # plain-path gumbel noise without a plan comes from a device generator
-    # seeded from the host one
-    noise_gen = None
-    if not use_fused and use_noise and any(p.gumbel is None for p in plan):
-        if generator is None:
-            raise ValueError("a plan without gumbel noise needs a generator")
-        noise_gen = torch.Generator(device=dev)
-        noise_gen.manual_seed(int(torch.randint(0, 2**62, (1,), generator=generator)))
+    temps = list(t["temps"].unbind(0)) if config.sweeps else []
 
     def _swap_phase(ids, M, Wc, assign, cpu_load, mem_load, admitted):
         """The chunk's swap phase on the post-singles state. ``M`` is the
@@ -525,7 +649,7 @@ def global_assign(
             X = one_hot_rows(assign, svc_valid, mm_dtype)
             cpu_load, mem_load = loads(assign)
             chunk_ids = sp.chunk_ids
-            seeds = sp.seeds.tolist()
+            seeds = sp.seeds
             moves, sws = zero, zero
             for c in range(n_chunks):
                 ids = chunk_ids[c]
@@ -553,12 +677,7 @@ def global_assign(
                     cpu_load = cpu_load + d_cpu
                     mem_load = mem_load + d_mem
                 else:
-                    noise = None
-                    if use_noise:
-                        g = sp.gumbel[c] if sp.gumbel is not None else _gumbel(
-                            (C, N), noise_gen, dev
-                        )
-                        noise = temp * g
+                    noise = temp * sp.gumbel[c] if use_noise else None
                     new_node, admitted = reference_score_admission(
                         M, cur, c_cpu, c_mem, valid_c,
                         cpu_load, mem_load, cap, mem_cap, node_valid,
@@ -595,7 +714,7 @@ def global_assign(
             assign, cpu_load, mem_load, best_assign, best_obj = carry
             assign = assign.clone()
             chunk_ids, block_rows = sp.chunk_ids, sp.block_rows
-            seeds = sp.seeds.tolist()
+            seeds = sp.seeds
             moves, sws = zero, zero
             for c in range(n_chunks):
                 ids = chunk_ids[c]
@@ -652,12 +771,6 @@ def global_assign(
     )
     cpu0, mem0 = loads(assign0)
     obj0 = objective_fast(assign0, cpu0)
-    # linear decay to zero: the last sweeps polish greedily (f32 values on
-    # the host, as the JAX package computes them)
-    temps = (
-        config.noise_temp
-        * (1.0 - torch.arange(config.sweeps, dtype=f32) / max(config.sweeps - 1, 1))
-    ).tolist()
     if inline_mass:
         (_, _, _, best_assign, _), outs = scan_sweeps(
             make_sweep_inline, (assign0, cpu0, mem0, assign0, obj0), plan, temps, sw_flags
@@ -683,8 +796,8 @@ def global_assign(
         best_assign[torch.clamp(state.pod_service, 0, SP - 1)],
         state.pod_node,
     )
-    new_state = state.replace(pod_node=new_pod_node)
-    info = {
+    return {
+        "pod_node": new_pod_node,
         "objective_before": obj_true0,
         "objective_after": torch.where(improved, best_obj, obj_true0),
         "improved": improved,
@@ -694,8 +807,5 @@ def global_assign(
         # an adopted placement colocates every service's replicas, so its
         # pod-level cost equals the exact service-level cut of best_assign
         "communication_cost": torch.where(improved, best_comm, comm_true0),
-        "load_std": load_std(new_state),
-        # which lowering ran: tests assert the inline path really engaged
-        "inline_mass": torch.tensor(inline_mass),
+        "load_std": load_std(state.replace(pod_node=new_pod_node)),
     }
-    return new_state, info

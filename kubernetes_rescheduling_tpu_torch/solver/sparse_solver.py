@@ -35,14 +35,15 @@ swap sweeps; the hub pass is ``hub_neighbor_mass`` → score → admission.
 Randomness goes through a per-sweep :class:`SparseSweepPlan` (block
 permutation, kernel seeds, plain-path gumbel noise), drawn from a
 ``torch.Generator`` or handed in by the caller: the parity tests build it
-from the JAX package's key stream. The chunk loop reads no device value
-on the host; the one host sync per solve is the collapsed-placement
-branch of :func:`sparse_pod_comm_cost`.
+from the JAX package's key stream. A solve reads nothing back to the host
+(:func:`sparse_pod_comm_cost` picks its branch on the device), so on CUDA
+it runs as one replay of a CUDA graph captured per solve shape, as the
+dense solve does (``solver/compiled.py``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 
 import torch
 
@@ -53,7 +54,7 @@ from kubernetes_rescheduling_tpu_torch.core.sparsegraph import (
     rv_weighted_edge_w,
     sparse_pair_comm_cost,
 )
-from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
+from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph, _count
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import load_std
 from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
     admission_stage,
@@ -76,13 +77,20 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     GlobalSolverConfig,
     _pad_to,
     _service_aggregates,
+    _stacked,
     auto_chunk,
     collapsed_placement,
     global_assign,
     kernel_lowering,
     pct_balance_terms,
+    noise_generator,
     pod_restart_bill,
+    solve_result,
+    state_from_inputs,
+    state_inputs,
+    sweep_temps,
 )
+from kubernetes_rescheduling_tpu_torch.solver.compiled import CACHE, to_device
 from kubernetes_rescheduling_tpu_torch.solver.swap import (
     BIG_CAP,
     chunk_swap,
@@ -144,7 +152,7 @@ class SparseSweepPlan:
     ``block_perm`` [n_chunks·KB]: the permutation of regular block slots
     (dummies included) that composes the chunks; ``seeds`` [n_chunks +
     n_hub_groups]: the score kernels' noise seeds, chunks first, then hub
-    groups (kept on the host); ``gumbel`` [n_chunks, KB·256, N] and
+    groups (read from device memory); ``gumbel`` [n_chunks, KB·256, N] and
     ``hub_gumbel`` (one [rows_g, N] per hub group), or None: unit gumbel
     noise of the plain path (None draws it from the solver's generator)."""
 
@@ -196,8 +204,8 @@ def sparse_pod_comm_cost(
     per-edge small, halved because the COO list carries each edge twice,
     scanned in edge chunks. When every service's counted pods sit on one
     node (every solver output does) the cost is the service-level cut of
-    (first node, effective replicas): that branch is taken on the host —
-    the one host sync of a solve."""
+    (first node, effective replicas); both forms are computed and the
+    branch is picked on the device, so nothing is read back."""
     SP = sgraph.sp
     N = state.num_nodes
     S = sgraph.num_services
@@ -207,10 +215,9 @@ def sparse_pod_comm_cost(
     # pods counted by the general form: valid AND placed on a real node
     placed = state.pod_valid & (node >= 0) & (node < N)
     nmin, rv_eff, collapsed = collapsed_placement(slot, node, placed, SP, N)
-    if bool(collapsed):
-        return sparse_pair_comm_cost(sgraph, nmin, rv_eff)
+    fast = sparse_pair_comm_cost(sgraph, nmin, rv_eff)
     flat = torch.where(placed, slot.long() * (N + 1) + node.long(), SP * (N + 1) + N)
-    cnt = torch.bincount(flat, minlength=(SP + 1) * (N + 1)).view(SP + 1, N + 1)
+    cnt = _count(flat, (SP + 1) * (N + 1)).view(SP + 1, N + 1)
     cnt = cnt[:SP, :N].to(torch.float32)
     rv = cnt.sum(dim=1)
     total = torch.zeros((), dtype=torch.float32, device=cnt.device)
@@ -221,7 +228,7 @@ def sparse_pod_comm_cost(
         kept = torch.sum(cnt[s] * cnt[t], dim=1)
         cross = torch.clamp_min(rv[s] * rv[t] - kept, 0.0)
         total = total + torch.sum(sgraph.edges_w[e0:e0 + edge_chunk] * cross)
-    return 0.5 * total
+    return torch.where(collapsed, fast, 0.5 * total)
 
 
 def sorted_problem_arrays(state: ClusterState, sgraph: SparseCommGraph, SPX: int):
@@ -250,17 +257,21 @@ def sorted_problem_arrays(state: ClusterState, sgraph: SparseCommGraph, SPX: int
     return svc_valid, svc_cpu_s, svc_mem_s, cur_s, rv_s, rvu
 
 
-def hub_slab(sgraph: SparseCommGraph, blocks, rv_s, SPX: int):
-    """Concatenated group-local neighbor columns (ids and replica factors)
-    of the given hub ``blocks`` — static slices of ``u_ids``."""
+def hub_slab_ids(sgraph: SparseCommGraph, blocks) -> torch.Tensor:
+    """Concatenated group-local neighbor ids of the given hub ``blocks`` —
+    static slices of ``u_ids``."""
     bu = sgraph.bu
-    u_g = torch.cat([
+    return torch.cat([
         sgraph.u_ids[sgraph.block_toff[b] * bu:(sgraph.block_toff[b] + sgraph.block_ntiles[b]) * bu]
         for b in blocks
     ])
+
+
+def hub_rvu(sgraph: SparseCommGraph, u_g: torch.Tensor, rv_s: torch.Tensor, SPX: int):
+    """The replica factors of a hub group's neighbor columns ``u_g`` (0 on
+    padding columns)."""
     ug = u_g.long()
-    rvu_g = torch.where(ug < sgraph.sp, rv_s[torch.clamp(ug, 0, SPX - 1)], 0.0)
-    return u_g, rvu_g
+    return torch.where(ug < sgraph.sp, rv_s[torch.clamp(ug, 0, SPX - 1)], 0.0)
 
 
 def global_assign_sparse(
@@ -291,6 +302,73 @@ def global_assign_sparse(
     return _global_assign_sparse(state, sgraph, generator, config, plan)
 
 
+SPARSE_OPERANDS = ("w_local", "u_ids", "edges_src", "edges_dst", "edges_w", "perm", "inv",
+                   "service_valid")
+
+
+def sparse_static(sgraph: SparseCommGraph) -> tuple:
+    """The graph's host metadata: with the operands' identities it keys a
+    captured sparse solve."""
+    return (sgraph.block_toff, sgraph.block_ntiles, sgraph.hub_blocks, sgraph.regular_blocks,
+            sgraph.zero_toff, sgraph.bu, sgraph.reg_tiles, sgraph.num_services)
+
+
+def sparse_plan_inputs(plan, lay: SparseLayout, config: GlobalSolverConfig, N: int, dev,
+                       generator=None) -> dict[str, torch.Tensor]:
+    """A sparse solve's plans as inputs, stacked over the sweeps and on
+    ``dev``: ``block_perm``, ``seeds`` (i32), ``temps``; on the plain path
+    with noise also ``gumbel`` [sweeps, n_chunks, KB·256, N] and one
+    ``hub_gumbel_<g>`` [sweeps, rows_g, N] per hub group, drawn here from
+    ``generator`` where the plan has none."""
+    nb, G = lay.n_chunks * lay.blocks_per_chunk, len(lay.hub_groups)
+    t = {
+        "block_perm": _stacked([p.block_perm for p in plan], (0, nb), torch.int64, dev),
+        "seeds": _stacked([p.seeds for p in plan], (0, lay.n_chunks + G), torch.int32, dev),
+        "temps": to_device(sweep_temps(config), dev),
+    }
+    if kernel_lowering(config, dev) or not config.noise_temp > 0:
+        return t
+    noise_gen = None
+    if any(p.gumbel is None or (G and p.hub_gumbel is None) for p in plan):
+        noise_gen = noise_generator(generator, dev)
+    chunks, hubs = [], [[] for _ in range(G)]
+    for p in plan:
+        for g, blocks_g in enumerate(lay.hub_groups):
+            hubs[g].append(p.hub_gumbel[g].to(dev) if p.hub_gumbel is not None
+                           else _gumbel((len(blocks_g) * BLOCK_R, N), noise_gen, dev))
+        chunks.append(p.gumbel.to(dev) if p.gumbel is not None
+                      else _gumbel((lay.n_chunks, lay.width, N), noise_gen, dev))
+    t["gumbel"] = _stacked(chunks, (0, lay.n_chunks, lay.width, N), torch.float32, dev)
+    for g, blocks_g in enumerate(lay.hub_groups):
+        t[f"hub_gumbel_{g}"] = _stacked(hubs[g], (0, len(blocks_g) * BLOCK_R, N),
+                                        torch.float32, dev)
+    return t
+
+
+@dataclass(frozen=True)
+class SparseTables:
+    """Host-built tables of a sparse solve, on the device once per solve
+    shape: the extended block tables (:func:`extended_block_tables`), and
+    per hub group its blocks, row ids, clamped neighbor ids, neighbor ids
+    and tile arrays (:func:`hub_tile_arrays`)."""
+
+    toff_ext: torch.Tensor
+    reg_ext: torch.Tensor
+    hub_groups: tuple
+
+
+def sparse_tables(sgraph: SparseCommGraph, lay: SparseLayout, dev) -> SparseTables:
+    toff_ext, reg_ext = extended_block_tables(sgraph, lay, dev)
+    row_iota = torch.arange(BLOCK_R, device=dev)
+    groups = []
+    for blocks_g in lay.hub_groups:
+        ids_g = torch.cat([row_iota + b * BLOCK_R for b in blocks_g])
+        u_g = hub_slab_ids(sgraph, blocks_g)
+        u_gi = torch.clamp(u_g.long(), 0, lay.spx - 1)
+        groups.append((blocks_g, ids_g, u_gi, u_g, hub_tile_arrays(sgraph, blocks_g, dev)))
+    return SparseTables(toff_ext, reg_ext, tuple(groups))
+
+
 def _global_assign_sparse(state, sgraph, generator, config, plan):
     if not config.capacity_frac > 0:
         raise ValueError(f"capacity_frac must be > 0, got {config.capacity_frac}")
@@ -309,13 +387,39 @@ def _global_assign_sparse(state, sgraph, generator, config, plan):
             "dense solver)."
         )
     dev = state.device
+    lay = sparse_layout(sgraph, config)
+    if plan is None:
+        plan = draw_sparse_plans(generator, config.sweeps, lay)
+    inputs = {**state_inputs(state),
+              **sparse_plan_inputs(plan, lay, config, state.num_nodes, dev, generator)}
+
+    def make_body():
+        tables = sparse_tables(sgraph, lay, dev)
+        return lambda t: sparse_solve(state_from_inputs(t), sgraph, config, lay, tables, t)
+
+    out = CACHE.run("global_assign_sparse", (config, lay, sparse_static(sgraph)), inputs,
+                    make_body, operands=[getattr(sgraph, k) for k in SPARSE_OPERANDS])
+    return solve_result(state, out, hub_pass=torch.tensor(len(lay.hub_groups) > 0))
+
+
+def sparse_solve(
+    state: ClusterState,
+    sgraph: SparseCommGraph,
+    config: GlobalSolverConfig,
+    lay: SparseLayout,
+    tables: SparseTables,
+    t: dict,
+) -> dict[str, torch.Tensor]:
+    """One sparse solve as a function of device tensors that reads nothing
+    back to the host: ``t`` holds the plans (:func:`sparse_plan_inputs`).
+    Returns the new ``pod_node`` and the info tensors."""
+    dev = state.device
     f32 = torch.float32
     ow = config.overload_weight if config.enforce_capacity else 0.0
     lam = config.balance_weight
     S = sgraph.num_services
     N = state.num_nodes
     bu, reg_tiles = sgraph.bu, sgraph.reg_tiles
-    lay = sparse_layout(sgraph, config)
     n_chunks, SPX, C_eff = lay.n_chunks, lay.spx, lay.width
 
     svc_valid, svc_cpu_s, svc_mem_s, cur_s, rv_s, rvu = sorted_problem_arrays(state, sgraph, SPX)
@@ -363,38 +467,23 @@ def _global_assign_sparse(state, sgraph, generator, config, plan):
     use_kernels = kernel_lowering(config, dev)
     use_noise = config.noise_temp > 0
 
-    # static layout tensors go to the device once, before any sweep
-    toff_ext, reg_ext = extended_block_tables(sgraph, lay, dev)
+    toff_ext, reg_ext = tables.toff_ext, tables.reg_ext
     row_iota = torch.arange(BLOCK_R, device=dev)
     hub_groups = []
-    for blocks_g in lay.hub_groups:
-        ids_g = torch.cat([row_iota + b * BLOCK_R for b in blocks_g])
-        u_g, rvu_g = hub_slab(sgraph, blocks_g, rv_s, SPX)
-        u_gi = torch.clamp(u_g.long(), 0, SPX - 1)
-        hub_groups.append((blocks_g, ids_g, u_gi, rvu_g, hub_tile_arrays(sgraph, blocks_g, dev)))
+    for blocks_g, ids_g, u_gi, u_g, tiles in tables.hub_groups:
+        hub_groups.append((blocks_g, ids_g, u_gi, hub_rvu(sgraph, u_g, rv_s, SPX), tiles))
 
-    if plan is None:
-        plan = draw_sparse_plans(generator, config.sweeps, lay)
-    # the plans go to the device once, before any sweep (the permutations
-    # in one copy): a host-to-device copy between sweeps would stall the
-    # host until the device drained
-    perms = torch.stack([p.block_perm for p in plan]).to(dev).unbind(0) if plan else ()
+    gumbel = t.get("gumbel")
     plan = [
-        replace(
-            p, block_perm=bp, seeds=p.seeds.cpu(),
-            gumbel=None if p.gumbel is None else p.gumbel.to(dev),
-            hub_gumbel=None if p.hub_gumbel is None else tuple(g.to(dev) for g in p.hub_gumbel),
+        SparseSweepPlan(
+            t["block_perm"][i], t["seeds"][i],
+            None if gumbel is None else gumbel[i],
+            tuple(t[f"hub_gumbel_{g}"][i] for g in range(len(hub_groups))) if gumbel is not None
+            else None,
         )
-        for p, bp in zip(plan, perms)
+        for i in range(config.sweeps)
     ]
-    noise_gen = None
-    if not use_kernels and use_noise and any(
-        p.gumbel is None or (hub_groups and p.hub_gumbel is None) for p in plan
-    ):
-        if generator is None:
-            raise ValueError("a plan without gumbel noise needs a generator")
-        noise_gen = torch.Generator(device=dev)
-        noise_gen.manual_seed(int(torch.randint(0, 2**62, (1,), generator=generator)))
+    temps = list(t["temps"].unbind(0)) if config.sweeps else []
 
     def chunk_mass(tgt_c, rvu_c, blocks, ids, nn):
         """Mass of the chunk's rows against targets ``tgt_c`` over ``nn``
@@ -431,10 +520,7 @@ def _global_assign_sparse(state, sgraph, generator, config, plan):
             )
             assign[ids] = new_node
             return cpu_load + d_cpu, mem_load + d_mem, admitted
-        noise = None
-        if use_noise:
-            g = gumbel if gumbel is not None else _gumbel(tuple(M.shape), noise_gen, dev)
-            noise = temp * g
+        noise = temp * gumbel if use_noise else None
         new_node, admitted = reference_score_admission(
             M, cur, c_cpu, c_mem, valid_c, cpu_load, mem_load, cap, mem_cap, node_valid,
             lam, noise, overload_weight=ow, home=home, move_pen=pen,
@@ -487,7 +573,7 @@ def _global_assign_sparse(state, sgraph, generator, config, plan):
             sp, temp = xs
             assign, cpu_load, mem_load, best_assign, best_obj, best_comm = carry
             assign = assign.clone()
-            seeds = sp.seeds.tolist()
+            seeds = sp.seeds
             moves, sws = zero, zero
             # hubs first, on the freshest loads; each group reads the
             # assignment the groups before it left
@@ -570,11 +656,6 @@ def _global_assign_sparse(state, sgraph, generator, config, plan):
     )
     cpu0, mem0 = loads(assign0)
     comm0, obj0 = objective_terms(assign0, cpu0)
-    # linear decay to zero (f32 values on the host, as the JAX package's)
-    temps = (
-        config.noise_temp
-        * (1.0 - torch.arange(config.sweeps, dtype=f32) / max(config.sweeps - 1, 1))
-    ).tolist()
     (_, _, _, best_assign, best_obj, best_comm), outs = scan_sweeps(
         make_sweep, (assign0, cpu0, mem0, assign0, obj0, comm0), plan, temps, sw_flags
     )
@@ -590,8 +671,8 @@ def _global_assign_sparse(state, sgraph, generator, config, plan):
     )
     improved = raw_after + best_pen < obj_true0
     new_pod_node = torch.where(improved & state.pod_valid, best_assign[pod_slot], state.pod_node)
-    new_state = state.replace(pod_node=new_pod_node)
-    info = {
+    return {
+        "pod_node": new_pod_node,
         "objective_before": obj_true0,
         "objective_after": torch.where(improved, raw_after, obj_true0),
         "improved": improved,
@@ -601,7 +682,5 @@ def _global_assign_sparse(state, sgraph, generator, config, plan):
         # an adopted placement colocates every service's replicas, so its
         # pod-level cost is the tracked service-level cut of best_assign
         "communication_cost": torch.where(improved, best_comm, comm_true0),
-        "load_std": load_std(new_state),
-        "hub_pass": torch.tensor(len(lay.hub_groups) > 0),
+        "load_std": load_std(state.replace(pod_node=new_pod_node)),
     }
-    return new_state, info

@@ -6,9 +6,10 @@ tensor to the host and counts the transfer as
 ``device_transfers_total{site=...}``; :func:`pull_arrays` packs several
 tensors of mixed dtypes into one such transfer. :func:`timed_call` and
 :func:`count_reconcile` instrument the backends. The JAX package's
-``instrument_jit`` counts compilations; the port compiles nothing, so it
-has no counterpart (a counter of CUDA-graph captures comes with the
-compiled round).
+``instrument_jit`` counts compilations as ``jax_traces_total{fn=...}``;
+the port's counterpart is ``cuda_graph_captures_total{fn=...}``, counted
+by the capture cache of ``solver/compiled.py`` once per captured solve
+shape.
 """
 
 from __future__ import annotations

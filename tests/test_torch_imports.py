@@ -41,6 +41,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import kubernetes_rescheduling_tpu_torch.solver.global_solver\n"
         "import kubernetes_rescheduling_tpu_torch.solver.sparse_solver\n"
         "import kubernetes_rescheduling_tpu_torch.solver.pod_mode\n"
+        "import kubernetes_rescheduling_tpu_torch.solver.compiled\n"
+        "import kubernetes_rescheduling_tpu_torch.solver.autotune\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.trace\n"
         "import kubernetes_rescheduling_tpu_torch.ops.sparse_mass\n"
         "import kubernetes_rescheduling_tpu_torch.bench.harness\n"
         "import kubernetes_rescheduling_tpu_torch.bench.profile\n"
@@ -131,6 +134,12 @@ def _entry_points():
         "sparse_graph_from_arrays": lambda: convert.sparse_graph_from_arrays(
             {k: [] for k in convert.SPARSE_ARRAYS + convert.SPARSE_STATIC}
         ),
+        "trace_locator_from_arrays": lambda: convert.trace_locator_from_arrays(
+            {"coo": [], "w_rows": [], "w_cols": [], "base_w": []}
+        ),
+        "cli trace": lambda: cli.main(["trace", "--steps", "2"]),
+        "cli solve --latency-budget": lambda: cli.main(
+            ["solve", "--scenario", "dense", "--latency-budget", "100"]),
     }
 
 
