@@ -17,15 +17,33 @@ solves on the pod-level graph and moves single replicas in one wave.
 Around the rounds: every monitor snapshot passes the admission guard
 (``bench/admission.py``), the intent ledger (``bench/reconcile.py``) diffs
 it against the controller's own moves and repairs drift, rounds carry
-decision explanations when a logger listens, and a checkpoint directory
-makes a run resumable.
+decision explanations when a logger listens, a checkpoint directory makes
+a run resumable, and a churn engine (``elastic/``) deploys, tears down,
+scales and drains between rounds.
+
+Three schedules run the rounds, with the same records:
+
+- sequential (:meth:`_Runtime.sequential_round`);
+- pipelined (``config.pipeline``, :func:`_pipelined_loop`): the previous
+  round's flush and host tail overlap this round's device work, and the
+  post-move advance and monitor run on a background thread (with its own
+  CUDA stream on the card), while the backend sees the sequential call
+  order;
+- scanned (``config.scan_block`` K, :func:`_scanned_loop`): K steady-state
+  rounds as one device block (``bench/scan.py``) and one counted transfer,
+  the moves replayed into the backend afterwards in the sequential call
+  order.
+
+A round either schedule cannot honor drains to the sequential path.
 
 Host reads per executed round: one batched :func:`~bench.round_end.fence`
 per decision or solve (two in a pod round: the pod set before the solve,
 the placement after it), one :meth:`~bench.round_end.RoundCloser.flush`
 that carries the round's closing metrics, the solver's objectives and the
 explanation bundles, one admission read per monitor, and on capped or
-explained global rounds one read of the move-scoring inputs.
+explained global rounds one read of the move-scoring inputs. A scan block
+reads the device once (its bundle, a ``round_end`` transfer) and admits one
+monitor at its end, whatever its K.
 
 Randomness: round ``r`` draws from the generator of ``(config.seed, r)``
 (``_random.round_generator``), so a round's decisions do not depend on
@@ -37,7 +55,10 @@ global solver's per-sweep plans of each round).
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Callable
@@ -50,8 +71,10 @@ from kubernetes_rescheduling_tpu_torch._random import round_generator
 import numpy as np
 
 from kubernetes_rescheduling_tpu_torch.backends.base import Backend, MoveRequest, PlacementMechanism
+from kubernetes_rescheduling_tpu_torch.bench import scan as scan_mod
 from kubernetes_rescheduling_tpu_torch.bench.admission import AdmissionGuard
 from kubernetes_rescheduling_tpu_torch.bench.boundary import (
+    CLOSED,
     HALF_OPEN,
     OPEN,
     BoundaryClient,
@@ -80,7 +103,9 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     global_assign,
     pct_balance_terms,
 )
+from kubernetes_rescheduling_tpu_torch.solver.compiled import to_device
 from kubernetes_rescheduling_tpu_torch.solver.round_loop import decide, decide_explain
+from kubernetes_rescheduling_tpu_torch.telemetry import tripwire as tripwire_mod
 from kubernetes_rescheduling_tpu_torch.telemetry.accounting import pull_arrays
 from kubernetes_rescheduling_tpu_torch.telemetry.explain import (
     greedy_explanation,
@@ -120,6 +145,10 @@ class RoundRecord:
     explanations: tuple[dict, ...] = ()
     # every move that LANDED this round as (service, landed_node) pairs
     applied_moves: tuple[tuple[str, str], ...] = ()
+    # the churn applied before this round (elastic/engine.py): events, live
+    # S/N/P counts, the shape buckets and the promotions so far — None on
+    # static runs
+    churn: dict | None = None
     # the reconcile and admission planes' activity this round: admission
     # quarantine/reject counts, classified divergences, corrective moves
     # and the pods still diverged — None when the round was clean
@@ -130,6 +159,10 @@ class RoundRecord:
     # "reconcile", "round_end")
     wall_s: float = 0.0
     phase_s: dict[str, float] = field(default_factory=dict)
+    # the pipelined schedule's telemetry (timing field): depth, the share of
+    # the background advance+monitor hidden behind foreground work, and
+    # the raw background and blocked seconds — None on sequential rounds
+    pipeline: dict | None = None
 
     @property
     def decision_latency_s(self) -> float:
@@ -217,6 +250,8 @@ _WALL_MS_BUCKETS = (
 
 
 def observe_wall_round(registry: MetricsRegistry, mode: str, wall_s: float) -> None:
+    """One executed round's wall time under ``mode`` (``sequential``,
+    ``pipelined`` or ``scanned``)."""
     registry.histogram(
         "wall_round_ms",
         "wall-clock lifecycle of one executed controller round "
@@ -226,14 +261,31 @@ def observe_wall_round(registry: MetricsRegistry, mode: str, wall_s: float) -> N
     ).labels(mode=mode).observe(wall_s * 1e3)
 
 
+def pipeline_depth_gauge(registry: MetricsRegistry):
+    """``pipeline_depth`` (set only by pipelined runs)."""
+    return registry.gauge(
+        "pipeline_depth",
+        "configured software-pipeline depth of the control loop (0/absent = sequential)",
+    )
+
+
+def pipeline_overlap_gauge(registry: MetricsRegistry):
+    """``pipeline_overlap_ratio`` (set only by pipelined runs)."""
+    return registry.gauge(
+        "pipeline_overlap_ratio",
+        "fraction of the background boundary (advance+monitor) time hidden behind "
+        "foreground work, most recent pipelined round",
+    )
+
+
 class _Runtime:
     """The loop's machinery: boundary, breaker, admission guard, intent
-    ledger, checkpoints, the round-end protocol and the per-round helpers
-    of the sequential schedule."""
+    ledger, churn, checkpoints, the round-end protocol and the per-round
+    helpers the three schedules compose."""
 
     def __init__(self, backend, config: RescheduleConfig, *, device, registry,
                  gumbel_rows=None, solver_plans=None, logger: StructuredLogger | None = None,
-                 checkpoint_dir: str | None = None, graph=None, on_round=None):
+                 checkpoint_dir: str | None = None, graph=None, on_round=None, churn=None):
         self.config = config
         self.registry = registry
         self.device = device
@@ -263,12 +315,26 @@ class _Runtime:
         )
         self.ledger = (IntentLedger(registry=registry, logger=logger)
                        if config.reconcile_enabled else None)
+        if churn is None and config.elastic != "none":
+            from kubernetes_rescheduling_tpu_torch.elastic.engine import ChurnEngine
+
+            churn = ChurnEngine(config.elastic, seed=config.elastic_seed,
+                                bucket_floor=config.bucket_floor, registry=registry)
+        self.churn = churn
+        if churn is not None:
+            # through the boundary's passthrough; bind() pushes the initial
+            # bucket capacities, so even round 1's snapshot is padded
+            churn.bind(self.boundary, config.max_rounds, registry=registry)
         # explanations: on when configured AND a logger listens
         self.explain_k = config.explain_top_k if config.explain and logger is not None else 0
+        # in-block tripwires of the scanned schedule; the latest tripped
+        # block's report waits in scan_trip until _scanned_loop drains it
+        self.scan_tripwire = bool(config.scan_block and config.scan_tripwires)
+        self.scan_trip: dict | None = None
         # decisions may run on a caller's graph (a callable is re-read each
         # round); the round-end metrics always use the backend's declared one
         self.metric_graph = self.boundary.comm_graph().to(device)
-        self._edges = comm_edge_list(self.metric_graph)
+        self.graph_static = graph is None or not callable(graph)
         if graph is None:
             self.graph_src = lambda: self.metric_graph
         elif callable(graph):
@@ -277,13 +343,24 @@ class _Runtime:
             static = graph.to(device)
             self.graph_src = lambda: static
         self.result = ControllerResult()
+        # the monitor's own stream in the pipelined schedule (made at first use)
+        self._monitor_stream = None
 
         self.mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
         self.start_round = 1
+        resumed_pending_churn: list[dict] = []
         if self.mgr is not None:
             latest = self.mgr.latest(device=device)
             if latest is not None:
                 done_round, saved_state, extra = latest
+                if churn is not None:
+                    # the event stream depends only on (profile, seed, round,
+                    # topology), never on moves: replaying it over the
+                    # completed rounds rebuilds the checkpoint's topology and
+                    # puts the churn generator where the uninterrupted run had it
+                    for past in range(1, done_round + 1):
+                        churn.step(past)
+                    self.metric_graph = self.boundary.comm_graph().to(device)
                 restore = getattr(backend, "restore_placement", None)
                 if restore is not None:
                     restore(saved_state)
@@ -292,11 +369,19 @@ class _Runtime:
                     # checkpointed intent instead of trusted: whatever moved
                     # while the controller was down is a counted divergence
                     self.ledger.restore(extra.get("reconcile"))
+                # churn a skipped round applied and no record carried yet
+                resumed_pending_churn = [dict(e) for e in extra.get("pending_churn") or []]
                 self.start_round = done_round + 1
                 self.result.resumed_from_round = self.start_round
                 if logger is not None:
                     logger.info("resume", round=self.start_round, checkpoint=done_round)
 
+        # churn debt that survives skipped rounds: events applied but not
+        # yet carried by a record (pending_churn), and a snapshot that
+        # predates applied churn (remask_needed: the next executed round
+        # monitors afresh before deciding)
+        self.remask_needed = False
+        self.pending_churn: list[dict] = resumed_pending_churn
         # the previous round's unrepaired drift: a round that resolves it
         # still carries an explicit drift_pods=0
         self._last_drift = 0
@@ -307,6 +392,7 @@ class _Runtime:
         # probe loop on top of the per-call retries
         self.state = None
         self._pending_end: dict | None = None
+        self._edge_cache = None
         for _ in range(max(3, config.max_consecutive_failures + 1)):
             probe = self.monitor_admitted()
             if probe is not None:
@@ -317,12 +403,15 @@ class _Runtime:
                 "backend unavailable: initial monitor() failed after retries "
                 "(no last good snapshot to degrade to)"
             )
-        if self.ledger is not None and not self.ledger.intent:
-            # startup baseline: intent := the first admitted snapshot (a
-            # restored intent is reconciled at the first observe instead)
-            arrays = self.guard.host_arrays(self.state) if self.guard is not None else None
-            self.ledger.rebase(self.state, service_names=self.metric_graph.names,
-                               host_arrays=arrays)
+        if self.ledger is not None:
+            if not self.ledger.intent:
+                # startup baseline: intent := the first admitted snapshot (a
+                # restored intent is reconciled at the first observe instead)
+                arrays = self.guard.host_arrays(self.state) if self.guard is not None else None
+                self.ledger.rebase(self.state, service_names=self.metric_graph.names,
+                                   host_arrays=arrays)
+            # the intent as of the last closed round, what a checkpoint saves
+            self._ledger_snap = self.ledger.snapshot()
 
     def monitor_admitted(self):
         """A boundary monitor on the controller's device, through the
@@ -339,28 +428,37 @@ class _Runtime:
         return out
 
     def ckpt_extra(self, **extra) -> dict:
-        """The checkpoint's sidecar payload: the algorithm and the intent
-        ledger as of the last closed round (a save follows a round's close,
-        or a skipped round that moved nothing), which a resume reconciles
-        against."""
+        """The checkpoint's sidecar payload: the algorithm, the intent ledger
+        as of the last closed round, and churn events no record has carried
+        yet (a skipped round's), which a resume reconciles against."""
         extra["algorithm"] = self.config.algorithm
         if self.ledger is not None:
-            extra["reconcile"] = self.ledger.snapshot()
+            extra["reconcile"] = self._ledger_snap
+        if self.pending_churn:
+            extra["pending_churn"] = [dict(e) for e in self.pending_churn]
         return extra
 
-    def save_checkpoint(self, rnd: int, **extra) -> None:
+    def save_checkpoint(self, rnd: int, state=None, **extra) -> None:
         if self.mgr is not None:
-            self.mgr.save(rnd, self.state, extra=self.ckpt_extra(**extra),
-                          registry=self.registry)
+            self.mgr.save(rnd, self.state if state is None else state,
+                          extra=self.ckpt_extra(**extra), registry=self.registry)
 
     # ---- round-end protocol ----
+
+    def metric_edges(self):
+        """The round-end cost's edge list (``comm_edge_list``), built once
+        per metric-graph object: churn's graph changes rebuild it."""
+        graph = self.metric_graph
+        if self._edge_cache is None or self._edge_cache[0] is not graph:
+            self._edge_cache = (graph, comm_edge_list(graph))
+        return self._edge_cache[1]
 
     def note_fresh_snapshot(self, state) -> None:
         """Adopt a fresh snapshot and queue its round-end metrics on the
         device; they are read only when a record closes on them."""
         self.state = state
         self._pending_end = {
-            "dev": dispatch_round_end(state, self.metric_graph, edges=self._edges)
+            "dev": dispatch_round_end(state, self.metric_graph, edges=self.metric_edges())
         }
 
     def _attach_metrics(self, record: RoundRecord, closer: RoundCloser) -> None:
@@ -385,6 +483,10 @@ class _Runtime:
         closer.defer(dev, decode)
 
     def begin_close(self, record: RoundRecord, closer: RoundCloser, new_state) -> None:
+        if self.churn is not None:
+            # every event since the last record, a skipped round's included
+            record.churn = self.churn.round_info(self.pending_churn)
+            self.pending_churn = []
         if new_state is None:
             # the post-move snapshot failed (or was rejected): finish
             # DEGRADED on the last good snapshot instead of crashing
@@ -403,19 +505,24 @@ class _Runtime:
         self._attach_metrics(record, closer)
 
     def _reconcile_round(self, record: RoundRecord, *, fresh: bool) -> None:
-        """The reconcile plane's step: the admission counts, and on a fresh
-        snapshot the ledger's diff and rate-limited repairs. A degraded
-        round carries only the admission counts and the standing drift."""
+        """The reconcile plane's step: the admission counts, the round's
+        churn events noted on the ledger, and on a fresh snapshot the
+        ledger's diff and rate-limited repairs. A degraded round carries
+        only the admission counts and the standing drift; its churn events
+        wait in the ledger for the next fresh diff."""
         record.reconcile, self._last_drift = reconcile_round_block(
             self.guard,
             self.ledger,
             state=self.state,
             service_names=self.metric_graph.names,
+            churn_events=(record.churn or {}).get("events") or (),
             fresh=fresh,
             last_drift=self._last_drift,
             boundary=self.boundary,
             repair_budget=self.config.repair_budget_per_round,
         )
+        if self.ledger is not None:
+            self._ledger_snap = self.ledger.snapshot()
 
     # ---- per-round helpers ----
 
@@ -437,12 +544,24 @@ class _Runtime:
         self.save_checkpoint(rnd, skipped=True)
 
     def preamble(self, rnd: int) -> bool:
-        """The breaker gate and the half-open probe. Returns False when the
-        round was a counted skip."""
+        """Everything before a round may decide: churn events, the breaker
+        gate, the half-open probe and the churn re-mask. Returns False when
+        the round was a counted skip."""
+        if self.churn is not None:
+            # the cluster churns whether or not the breaker lets this round
+            # run, as real deploys and autoscaling go on under an ailing
+            # controller
+            events = self.churn.step(rnd)
+            if events:
+                self.pending_churn.extend(events)
+                self.remask_needed = True
+                if self.churn.graph_changed:
+                    self.metric_graph = self.boundary.comm_graph().to(self.device)
         mode = self.boundary.begin_round(rnd)
         if mode == OPEN:
             self.skip_round(rnd)
             return False
+        refreshed = False
         if mode == HALF_OPEN:
             # one probe before trusting the backend with a full round; a
             # success closes the breaker and refreshes the stale snapshot
@@ -451,48 +570,88 @@ class _Runtime:
                 self.skip_round(rnd)
                 return False
             self.note_fresh_snapshot(probe)
+            refreshed = True
+        if self.remask_needed and not refreshed:
+            # the carried snapshot predates applied churn: one fresh monitor
+            # realigns pod sets and validity masks (shapes stay in their
+            # buckets); a dark backend makes this a counted skip and the
+            # debt carries to the next executed round
+            fresh = self.monitor_admitted()
+            if fresh is None:
+                self.skip_round(rnd)
+                return False
+            self.note_fresh_snapshot(fresh)
+            refreshed = True
+        if refreshed:
+            self.remask_needed = False
         return True
 
-    def execute_round(self, rnd: int, closer: RoundCloser) -> RoundRecord:
-        """Decide and apply one round's moves (no advance or monitor)."""
+    def solve_graph(self, graph):
+        """The decision graph as a solve takes it. Under churn a deploy or a
+        teardown builds a new adjacency tensor, which would key a new capture
+        (``solver/compiled.py`` keys its operands by identity): the graph's
+        adjacency is written in place into one buffer per bucket shape
+        instead, so a churned run captures each solve shape once plus once
+        a promotion (a promotion clears the backend's solver caches, this
+        slot with them). Static runs pass the graph through."""
+        if self.churn is None:
+            return graph
+        slot = self.boundary.solver_cache("solve_adj")
+        if slot.get("graph") is not graph:
+            buf = slot.get("adj")
+            if buf is None or buf.shape != graph.adj.shape or buf.device != graph.adj.device:
+                buf = graph.adj.clone()
+            else:
+                buf.copy_(graph.adj)
+            slot["graph"], slot["adj"] = graph, buf
+            slot["value"] = dataclasses.replace(graph, adj=buf)
+        return slot["value"]
+
+    def noise_rows(self, rnd: int) -> Callable[[int], torch.Tensor]:
+        """The ``random`` policy's noise row of round ``rnd``'s ``i``-th
+        decision, on the host, asked for in decision order: the
+        ``gumbel_rows`` seam, else the draws of the round's generator."""
+        if self.gumbel_rows is not None:
+            return lambda i: self.gumbel_rows(rnd, i).cpu()
+        gen = round_generator(self.config.seed, rnd)
+        return lambda i: draw_gumbel((self.state.num_nodes,), gen, "cpu")
+
+    def execute_round(self, rnd: int, closer: RoundCloser, pre_fence_hook=None) -> RoundRecord:
+        """Decide and apply one round's moves (no advance or monitor: the
+        schedules own those). ``pre_fence_hook`` runs once after the first
+        decision or solve is queued on the device and before its fence —
+        the pipelined schedule's overlap window."""
         config = self.config
         graph = self.graph_src()
         # every boundary move this round, as the ledger's intents
         intents: list | None = [] if self.ledger is not None else None
         if config.algorithm == "global" or config.moves_per_round == "all":
             record = _global_round(
-                self.boundary, self.state, graph, config, rnd,
+                self.boundary, self.state, self.solve_graph(graph), config, rnd,
                 generator=round_generator(config.seed, rnd),
                 plan=self.solver_plans(rnd) if self.solver_plans is not None else None,
                 closer=closer, registry=self.registry, logger=self.logger,
-                explain=self.explain_k > 0, intents=intents,
+                explain=self.explain_k > 0, intents=intents, pre_fence_hook=pre_fence_hook,
             )
         else:
-            if self.gumbel_rows is not None:
-                def noise(i: int) -> torch.Tensor:
-                    return self.gumbel_rows(rnd, i).to(self.device)
-            else:
-                gen = round_generator(config.seed, rnd)
-
-                def noise(i: int) -> torch.Tensor:
-                    return draw_gumbel((self.state.num_nodes,), gen, "cpu").to(self.device)
-
+            rows = self.noise_rows(rnd)
             record = _greedy_round(self.boundary, self.state, graph, config, rnd,
-                                   noise=noise, registry=self.registry, closer=closer,
+                                   noise=lambda i: rows(i).to(self.device),
+                                   registry=self.registry, closer=closer,
                                    logger=self.logger, explain_k=self.explain_k,
-                                   intents=intents)
+                                   intents=intents, pre_fence_hook=pre_fence_hook)
         if intents:
             t0 = time.perf_counter()
             self.ledger.record_moves(intents)
             record.phase_s["reconcile"] = time.perf_counter() - t0
         return record
 
-    def emit(self, record: RoundRecord) -> None:
+    def emit(self, record: RoundRecord, mode: str = "sequential") -> None:
         """The record's host tail: the result, the round's metrics, the
         logger's round event and ``on_round``."""
         self.result.rounds.append(record)
         _emit_round_metrics(self.registry, self.config.algorithm, record)
-        observe_wall_round(self.registry, "sequential", record.wall_s)
+        observe_wall_round(self.registry, mode, record.wall_s)
         if record.degraded:
             self.registry.counter(
                 "degraded_rounds_total",
@@ -541,6 +700,342 @@ class _Runtime:
         # checkpoint last: a crash in on_round replays this round on resume
         self.save_checkpoint(rnd)
 
+    def advance_and_monitor(self):
+        """The background half of a pipelined round: pace, then the
+        post-move monitor — the boundary calls of the sequential loop in its
+        order, off the main thread. On the card they run on the monitor's
+        own stream, and an event recorded there marks the snapshot's upload
+        done. Returns ``(snapshot or None, event or None, seconds)``."""
+        t0 = time.perf_counter()
+        stream = None
+        if self.device.type == "cuda":
+            if self._monitor_stream is None:
+                self._monitor_stream = torch.cuda.Stream(device=self.device)
+            stream = self._monitor_stream
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            self.boundary.advance(self.config.sleep_after_action_s)
+            out = self.monitor_admitted()
+            event = None
+            if stream is not None:
+                event = torch.cuda.Event()
+                event.record(stream)
+        return out, event, time.perf_counter() - t0
+
+    def adopt_background(self, state, event):
+        """Make a snapshot the background monitor built usable on this
+        thread's stream: wait for its upload, and mark its tensors used here,
+        so the allocator does not hand their memory to the monitor stream's
+        next upload while this stream still reads them."""
+        if event is None:
+            return state
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(event)
+        if state is not None:
+            for f in dataclasses.fields(state):
+                t = getattr(state, f.name)
+                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                    t.record_stream(cur)
+        return state
+
+    # ---- the scanned schedule (bench/scan.py) ----
+
+    def scan_static_reason(self) -> str | None:
+        """Run-level conditions the scanned schedule can never honor, checked
+        once (``config.validate()`` refused the config-level ones). Returns
+        the drain reason, or None when blocks may run."""
+        from kubernetes_rescheduling_tpu_torch.backends.sim_device import scan_compatible
+
+        if self.on_round is not None:
+            # on_round may mutate the backend's load mid-run, which breaks the
+            # twin's placement-only monitor
+            return "on-round"
+        if not scan_compatible(self.boundary.backend):
+            # a wrapper, another backend or a noisy load model
+            return "backend"
+        if self.mgr is not None:
+            # the sequential loop checkpoints every round; a block cannot
+            return "checkpoint"
+        if not self.graph_static:
+            return "streaming-graph"
+        return None
+
+    def scan_block_rounds(self, start: int, rounds: int) -> int:
+        """One scan block: dispatch K rounds on the device, read the block's
+        diagnostics in ONE counted ``round_end`` transfer, then replay the
+        moves into the backend through the boundary in the sequential call
+        order (``begin_round``, ``apply_move``, the ledger's intents,
+        ``advance``), with one admitted monitor at the block's end. The
+        decoded rounds emit ordinary records, equal to the sequential
+        loop's. Returns the rounds consumed: fewer than ``rounds`` when a
+        replayed landing diverged from the twin (the round finishes
+        degraded) or when the tripwire latched (the replay commits the
+        rounds BEFORE the trip, and the report waits in ``scan_trip``)."""
+        config = self.config
+        graph = self.graph_src()
+        scoring = scoring_policy(config.algorithm)
+        mech = PlacementMechanism[scoring]
+        state0 = self.state
+        names = state0.node_names
+        t0 = time.perf_counter()
+        gumbel = None
+        if scoring == "random":
+            gumbel = to_device(torch.stack([self.noise_rows(start + i)(0)
+                                            for i in range(rounds)]), self.device)
+        flat_dev = scan_mod.scan_rounds(
+            state0, graph, self.metric_graph, POLICY_IDS[scoring], config.hazard_threshold_pct,
+            gumbel, self.metric_edges(),
+            tripwire_mod.trip_config_array(config, self.device) if self.scan_tripwire else None,
+            rounds=rounds, pinned=True, explain_k=self.explain_k, tripwire=self.scan_tripwire,
+        )
+        flat = scan_mod.pull_block(flat_dev, self.registry)
+        fence_s = time.perf_counter() - t0
+        scan_mod.count_scan_block(self.registry, rounds)
+        self.scan_trip = None
+        trip = None
+        if self.scan_tripwire:
+            flat, trip = tripwire_mod.split_tripwire(flat, rounds=rounds)
+        views = scan_mod.decode_block(flat, rounds=rounds, num_nodes=state0.num_nodes,
+                                      explain_k=self.explain_k)
+        if trip is not None and trip.tripped:
+            # the trip round decided on a state the rules judged unhealthy:
+            # commit only the rounds before it
+            views = views[:trip.trip_round]
+            tripwire_mod.count_tripwire(self.registry, trip.rules)
+            self.scan_trip = {"round": start + trip.trip_round, "block_start": start,
+                              "block_round": trip.trip_round, "rules": list(trip.rules),
+                              "mask": trip.trip_mask}
+            if self.logger is not None:
+                self.logger.warn("scan_tripwire", **self.scan_trip)
+
+        consumed = 0
+        for i, v in enumerate(views):
+            rnd = start + i
+            t_r = time.perf_counter()
+            self.boundary.begin_round(rnd)  # CLOSED stays CLOSED
+            service_name = graph.names[v.service] if v.victim >= 0 else None
+            target_name = names[v.target] if v.target >= 0 else None
+            hazard_node = names[v.most] if v.most >= 0 else None
+            landed_name: str | None = None
+            diverged = False
+            # the sequential loop's apply condition: a victim and a target
+            attempted = v.victim >= 0 and v.target >= 0
+            if attempted:
+                landed_name = self.boundary.apply_move(MoveRequest(
+                    service=service_name, target_node=target_name,
+                    hazard_nodes=tuple(names[j] for j in np.flatnonzero(v.hazard)),
+                    mechanism=mech,
+                ))
+                if self.ledger is not None:
+                    self.ledger.record_moves([move_intent(mech, service_name, target_name,
+                                                          landed_name)])
+                expected = names[v.landed] if v.landed >= 0 else None
+                if landed_name != expected:
+                    # the backend disagrees with the twin: every later decision
+                    # of the block saw a diverged state. Finish this round
+                    # degraded, resync on a fresh monitor and hand the rest
+                    # back to the per-round path
+                    diverged = True
+                    count_divergence(self.registry, KIND_UNKNOWN_LANDING)
+                    if self.logger is not None:
+                        self.logger.warn("scan_twin_divergence", round=rnd,
+                                         service=service_name, expected=expected,
+                                         landed=landed_name)
+            moved = attempted and landed_name is not None
+            record = RoundRecord(
+                round=rnd,
+                moved=moved,
+                most_hazard=hazard_node,
+                service=service_name if moved else None,
+                target=landed_name if moved else None,
+                communication_cost=v.cost,
+                load_std=v.load_std,
+                services_moved=(service_name,) if moved else (),
+                decision_latencies_s=(fence_s / rounds,),
+                applied_moves=((service_name, landed_name),) if moved else (),
+                degraded=diverged,
+                phase_s={"scan": fence_s / rounds},
+            )
+            if v.explain is not None:
+                expl = greedy_explanation(
+                    v.explain, names, round=rnd, seq=0, policy=config.algorithm,
+                    service=service_name, hazard_node=hazard_node,
+                    chosen=target_name if v.victim >= 0 else None,
+                )
+                if attempted:
+                    # the apply outcome, as the sequential loop patches it in
+                    expl["landed"] = landed_name
+                    expl["applied"] = landed_name is not None
+                    if landed_name is None:
+                        expl["stop"] = "boundary move failed"
+                        expl["why"] += " (boundary move failed)"
+                record.explanations = (expl,)
+                if self.logger is not None:
+                    self.logger.info("decision", **expl)
+            self.boundary.advance(config.sleep_after_action_s)
+            fresh = False
+            if i == len(views) - 1 or diverged:
+                # the block's end: ONE admitted monitor realigns the
+                # controller with the backend and arms the degraded-close
+                # fallback for a following drained round
+                new_state = self.monitor_admitted()
+                if new_state is None:
+                    record.degraded = True
+                else:
+                    self.note_fresh_snapshot(new_state)
+                    fresh = True
+            self._reconcile_round(record, fresh=fresh)
+            record.breaker_state = self.breaker.state
+            record.boundary_failures = self.boundary.round_failures
+            record.wall_s = fence_s / rounds + time.perf_counter() - t_r
+            self.emit(record, mode="scanned")
+            consumed += 1
+            if diverged:
+                break
+        return consumed
+
+
+def _sequential_loop(rt: _Runtime) -> None:
+    for rnd in range(rt.start_round, rt.config.max_rounds + 1):
+        rt.sequential_round(rnd)
+
+
+def _pipelined_loop(rt: _Runtime) -> None:
+    """The software-pipelined schedule (``config.pipeline``): in a steady
+    round the previous round's flush, record and ``on_round`` run while this
+    round's decision or solve executes on the device (``pre_fence_hook``),
+    and the post-move advance + monitor run on a background thread while
+    the main thread writes the previous round's checkpoint. The backend
+    sees the sequential call order — apply(r), advance, monitor(r),
+    [on_round(r)], apply(r+1), ... — which is why the records equal the
+    sequential loop's.
+
+    Rounds that cannot pipeline — churn (the sequential loop re-masks before
+    deciding), a streaming decision graph, or a breaker that is not CLOSED —
+    drain the pipeline (the pending round finishes) and run sequentially,
+    so the skip and degraded accounting stays exact: ``max_rounds ==
+    records + skipped``."""
+    cfg = rt.config
+    depth = cfg.pipeline_depth
+    pipeline_depth_gauge(rt.registry).set(depth)
+    overlap_gauge = pipeline_overlap_gauge(rt.registry)
+    ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="krt-boundary")
+    pend: dict | None = None  # the one round in flight (depth 2)
+    mon_future = None
+
+    def finish(p: dict, end_t: float | None = None) -> None:
+        if p["closed"]:
+            return
+        p["closed"] = True
+        rec = p["record"]
+        bg, blocked = p["bg_s"], p["blocked_s"]
+        ratio = max(bg - blocked, 0.0) / bg if bg > 1e-9 else 0.0
+        rec.pipeline = {"depth": depth, "overlap_ratio": ratio, "background_s": bg,
+                        "blocked_s": blocked}
+        overlap_gauge.set(ratio)
+        p["closer"].flush()
+        # wall: round start to the NEXT round's start when pipelined, so
+        # per-round walls sum to the loop's total
+        rec.wall_s = (end_t if end_t is not None else time.perf_counter()) - p["t0"]
+        rt.emit(rec, mode="pipelined")
+
+    def checkpoint(p: dict) -> None:
+        rt.save_checkpoint(p["rnd"], p["state"])
+
+    def settle(p: dict, future) -> None:
+        """Join the pending round's advance + monitor and run its close."""
+        t_w = time.perf_counter()
+        new_state, event, bg_s = future.result()
+        p["blocked_s"] = time.perf_counter() - t_w
+        p["bg_s"] = bg_s
+        p["record"].phase_s["monitor"] = bg_s
+        rt.begin_close(p["record"], p["closer"], rt.adopt_background(new_state, event))
+        p["state"] = rt.state
+
+    try:
+        for rnd in range(rt.start_round, cfg.max_rounds + 1):
+            if mon_future is not None:
+                # settle the pending round's monitor BEFORE this round's
+                # begin_round resets the failure counters
+                settle(pend, mon_future)
+                mon_future = None
+            can_pipeline = (rt.churn is None and rt.graph_static
+                            and rt.breaker.state == CLOSED)
+            if pend is not None and not can_pipeline:
+                finish(pend)
+                checkpoint(pend)
+                pend = None
+            if not can_pipeline:
+                rt.sequential_round(rnd)
+                continue
+            rt.boundary.begin_round(rnd)  # CLOSED stays CLOSED
+            t0 = time.perf_counter()
+            closer = RoundCloser(rt.registry)
+            hook = None
+            if pend is not None:
+                def hook(prev=pend, end_t=t0):
+                    finish(prev, end_t)
+
+            record = rt.execute_round(rnd, closer, pre_fence_hook=hook)
+            if pend is not None:
+                # a round that never reached its fence still owes the
+                # previous round its close
+                finish(pend)
+            prev_pend = pend
+            mon_future = ex.submit(rt.advance_and_monitor)
+            if prev_pend is not None:
+                # host IO overlapping the background monitor
+                checkpoint(prev_pend)
+            pend = {"rnd": rnd, "record": record, "closer": closer, "t0": t0,
+                    "closed": False, "bg_s": 0.0, "blocked_s": 0.0, "state": rt.state}
+        # the tail: the last round's monitor and close
+        if mon_future is not None:
+            settle(pend, mon_future)
+        if pend is not None:
+            finish(pend)
+            checkpoint(pend)
+    finally:
+        ex.shutdown(wait=True)
+
+
+def _scanned_loop(rt: _Runtime) -> None:
+    """The scanned schedule (``config.scan_block`` K): steady-state rounds
+    advance K at a time through one device block and one counted
+    ``round_end`` transfer (``bench/scan.py``), the moves replayed into the
+    backend afterwards in the sequential call order. A round the scan
+    cannot honor — churn or re-mask debt, a breaker that is not CLOSED, a
+    checkpoint manager, an incompatible backend, a streaming decision
+    graph, an ``on_round`` hook, or a tail shorter than one block — DRAINS
+    to the sequential path, counted in ``scan_drains_total{reason}``; a
+    tripped block drains its trip round under ``tripwire``."""
+    cfg = rt.config
+    k = cfg.scan_block
+    static_reason = rt.scan_static_reason()
+    rnd = rt.start_round
+    while rnd <= cfg.max_rounds:
+        reason = static_reason
+        if reason is None:
+            if rt.churn is not None or rt.pending_churn or rt.remask_needed:
+                reason = "churn"
+            elif rt.breaker.state != CLOSED:
+                reason = "breaker"
+            elif cfg.max_rounds - rnd + 1 < k:
+                # a partial block would be a new capture per tail length
+                reason = "tail"
+        if reason is not None:
+            scan_mod.count_scan_drain(rt.registry, reason)
+            rt.sequential_round(rnd)
+            rnd += 1
+            continue
+        rnd += rt.scan_block_rounds(rnd, k)
+        if rt.scan_trip is not None:
+            # the replay committed the rounds before the trip; the trip round
+            # re-runs on the per-round path (the same decision: the same
+            # state and noise row), which guarantees progress
+            scan_mod.count_scan_drain(rt.registry, "tripwire")
+            rt.scan_trip = None
+            rt.sequential_round(rnd)
+            rnd += 1
+
 
 def run_controller(
     backend: Backend,
@@ -552,6 +1047,7 @@ def run_controller(
     checkpoint_dir: str | None = None,
     graph=None,
     on_round: Callable | None = None,
+    churn=None,
     gumbel_rows: Callable[[int, int], torch.Tensor] | None = None,
     solver_plans: Callable[[int], list] | None = None,
 ) -> ControllerResult:
@@ -586,10 +1082,22 @@ def run_controller(
 
     ``checkpoint_dir`` makes the run resumable: the post-move snapshot and
     the ledger's intent are saved every round (the JAX package's format),
-    and a start finds the latest checkpoint, restores the simulator's
-    placement (``restore_placement``) and skips the completed rounds.
-    Round ``r``'s draws depend only on ``(config.seed, r)``, so a resumed
-    run decides as the uninterrupted one would.
+    and a start finds the latest checkpoint, replays the churn stream over
+    the completed rounds, restores the simulator's placement
+    (``restore_placement``) and skips the completed rounds. Round ``r``'s
+    draws depend only on ``(config.seed, r)``, so a resumed run decides as
+    the uninterrupted one would.
+
+    Churn: ``churn`` (an ``elastic.engine.ChurnEngine``, or one built from
+    ``config.elastic``) applies seeded events between rounds through the
+    boundary's passthrough; snapshots stay padded to the shape buckets, and
+    a round that churned re-reads the comm graph and re-monitors before it
+    decides. The events land on ``RoundRecord.churn`` and on the intent
+    ledger, which re-anchors instead of counting them as drift.
+
+    ``config.pipeline`` and ``config.scan_block`` pick the pipelined or the
+    scanned schedule (module docstring); the records equal the sequential
+    loop's apart from timing fields.
 
     ``graph`` overrides the backend's declared graph for the decisions (a
     zero-argument callable is re-read every round); the metrics stay on the
@@ -601,24 +1109,29 @@ def run_controller(
     solver's per-sweep plans, in place of the round's generator (the tests
     feed both from the JAX package's key stream).
 
-    Not carried yet (refused by ``config.validate()``): the pipelined and
-    scanned schedules, the ops plane, churn, forecast, chaos and shadow.
+    Not carried yet (refused by ``config.validate()``): the ops plane,
+    forecast, fleet, serving, chaos and shadow.
     """
     config = config.validate()
     dev = resolve_device(device)
     registry = registry if registry is not None else get_registry()
     rt = _Runtime(backend, config, device=dev, registry=registry, gumbel_rows=gumbel_rows,
                   solver_plans=solver_plans, logger=logger, checkpoint_dir=checkpoint_dir,
-                  graph=graph, on_round=on_round)
-    for rnd in range(rt.start_round, config.max_rounds + 1):
-        rt.sequential_round(rnd)
+                  graph=graph, on_round=on_round, churn=churn)
+    if config.scan_block:
+        _scanned_loop(rt)
+    elif config.pipeline:
+        _pipelined_loop(rt)
+    else:
+        _sequential_loop(rt)
     rt.result.breaker_transitions = list(rt.breaker.transitions)
     rt.result.boundary_failures = rt.boundary.total_failures
     return rt.result
 
 
 def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry, closer,
-                  logger=None, explain_k: int = 0, intents=None) -> RoundRecord:
+                  logger=None, explain_k: int = 0, intents=None,
+                  pre_fence_hook=None) -> RoundRecord:
     """Up to ``config.moves_per_round`` greedy moves: after each move the
     working snapshot re-homes the moved service (reference main.py:73's
     ``edit_cluster`` intent, done correctly), so the next decision sees the
@@ -629,7 +1142,10 @@ def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry, close
     With ``explain_k > 0`` each decide is :func:`decide_explain` (the same
     decision) and its bundle rides the round's single round-end transfer;
     the ``DecisionExplanation`` is built at flush, with the apply outcome
-    recorded during the round."""
+    recorded during the round.
+
+    ``pre_fence_hook`` (the pipelined schedule) runs once, after the first
+    decision is queued on the device and before its fence."""
     scoring = scoring_policy(config.algorithm)
     pid = POLICY_IDS[scoring]
     mechanism = PlacementMechanism[scoring]
@@ -937,7 +1453,7 @@ def _solver_config(config: RescheduleConfig) -> GlobalSolverConfig:
 
 
 def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, registry,
-               logger=None, explain=False, intents=None) -> RoundRecord:
+               logger=None, explain=False, intents=None, pre_fence_hook=None) -> RoundRecord:
     """Per-replica global round: one solve on the pod-level graph, then the
     moved pods in one ``apply_pod_moves`` wave (the simulator's; the JAX
     package's per-pod ``apply_move`` for a backend without it waits with
@@ -962,6 +1478,9 @@ def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, 
     pod_graph = cache["value"]
     new_state, info = global_assign_pods(state, graph, generator, _solver_config(config),
                                          pod_graph=pod_graph, plan=plan)
+    if pre_fence_hook is not None:
+        # the pipelined overlap window, while the solve executes
+        pre_fence_hook()
     # the apply boundary: ONE batched host read of the new placement
     (new_nodes,) = fence([new_state.pod_node], registry)
     latency = time.perf_counter() - t0
@@ -1031,7 +1550,8 @@ def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, 
 
 
 def _global_round(boundary, state, graph, config, rnd, *, generator, plan, closer,
-                  registry, logger=None, explain=False, intents=None) -> RoundRecord:
+                  registry, logger=None, explain=False, intents=None,
+                  pre_fence_hook=None) -> RoundRecord:
     """One batched solve (one restart, tp 1), then every service whose node
     changed is moved — or, with a numeric ``global_moves_cap``, the wave
     cap's selection. ``placement_unit="pod"`` takes :func:`_pod_round`. The
@@ -1041,7 +1561,7 @@ def _global_round(boundary, state, graph, config, rnd, *, generator, plan, close
     if config.placement_unit == "pod":
         return _pod_round(boundary, state, graph, config, rnd, generator=generator, plan=plan,
                           closer=closer, registry=registry, logger=logger, explain=explain,
-                          intents=intents)
+                          intents=intents, pre_fence_hook=pre_fence_hook)
     cfg = _solver_config(config)
     t0 = time.perf_counter()
     if config.solver_backend == "sparse":
@@ -1056,6 +1576,9 @@ def _global_round(boundary, state, graph, config, rnd, *, generator, plan, close
         new_state, info = global_assign_sparse(state, cache["value"], generator, cfg, plan=plan)
     else:
         new_state, info = global_assign(state, graph, generator, cfg, plan=plan)
+    if pre_fence_hook is not None:
+        # the pipelined overlap window, while the solve executes
+        pre_fence_hook()
     # the apply boundary: ONE batched host read of the old and new placement
     old_nodes, new_nodes, valid, svc_arr = fence(
         [state.pod_node, new_state.pod_node, state.pod_valid, state.pod_service], registry

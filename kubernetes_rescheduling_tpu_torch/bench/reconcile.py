@@ -31,10 +31,10 @@ boundary's ``landed`` return is only what the cluster claimed. The
                             round, ``bench/controller.py``)
   ========================  =====================================================
 
-  A pod whose intended node died or left the cluster is consumed as a node
-  event. The JAX package's churn events (deploys, teardowns, autoscaling,
-  node drain/add), which re-anchor intent, wait with the churn plane
-  (ROADMAP Queue 1 item 3).
+  Churn events (``RoundRecord.churn``) are consumed FIRST: deploys,
+  teardowns, autoscaling and node drain/add re-anchor the affected intent
+  instead of reading as drift, and a pod whose intended node died or left
+  the cluster is consumed as a node event, never charged.
 
 - queues **rate-limited corrective moves** (:meth:`IntentLedger.issue_repairs`:
   pod-granular ``MoveRequest``s; the JAX package's Deployment-scoped ones,
@@ -124,11 +124,19 @@ class IntentLedger:
         self.logger = logger
         self.intent: dict[str, str | None] = {}  # pod name -> node name
         self.pod_service: dict[str, str] = {}
+        # each service's pods in pod_service's order (record_moves' index),
+        # built at first use after pod_service changed
+        self._pods_of: dict[str, list[str]] | None = None
         # moves since the last observe: pod -> {service, requested,
         # landed, old} (what the boundary claimed, for classification)
         self.moves: dict[str, dict] = {}
         # pending corrective moves: pod -> {service, target, kind}
         self.repairs: dict[str, dict] = {}
+        # churn events noted but not yet consumed by an observe(): a
+        # degraded round has no admitted snapshot to diff, so its events
+        # wait here for the next fresh diff (else a teardown applied on a
+        # degraded round would read as missing pods two rounds later)
+        self.pending_events: list[dict] = []
         self._phantom_streak: dict[str, int] = {}
         self._missing_streak: dict[str, int] = {}
         self._primed = False
@@ -164,13 +172,13 @@ class IntentLedger:
     # ---- persistence (checkpoint extra) ----
 
     def snapshot(self) -> dict:
-        """JSON-able intent for the checkpoint sidecar, in the JAX
-        package's layout (its ``pending_events``, the churn events a
-        degraded round leaves for the next diff, are always none here)."""
+        """JSON-able intent for the checkpoint sidecar, in the JAX package's
+        layout (the pending churn events included: a checkpoint taken on a
+        degraded round must not lose the events its next diff consumes)."""
         return {
             "intent": dict(self.intent),
             "pod_service": dict(self.pod_service),
-            "pending_events": [],
+            "pending_events": [dict(e) for e in self.pending_events],
         }
 
     def restore(self, snap: dict | None) -> None:
@@ -179,13 +187,10 @@ class IntentLedger:
         the first snapshot blindly."""
         if not snap or not snap.get("intent"):
             return
-        if snap.get("pending_events"):
-            raise ValueError(
-                "the checkpoint's intent holds churn events, which the port "
-                "does not carry yet (ROADMAP Queue 1 item 3)"
-            )
         self.intent = dict(snap["intent"])
         self.pod_service = dict(snap.get("pod_service") or {})
+        self._pods_of = None
+        self.pending_events = [dict(e) for e in snap.get("pending_events") or []]
         self._primed = True
 
     # ---- intent sources ----
@@ -238,13 +243,20 @@ class IntentLedger:
         re-anchor)."""
         self.intent, self.pod_service = self._observed(
             state, service_names, self._host(state, host_arrays))
+        self._pods_of = None
         self.moves.clear()
         self.repairs.clear()
+        self.pending_events.clear()
         self._phantom_streak.clear()
         self._missing_streak.clear()
         self._primed = True
         self._recent_states.append(state)
         self._set_gauge()
+
+    def note_churn(self, events) -> None:
+        """Queue churn events for the NEXT observe: the loop notes them every
+        round, whether or not the round has an admitted snapshot."""
+        self.pending_events.extend(events)
 
     def record_moves(self, intents) -> None:
         """One entry per boundary move this round:
@@ -253,22 +265,11 @@ class IntentLedger:
         Deployment moved (the service-unit mechanisms), a name means one
         replica (pod mode / repairs). A failed move (``landed is None``)
         changes no intent."""
-        # each service's pods, in pod_service's order, built once a call:
-        # a global round records one Deployment move per service, and a
-        # scan of every pod per move is O(services x pods)
-        pods_of: dict[str, list[str]] | None = None
         for entry in intents:
             service, pod, requested, landed = entry
             if landed is None:
                 continue
-            if pod is not None:
-                pods = [pod]
-            else:
-                if pods_of is None:
-                    pods_of = {}
-                    for p, s in self.pod_service.items():
-                        pods_of.setdefault(s, []).append(p)
-                pods = pods_of.get(service, [])
+            pods = [pod] if pod is not None else self._service_pods().get(service, [])
             for p in pods:
                 self.moves[p] = {
                     "service": service,
@@ -283,10 +284,13 @@ class IntentLedger:
 
     # ---- the reconcile diff ----
 
-    def observe(self, state, *, service_names=(), host_arrays=None) -> dict:
+    def observe(self, state, *, service_names=(), churn_events=(), host_arrays=None) -> dict:
         """Diff one admitted snapshot against intent: classify + count
         divergences, queue corrective moves, return the round's
         ``reconcile`` payload piece (``{"divergences": [...]}``).
+
+        Churn events come from ``churn_events`` plus anything queued with
+        :meth:`note_churn` (consumed here either way).
 
         ``host_arrays`` lets the admission guard hand over the snapshot fields it already
         pulled for THIS state object (``AdmissionGuard.host_arrays``) so
@@ -300,8 +304,8 @@ class IntentLedger:
             # back) carries no new observation — re-diffing it would
             # misread every in-flight move as lost (the pre-move
             # placement shows again) and rewind confirmed moves into
-            # phantom drift. Moves stay queued for the next genuinely
-            # fresh diff. (A live API serving stale
+            # phantom drift. Moves and pending churn stay queued for the
+            # next genuinely fresh diff. (A live API serving stale
             # DATA in a fresh object is undetectable here by
             # construction — that is what the debounce and the repair
             # loop's convergence absorb.)
@@ -310,6 +314,20 @@ class IntentLedger:
         host = self._host(state, host_arrays)
         node_valid = host["node_valid"]
         obs, svc_of = self._observed(state, service_names, host)
+        events = (*self.pending_events, *churn_events)
+        self.pending_events = []
+        ev_services: set[str] = set()
+        ev_nodes: set[str] = set()
+        for ev in events:
+            kind = ev.get("kind")
+            if kind in ("service_deploy", "service_teardown", "replica_scale"):
+                if ev.get("service"):
+                    ev_services.add(ev["service"])
+            elif kind in ("node_drain", "node_add"):
+                if ev.get("node"):
+                    ev_nodes.add(ev["node"])
+            elif kind == "spot_preemption":
+                ev_nodes.update(ev.get("nodes") or ())
         known_nodes = set(state.node_names)
         alive = {
             state.node_names[int(i)]
@@ -336,9 +354,13 @@ class IntentLedger:
         for pod, expected in list(self.intent.items()):
             service = self.pod_service.get(pod)
             if pod not in obs:
-                # gone from the snapshot: a lagging watch cache gets one
-                # round of grace (debounce); anything left is a missing
+                # gone from the snapshot: a teardown or scale-down (churn
+                # events) and node events consume; a lagging watch cache gets
+                # one round of grace (debounce); anything left is a missing
                 # pod — counted once, then re-anchored
+                if service in ev_services or expected in ev_nodes:
+                    self._drop(pod)
+                    continue
                 streak = self._missing_streak.get(pod, 0) + 1
                 if streak < _DEBOUNCE:
                     self._missing_streak[pod] = streak
@@ -380,6 +402,11 @@ class IntentLedger:
                 self.intent[pod] = observed
                 self.repairs.pop(pod, None)
                 continue
+            elif service in ev_services or observed in ev_nodes:
+                # churn re-placed it (a deploy wave, a drain's rescheduling)
+                self.intent[pod] = observed
+                self.repairs.pop(pod, None)
+                continue
             else:
                 kind = KIND_EXTERNAL_DRIFT
             rep = self.repairs.get(pod)
@@ -417,6 +444,9 @@ class IntentLedger:
             if pod in self.intent:
                 continue
             service = svc_of.get(pod)
+            if service in ev_services or observed in ev_nodes:
+                self._adopt(pod, observed, service)
+                continue
             streak = self._phantom_streak.get(pod, 0) + 1
             if streak < _DEBOUNCE:
                 self._phantom_streak[pod] = streak
@@ -436,9 +466,21 @@ class IntentLedger:
         self._set_gauge()
         return {"divergences": divergences}
 
+    def _service_pods(self) -> dict[str, list[str]]:
+        """Each service's pods, in pod_service's order: a global round
+        records one Deployment move per service, and a scan of every pod
+        per move is O(services x pods)."""
+        if self._pods_of is None:
+            pods_of: dict[str, list[str]] = {}
+            for p, s in self.pod_service.items():
+                pods_of.setdefault(s, []).append(p)
+            self._pods_of = pods_of
+        return self._pods_of
+
     def _drop(self, pod: str) -> None:
         self.intent.pop(pod, None)
         self.pod_service.pop(pod, None)
+        self._pods_of = None
         self.repairs.pop(pod, None)
         self._missing_streak.pop(pod, None)
 
@@ -446,6 +488,7 @@ class IntentLedger:
         self.intent[pod] = node
         if service is not None:
             self.pod_service[pod] = service
+            self._pods_of = None
         self._phantom_streak.pop(pod, None)
 
     # ---- corrective moves ----
@@ -511,6 +554,7 @@ def reconcile_round_block(
     *,
     state,
     service_names,
+    churn_events=(),
     fresh: bool,
     last_drift: int,
     boundary,
@@ -519,6 +563,10 @@ def reconcile_round_block(
     """One round of the reconciliation plane:
 
     - the admission guard's per-round counts always ride the block;
+    - churn events are NOTED every round — a degraded round (``fresh=False``)
+      has no admitted snapshot to diff, so its events wait in the ledger for
+      the next fresh observe (legitimate churn never reads as phantom or
+      missing pods);
     - a fresh round diffs observed vs intent (reusing the guard's
       already-pulled host arrays — no second transfer) and issues
       rate-limited repairs through the boundary;
@@ -535,6 +583,7 @@ def reconcile_round_block(
             block["admission"] = adm
     drift = last_drift
     if ledger is not None:
+        ledger.note_churn(churn_events)
         if fresh:
             diff = ledger.observe(
                 state,

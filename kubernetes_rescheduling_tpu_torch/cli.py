@@ -7,6 +7,9 @@ package's commands for what the port computes.
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm global --scenario large
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm global --global-moves-cap 10
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm global --placement-unit pod
+    python -m kubernetes_rescheduling_tpu_torch reschedule --scenario large --scan-block 10
+    python -m kubernetes_rescheduling_tpu_torch reschedule --scenario large --pipeline
+    python -m kubernetes_rescheduling_tpu_torch reschedule --churn-profile diurnal-autoscale
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --sparse
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --placement-unit pod
@@ -18,7 +21,10 @@ All run on the card unless ``--device cpu`` is given. ``--sparse`` (and
 form of the scenario's graph; ``--placement-unit pod`` re-places every pod
 on its own, on the pod-level sparse graph; ``--latency-budget`` picks the
 sweep count that fills that many ms of device time a round
-(``solver/autotune.py``). Best-of-N restarts and node sharding
+(``solver/autotune.py``). ``reschedule --pipeline`` runs the pipelined
+schedule, ``--scan-block K`` the scanned one (K rounds a device block, with
+the in-block tripwires), and ``--churn-profile`` churns the cluster between
+rounds. Best-of-N restarts and node sharding
 (``--restarts``, ``--tp`` above 1) and the telemetry files
 (``--metrics-out``, ``--trace-out``) are refused, naming the ROADMAP item
 that brings them.
@@ -115,6 +121,39 @@ def build_parser() -> argparse.ArgumentParser:
                         "global round ('all' = uncapped)")
     r.add_argument("--placement-unit", default="service", choices=["service", "pod"],
                    help="pod = every replica places independently (global algorithm)")
+    r.add_argument("--churn-profile", default="none", metavar="NAME",
+                   help="elastic topology churn between rounds under this seeded profile "
+                        "(none|steady|diurnal-autoscale|deploy-waves|node-flap): services "
+                        "deploy and tear down, replicas autoscale, nodes drain and join")
+    r.add_argument("--churn-seed", type=int, default=0,
+                   help="seed of the churn event stream")
+    r.add_argument("--pipeline", action="store_true",
+                   help="the software-pipelined loop: the previous round's round-end "
+                        "transfer and record overlap this round's device work, and the "
+                        "post-move monitor runs on a background thread; the records equal "
+                        "the sequential loop's. Rounds it cannot honor (open breaker, "
+                        "churn) drain to the sequential path")
+    r.add_argument("--pipeline-depth", type=int, default=2,
+                   help="depth of the pipelined loop; only 2 is implemented")
+    r.add_argument("--scan-block", type=int, default=0,
+                   help="the scanned schedule: K steady-state rounds a device block (decide, "
+                        "the simulator's twin and the round-end metrics, one counted "
+                        "round_end transfer a block); rounds it cannot honor drain to the "
+                        "per-round path. A pinning greedy algorithm with one move a round; "
+                        "exclusive with --pipeline. 0 = off")
+    r.add_argument("--no-scan-tripwires", action="store_true",
+                   help="turn off the in-block tripwires (device-side health rules in the "
+                        "scan body; a trip latches the rest of the block to no-move rounds "
+                        "and drains the trip round)")
+    r.add_argument("--tripwire-cost-frac", type=float, default=0.0,
+                   help="tripwire cost_regression rule: cost rising more than this fraction "
+                        "above the block-start baseline trips (0 = off)")
+    r.add_argument("--tripwire-load-factor", type=float, default=0.0,
+                   help="tripwire load_std_spike rule: load std above this factor of the "
+                        "block-start baseline trips (0 = off)")
+    r.add_argument("--tripwire-hazard-streak", type=int, default=0,
+                   help="tripwire hazard_streak rule: the same most-hazardous node this many "
+                        "rounds in a row trips (0 = off)")
     r.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
 
@@ -206,6 +245,15 @@ def cmd_reschedule(args) -> dict:
         capacity_frac=args.capacity_frac if args.capacity_frac is not None else 1.0,
         seed=args.seed,
         backend=args.backend,
+        pipeline=args.pipeline,
+        pipeline_depth=args.pipeline_depth,
+        scan_block=args.scan_block,
+        scan_tripwires=not args.no_scan_tripwires,
+        tripwire_cost_frac=args.tripwire_cost_frac,
+        tripwire_load_factor=args.tripwire_load_factor,
+        tripwire_hazard_streak=args.tripwire_hazard_streak,
+        elastic=args.churn_profile,
+        elastic_seed=args.churn_seed,
     )
     try:
         cfg.validate()

@@ -3,11 +3,14 @@
 sequential control loop on the simulator reads it.
 
 Fields of the JAX package's nested blocks are flat here, named after
-their block (``reconcile_admission`` is ``reconcile.admission``), with the
-JAX package's defaults. The config also carries planes this port does not
-have yet: each keeps a field whose default is off, and
-:meth:`RescheduleConfig.validate` refuses it, naming the ROADMAP item that
-brings it — a run never quietly does something else.
+their block (``reconcile_admission`` is ``reconcile.admission``,
+``pipeline_depth`` is ``controller.depth``, ``elastic_seed`` is
+``elastic.seed``, the tripwire fields are ``obs.*``), with the JAX
+package's defaults, and :meth:`RescheduleConfig.validate` refuses what the
+JAX package refuses, for the same reasons. The config also carries planes
+this port does not have yet: each keeps a field whose default is off, and
+``validate`` refuses it, naming the ROADMAP item that brings it — a run
+never quietly does something else.
 """
 
 from __future__ import annotations
@@ -18,6 +21,16 @@ from kubernetes_rescheduling_tpu_torch.policies.scoring import POLICY_NAMES
 from kubernetes_rescheduling_tpu_torch.utils.retry import RetryPolicy
 
 ALGORITHMS: tuple[str, ...] = POLICY_NAMES + ("global",)
+
+# greedy policies whose placement mechanism PINS the landing node: the
+# scanned schedule replays their moves knowing where they land.
+# kubescheduling is absent: its affinityOnly landing is the scheduler's,
+# and a block must not bet K decisions on an f32 twin of the simulator's
+# f64 choice
+SCAN_POLICIES: tuple[str, ...] = ("spread", "binpack", "random", "communication")
+
+# the named churn profiles of elastic/events.py
+ELASTIC_PROFILES: tuple[str, ...] = ("steady", "diurnal-autoscale", "deploy-waves", "node-flap")
 
 
 @dataclass(frozen=True)
@@ -75,14 +88,30 @@ class RescheduleConfig:
     explain: bool = True
     explain_top_k: int = 3
 
+    # the schedules (controller.*): the software-pipelined loop (depth 2
+    # only), or K steady-state rounds a scan block (0 = off); exclusive
+    pipeline: bool = False
+    pipeline_depth: int = 2
+    scan_block: int = 0
+
+    # in-block tripwires of the scanned schedule (obs.*): the plane (its
+    # non_finite rule always armed) and the threshold rules (0 = rule off)
+    scan_tripwires: bool = True
+    tripwire_cost_frac: float = 0.0
+    tripwire_load_factor: float = 0.0
+    tripwire_hazard_streak: int = 0
+
+    # elastic churn (elastic.*): the profile applied between rounds, its
+    # seed, and the floor of the shape buckets
+    elastic: str = "none"
+    elastic_seed: int = 0
+    bucket_floor: int = 8
+
     # planes of the JAX package that this port does not carry yet
     chaos: str = "none"          # chaos.profile
-    elastic: str = "none"        # elastic.profile
     shadow: bool = False         # shadow.enabled
     fleet: int = 0               # fleet.tenants
     serving: bool = False        # serving.enabled
-    pipeline: bool = False       # controller.pipeline
-    scan_block: int = 0          # controller.scan_block
 
     def validate(self) -> "RescheduleConfig":
         if self.algorithm == "proactive":
@@ -136,12 +165,9 @@ class RescheduleConfig:
         self.retry.validate()
         refused = (
             (self.chaos != "none", "chaos injection (backends/chaos.py)", 4),
-            (self.elastic != "none", "elastic churn (elastic/)", 3),
             (self.shadow, "shadow mode (bench/shadow.py)", 4),
             (self.fleet > 0, "fleet mode", 3),
             (self.serving, "the serving plane", 3),
-            (self.pipeline, "the pipelined schedule", 3),
-            (self.scan_block > 0, "the scanned schedule (bench/scan.py)", 3),
         )
         for on, what, item in refused:
             if on:
@@ -165,4 +191,54 @@ class RescheduleConfig:
             )
         if self.explain_top_k < 1:
             raise ValueError("explain_top_k must be >= 1")
+        self._validate_schedules()
+        self._validate_elastic()
         return self
+
+    def _validate_schedules(self) -> None:
+        if self.pipeline_depth != 2:
+            raise ValueError(
+                "controller pipeline depth must be 2 (the only implemented schedule: one "
+                f"round closing while the next decides), got {self.pipeline_depth}"
+            )
+        if self.scan_block < 0:
+            raise ValueError(
+                f"controller scan_block must be >= 0 (0 = scanned schedule off), "
+                f"got {self.scan_block}"
+            )
+        if self.scan_block and self.pipeline:
+            raise ValueError(
+                "controller scan_block and pipeline are mutually exclusive schedules of "
+                "the same loop: the scan already amortizes dispatch and transfer over K "
+                "rounds, so there is no per-round tail left to overlap"
+            )
+        if self.scan_block:
+            # decisions made outside the scan body are refused here; churn,
+            # checkpoints and load hooks drain per round at run time instead
+            if self.algorithm not in SCAN_POLICIES:
+                raise ValueError(
+                    f"controller scan_block requires a pinning greedy algorithm "
+                    f"{sorted(SCAN_POLICIES)} (got {self.algorithm!r}: global/pod solvers "
+                    "and the forecast plane decide outside the scan body, and "
+                    "kubescheduling's affinityOnly landing belongs to the scheduler, not "
+                    "the twin)"
+                )
+            if self.moves_per_round != 1:
+                raise ValueError(
+                    "controller scan_block requires moves_per_round=1 (the scan body is "
+                    "the reference-faithful one-decision round)"
+                )
+        for name, rule in (("tripwire_cost_frac", "cost_regression"),
+                           ("tripwire_load_factor", "load_std_spike"),
+                           ("tripwire_hazard_streak", "hazard_streak")):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0 (0 disables the {rule} tripwire rule)")
+
+    def _validate_elastic(self) -> None:
+        valid = ("none",) + ELASTIC_PROFILES
+        if self.elastic not in valid:
+            raise ValueError(
+                f"unknown churn profile {self.elastic!r}; expected one of {sorted(valid)}"
+            )
+        if self.bucket_floor < 1:
+            raise ValueError(f"bucket_floor must be >= 1, got {self.bucket_floor}")

@@ -7,7 +7,6 @@ percent that hazard detection compares.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
@@ -45,26 +44,26 @@ def comm_edge_list(graph: CommGraph):
     ``(src i64[E], dst i64[E], w f32[E])`` tensors on the graph's device —
     the static structure :func:`communication_cost_edges` contracts.
 
-    E is padded up to the next power of two (floor 8) with zero-weight
-    self-edges, as in the JAX package (a padding row adds ``0·cross``).
-    Build once per graph and reuse."""
-    adj = graph.adj.cpu().numpy()
-    valid = graph.service_valid.cpu().numpy()
-    masked = adj * valid[:, None] * valid[None, :]
-    src, dst = np.nonzero(np.triu(masked, k=1))
-    w = masked[src, dst].astype(np.float32)
+    Found on the graph's device (``torch.nonzero``, row-major like
+    ``np.nonzero``; one host read of the edge count), so a churned graph of
+    16,384² weights is not copied to the host. E is padded up to the next
+    power of two (floor 8) with zero-weight self-edges, as in the JAX
+    package (a padding row adds ``0·cross``). Build once per graph and
+    reuse."""
+    valid = graph.service_valid
+    masked = graph.adj * valid[:, None] * valid[None, :]
+    idx = torch.nonzero(torch.triu(masked, diagonal=1))
+    src, dst = idx[:, 0], idx[:, 1]
+    w = masked[src, dst].float()
     cap = 8
-    while cap < src.size:
+    while cap < src.numel():
         cap *= 2
-    pad = cap - src.size
-    src = np.concatenate([src, np.zeros(pad, np.int64)])
-    dst = np.concatenate([dst, np.zeros(pad, np.int64)])
-    w = np.concatenate([w, np.zeros(pad, np.float32)])
-    dev = graph.device
+    pad = cap - src.numel()
+    zeros = torch.zeros(pad, dtype=torch.int64, device=graph.device)
     return (
-        torch.as_tensor(src, device=dev),
-        torch.as_tensor(dst, device=dev),
-        torch.as_tensor(w, device=dev),
+        torch.cat([src, zeros]),
+        torch.cat([dst, zeros]),
+        torch.cat([w, torch.zeros(pad, dtype=torch.float32, device=graph.device)]),
     )
 
 

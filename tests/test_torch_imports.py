@@ -50,6 +50,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import kubernetes_rescheduling_tpu_torch.bench.controller\n"
         "import kubernetes_rescheduling_tpu_torch.bench.boundary\n"
         "import kubernetes_rescheduling_tpu_torch.bench.round_end\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.scan\n"
+        "import kubernetes_rescheduling_tpu_torch.backends.sim_device\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.tripwire\n"
+        "import kubernetes_rescheduling_tpu_torch.elastic\n"
+        "import kubernetes_rescheduling_tpu_torch.elastic.engine\n"
+        "import kubernetes_rescheduling_tpu_torch.elastic.rates\n"
         "import kubernetes_rescheduling_tpu_torch.backends.base\n"
         "import kubernetes_rescheduling_tpu_torch.config\n"
         "import kubernetes_rescheduling_tpu_torch.core.quantities\n"
@@ -113,6 +119,19 @@ def _entry_points():
                                                  RescheduleConfig(max_rounds=1)),
         "cli reschedule": lambda: cli.main(["reschedule", "--rounds", "1"]),
         "cli reschedule global": lambda: cli.main(["reschedule", "--algorithm", "global"]),
+        "run_controller scanned": lambda: run_controller(
+            make_backend("mubench", 0, device="cpu"), RescheduleConfig(max_rounds=2,
+                                                                       scan_block=2)),
+        "run_controller pipelined": lambda: run_controller(
+            make_backend("mubench", 0, device="cpu"), RescheduleConfig(max_rounds=2,
+                                                                       pipeline=True)),
+        "run_controller churned": lambda: run_controller(
+            make_backend("mubench", 0, device="cpu"), RescheduleConfig(
+                max_rounds=2, elastic="diurnal-autoscale")),
+        "cli reschedule --scan-block": lambda: cli.main(["reschedule", "--scan-block", "2"]),
+        "cli reschedule --pipeline": lambda: cli.main(["reschedule", "--pipeline"]),
+        "cli reschedule --churn-profile": lambda: cli.main(
+            ["reschedule", "--churn-profile", "deploy-waves"]),
         "synthetic_scenario": lambda: topology.synthetic_scenario(n_pods=20, n_nodes=4),
         "powerlaw_2000x200": lambda: topology.powerlaw_2000x200(),
         "ClusterState.build": lambda: ClusterState.build(

@@ -27,6 +27,8 @@ from kubernetes_rescheduling_tpu.bench.controller import run_controller as j_run
 from kubernetes_rescheduling_tpu.config import ReconcileConfig
 from kubernetes_rescheduling_tpu.config import RescheduleConfig as JConfig
 from kubernetes_rescheduling_tpu.core import workmodel as jwm
+from kubernetes_rescheduling_tpu.elastic.engine import ChurnEngine as JEngine
+from kubernetes_rescheduling_tpu.elastic.events import ServiceTeardown as JTeardown
 from kubernetes_rescheduling_tpu.telemetry import MetricsRegistry as JRegistry
 from kubernetes_rescheduling_tpu_torch.backends.base import MoveRequest as TMove
 from kubernetes_rescheduling_tpu_torch.backends.sim import LoadModel as TLoad
@@ -37,6 +39,8 @@ from kubernetes_rescheduling_tpu_torch.bench.controller import RoundRecord as TR
 from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller as t_run
 from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig as TConfig
 from kubernetes_rescheduling_tpu_torch.core import workmodel as twm
+from kubernetes_rescheduling_tpu_torch.elastic.engine import ChurnEngine as TEngine
+from kubernetes_rescheduling_tpu_torch.elastic.events import ServiceTeardown as TTeardown
 from kubernetes_rescheduling_tpu_torch.telemetry import MetricsRegistry as TRegistry
 
 FAMILIES = ("admission_quarantined_total", "admission_rejected_total",
@@ -94,11 +98,26 @@ def _t_run(backend, reg, *, rounds, algo="communication", moves_per_round=1, pla
     return t_run(backend, cfg, device="cpu", registry=reg, checkpoint_dir=checkpoint_dir)
 
 
+def _j_churn_run(backend, reg, *, rounds, checkpoint_dir, churn, on_round=None):
+    cfg = JConfig(algorithm="communication", max_rounds=rounds, sleep_after_action_s=0.0,
+                  seed=3, max_consecutive_failures=2)
+    return j_run(backend, cfg, key=jax.random.PRNGKey(3), registry=reg,
+                 checkpoint_dir=checkpoint_dir, churn=churn, on_round=on_round)
+
+
+def _t_churn_run(backend, reg, *, rounds, checkpoint_dir, churn, on_round=None):
+    cfg = TConfig(algorithm="communication", max_rounds=rounds, sleep_after_action_s=0.0,
+                  seed=3, max_consecutive_failures=2)
+    return t_run(backend, cfg, device="cpu", registry=reg, checkpoint_dir=checkpoint_dir,
+                 churn=churn, on_round=on_round)
+
+
 JAX = SimpleNamespace(
     Sim=JSim, Load=JLoad, Move=JMove, workmodel=jwm.mubench_workmodel_c, dev={},
     guard=_j_guard, ledger=lambda reg: jrec.IntentLedger(ReconcileConfig(), registry=reg),
     block=jrec.reconcile_round_block, Registry=JRegistry, counters=_j_counters,
     put=lambda state, **arrays: state.replace(**arrays), run=_j_run, adm=jadm, rec=jrec,
+    Engine=JEngine, Teardown=JTeardown, churn_run=_j_churn_run,
 )
 TORCH = SimpleNamespace(
     Sim=TSim, Load=TLoad, Move=TMove, workmodel=twm.mubench_workmodel_c, dev={"device": "cpu"},
@@ -107,6 +126,7 @@ TORCH = SimpleNamespace(
     put=lambda state, **arrays: state.replace(**{
         k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v for k, v in arrays.items()}),
     run=_t_run, adm=tadm, rec=trec,
+    Engine=TEngine, Teardown=TTeardown, churn_run=_t_churn_run,
 )
 
 
@@ -259,6 +279,19 @@ def adm_sim_name_tuples_are_identity_stable(P, reg):
     s1, s2 = b.monitor(), b.monitor()
     assert s1.pod_names is s2.pod_names and s1.node_names is s2.node_names
     return {}
+
+
+def adm_sim_name_tuples_follow_a_teardown(P, reg):
+    """The teardown half of tests/test_reconcile.py:302: a workload change
+    gives the correct tuples (content-compared, no invalidation hook)."""
+    b = backend(P)
+    s1 = b.monitor()
+    svc = b.workmodel.services[0].name
+    b.teardown_service(svc)
+    s3 = b.monitor()
+    assert s3.pod_names != s1.pod_names
+    assert all(not p.startswith(f"{svc}-") for p in s3.pod_names)
+    return {"pods": list(s3.pod_names)}
 
 
 def adm_host_arrays_handoff(P, reg):
@@ -431,6 +464,57 @@ def led_move_meta_survives_missing_debounce(P, reg):
     return {"out": out}
 
 
+def led_churn_events_consumed_before_drift(P, reg):
+    """The same placement change, but a churn event explains the node:
+    re-placement after a drain's rescheduling is adopted, not drift."""
+    b, led, names = _setup_ledger(P, reg)
+    moved = b.external_move_random(random.Random(3))
+    out = led.observe(b.monitor(), service_names=names,
+                      churn_events=[{"kind": "node_add", "node": moved["to"]}])
+    assert out["divergences"] == [] and led.drift_pods == 0
+    assert led.intent[moved["pod"]] == moved["to"]
+    return {"out": out, "moved": moved}
+
+
+def _torn_down(P, b, led):
+    """A snapshot whose first valid pod disappeared, and its service."""
+    state = b.monitor()
+    valid = arr(state.pod_valid).copy()
+    gone = int(np.flatnonzero(valid)[0])
+    valid[gone] = False
+    return state, P.put(state, pod_valid=valid), led.pod_service[state.pod_names[gone]]
+
+
+def led_degraded_round_churn_events_survive(P, reg):
+    """A churn event carried by a DEGRADED round waits in the ledger for the
+    next fresh diff; dropping it would let the teardown's pods pass the
+    debounce and read as missing pods."""
+    b, led, names = _setup_ledger(P, reg)
+    state, partial, svc = _torn_down(P, b, led)
+    block, drift = P.block(None, led, state=state, service_names=names,
+                           churn_events=[{"kind": "service_teardown", "service": svc}],
+                           fresh=False, last_drift=0, boundary=None, repair_budget=0)
+    assert block is None and drift == 0 and led.pending_events
+    for _ in range(2):
+        block, _ = P.block(None, led, state=partial, service_names=names, churn_events=(),
+                           fresh=True, last_drift=0, boundary=None, repair_budget=0)
+        assert block is None
+    assert led.pending_events == []
+    return {"intent": led.intent}
+
+
+def led_pending_events_survive_checkpoint(P, reg):
+    b, led, names = _setup_ledger(P, reg)
+    state, partial, svc = _torn_down(P, b, led)
+    led.note_churn([{"kind": "service_teardown", "service": svc}])
+    led2 = P.ledger(reg)
+    led2.restore(led.snapshot())
+    assert led2.pending_events == led.pending_events
+    outs = [led2.observe(partial, service_names=names) for _ in range(2)]
+    assert all(o["divergences"] == [] for o in outs)
+    return {"snapshot": led.snapshot(), "outs": outs}
+
+
 def led_snapshot_restore_roundtrip(P, reg):
     b, led, names = _setup_ledger(P, reg)
     led2 = P.ledger(reg)
@@ -566,6 +650,54 @@ def ctl_checkpoint_resume_reconciles_drift(P, reg, tmp_path):
     i = state.pod_names.index(moved["pod"])
     assert state.node_names[int(arr(state.pod_node)[i])] == moved["from"]
     return {"records": _records(res), "moved": moved}
+
+
+def ctl_skip_round_checkpoint_keeps_churn_events(P, reg, tmp_path):
+    """tests/test_reconcile.py:1110: a checkpoint written by a SKIPPED round
+    carries churn its preamble applied and no record carried yet; the
+    resume restores the debt, the first executed record carries it and the
+    ledger consumes it (no missing or phantom pods)."""
+    class Flaky:
+        def __init__(self, inner):
+            self._inner, self.fail = inner, False
+
+        def monitor(self):
+            if self.fail:
+                raise ConnectionError("monitor window down")
+            return self._inner.monitor()
+
+        def __getattr__(self, name):
+            return getattr(self._inner, name)
+
+    class TeardownAt:
+        def __init__(self, svc, rnd):
+            self.svc, self.rnd = svc, rnd
+
+        def events(self, rng, rnd, horizon, view):
+            return [P.Teardown(service=self.svc)] if rnd == self.rnd else []
+
+    def engine(svc):
+        eng = P.Engine("steady", seed=0, registry=reg)
+        eng.profile = TeardownAt(svc, 5)   # fires while the breaker is open
+        return eng
+
+    svc = backend(P).comm_graph().names[-1]
+    flaky = Flaky(backend(P))
+
+    def arm(rec, _state):
+        if rec.round == 2:
+            flaky.fail = True   # the post-move monitors fail from round 3
+
+    res = P.churn_run(flaky, reg, rounds=8, checkpoint_dir=str(tmp_path), churn=engine(svc),
+                      on_round=arm)
+    assert res.skipped_rounds > 0
+    resumed = P.churn_run(Flaky(backend(P)), reg, rounds=10, checkpoint_dir=str(tmp_path),
+                          churn=engine(svc))
+    assert resumed.resumed_from_round == 9 and len(resumed.rounds) == 2
+    first = resumed.rounds[0]
+    assert any(e["kind"] == "service_teardown" and e["service"] == svc
+               for e in (first.churn or {}).get("events", ()))
+    return {"records": _records(res) + _records(resumed)}
 
 
 CASES = [f for name, f in sorted(globals().items())
