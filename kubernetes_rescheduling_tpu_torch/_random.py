@@ -26,3 +26,11 @@ def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     u = torch.rand(shape, generator=generator, device=device)
     u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def tenant_seed(seed: int, tenant: int) -> int:
+    """The seed of fleet tenant ``tenant`` in a fleet run of ``seed`` (the
+    counterpart of the JAX package's ``fold_in(key, tenant)``): the tenant
+    draws as a solo run of this seed would."""
+    words = np.random.SeedSequence([seed % 2**63, tenant % 2**63, 1]).generate_state(2, np.uint32)
+    return (int(words[0]) << 31) | (int(words[1]) >> 1)

@@ -112,8 +112,13 @@ class BoundaryClient:
         breaker: CircuitBreaker | None = None,
         failure_budget_per_round: int = 0,
         registry: MetricsRegistry | None = None,
+        tenant: str | None = None,
     ):
         self.backend = backend
+        # fleet mode: the tenant this boundary fronts, part of the solver
+        # cache's key so tenants over shared plumbing neither share nor
+        # evict each other's slots
+        self.tenant = tenant
         self.policy = (policy or RetryPolicy()).validate()
         # every boundary call treats a None return as transient
         self._policy_retry_none = dataclasses.replace(self.policy, retry_none=True)
@@ -201,16 +206,37 @@ class BoundaryClient:
         return b
 
     def solver_cache(self, name: str) -> dict:
-        """A named mutable cache slot kept on the raw backend, so a value
-        derived from its graph (the sparse form, the pod graph) outlives one
-        run and its wrappers; callers own its contents and their
-        invalidation rule."""
+        """A named mutable cache slot kept on the raw backend, keyed
+        ``(name, tenant)``, so a value derived from its graph (the sparse
+        form, the pod graph, a solve's adjacency buffer) outlives one run
+        and its wrappers and is never another tenant's; callers own its
+        contents and their invalidation rule."""
         host = self.raw_backend
         caches = getattr(host, "_solver_caches", None)
         if caches is None:
             caches = {}
             host._solver_caches = caches
-        return caches.setdefault(name, {})
+        return caches.setdefault((name, self.tenant), {})
+
+    def evict_solver_caches(self, *, reason: str = "teardown") -> int:
+        """Drop every solver-cache slot of this boundary's tenant (churn
+        rewrote its graph, or a promotion re-padded it), counted in
+        ``solver_cache_evictions_total{reason}``. Returns the slots
+        dropped."""
+        caches = getattr(self.raw_backend, "_solver_caches", None)
+        if not caches:
+            return 0
+        doomed = [k for k in caches if k[1] == self.tenant]
+        for k in doomed:
+            del caches[k]
+        if doomed and self.registry is not None:
+            self.registry.counter(
+                "solver_cache_evictions_total",
+                "tenant solver-cache slots dropped (churn rewrote the tenant's graph, or "
+                "a promotion re-padded it)",
+                labelnames=("reason",),
+            ).labels(reason=reason).inc(len(doomed))
+        return len(doomed)
 
     def __getattr__(self, name: str) -> Any:
         # simulator-only calls (apply_pod_moves, restore_placement,

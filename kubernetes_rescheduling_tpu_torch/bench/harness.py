@@ -1,7 +1,8 @@
 """Scenario factory — the port of ``make_backend`` from
 ``kubernetes_rescheduling_tpu.bench.harness`` (the reference's µBench
-cluster and the synthetic meshes up to ``xlarge``), and of ``bench.py``'s
-sparse problem (:func:`sparse_problem`).
+cluster and the synthetic meshes up to ``xlarge``), of ``bench.py``'s
+sparse problem (:func:`sparse_problem`) and of its fleet problem
+(:func:`make_fleet_problem`).
 
 Same ``default_rng(seed)`` call sequence as the JAX package: one seed
 builds the identical cluster in both packages.
@@ -109,3 +110,23 @@ def sparse_problem(
         device=device,
     )
     return state, graph
+
+
+def make_fleet_problem(
+    tenants: int = 16, n_services: int = 2000, n_nodes: int = 256, seed: int = 0,
+    device: str | torch.device | None = DEFAULT_DEVICE,
+):
+    """The JAX package's fleet bench problem: N same-shaped power-law
+    tenants, tenant ``t`` built from seed ``seed*1000 + t`` over an
+    identical cluster shape (``n_nodes`` nodes of 2000 m CPU). Returns
+    ``(states, graphs)``, index-aligned lists."""
+    states, graphs = [], []
+    for t in range(tenants):
+        rng = np.random.default_rng(seed * 1000 + t)
+        wm = _random_workmodel(n_services, rng, powerlaw=True, mean_degree=4.0)
+        graphs.append(wm.comm_graph(device=device))
+        states.append(state_from_workmodel(
+            wm, node_names=[f"w{i:03d}" for i in range(n_nodes)], node_cpu_cap_m=2_000.0,
+            seed=seed * 1000 + t, device=device,
+        ))
+    return states, graphs

@@ -114,14 +114,19 @@ def move_intent(
 class IntentLedger:
     """Per-pod intended placement + divergence classification + repairs.
 
-    One ledger per control loop. The JAX package's per-tenant ledgers
-    (its fleet loop) and adopt-observed mode (its shadow plane's replay
-    backend) wait with those planes (ROADMAP Queue 1 items 3 and 4).
+    One ledger per control loop (``tenant=None``) or per fleet tenant
+    (``tenant=<name>``: the drift gauge is then the tenant-labeled
+    ``fleet_reconcile_drift_pods``, published through ``tenant_series``,
+    the fleet's cardinality gate, and the ledger's events carry the
+    tenant). The JAX package's adopt-observed mode (its shadow plane's
+    replay backend) waits with that plane (ROADMAP Queue 1 item 4).
     """
 
-    def __init__(self, *, registry=None, logger=None):
+    def __init__(self, *, registry=None, logger=None, tenant=None, tenant_series=None):
         self.registry = registry
         self.logger = logger
+        self.tenant = tenant
+        self.tenant_series = tenant_series
         self.intent: dict[str, str | None] = {}  # pod name -> node name
         self.pod_service: dict[str, str] = {}
         # each service's pods in pod_service's order (record_moves' index),
@@ -155,11 +160,31 @@ class IntentLedger:
         return self.registry if self.registry is not None else get_registry()
 
     def _set_gauge(self) -> None:
-        self._reg().gauge(
-            "reconcile_drift_pods",
-            "pods whose observed placement currently diverges from "
-            "the controller's intent (corrective moves pending)",
-        ).set(len(self.repairs))
+        reg = self._reg()
+        if self.tenant is None:
+            reg.gauge(
+                "reconcile_drift_pods",
+                "pods whose observed placement currently diverges from "
+                "the controller's intent (corrective moves pending)",
+            ).set(len(self.repairs))
+            return
+        series = self.tenant_series
+        if series is None:
+            from kubernetes_rescheduling_tpu_torch.telemetry.fleet_rollup import TenantSeries
+
+            # ungated outside the fleet loop, built per call so it follows
+            # the registry resolution of _reg()
+            series = TenantSeries(reg, tenants=1, budget=None)
+        series.gauge_set(
+            "fleet_reconcile_drift_pods",
+            "per-tenant pods whose observed placement currently diverges from that "
+            "tenant's intent",
+            self.tenant,
+            len(self.repairs),
+        )
+
+    def _tagged(self, fields: dict) -> dict:
+        return fields if self.tenant is None else {"tenant": self.tenant, **fields}
 
     @property
     def pending_repairs(self) -> bool:
@@ -349,7 +374,7 @@ class IntentLedger:
             divergences.append(d)
             count_divergence(self.registry, kind)
             if self.logger is not None:
-                self.logger.warn("reconcile_divergence", **d)
+                self.logger.warn("reconcile_divergence", **self._tagged(d))
 
         for pod, expected in list(self.intent.items()):
             service = self.pod_service.get(pod)
@@ -543,7 +568,7 @@ class IntentLedger:
                 # boundary failure (or frozen moves): keep the debt
                 self.repairs[pod] = rep
             if self.logger is not None:
-                self.logger.info("reconcile_repair", **out)
+                self.logger.info("reconcile_repair", **self._tagged(out))
         self._set_gauge()
         return issued
 

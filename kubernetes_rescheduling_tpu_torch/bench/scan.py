@@ -26,10 +26,15 @@ port draws round r's row on the host from the generator of ``(seed, r)``
 the ``[K, N]`` rows through pinned memory without a wait.
 
 The host half (:func:`decode_block`) slices the bundle back into per-round
-views the controller replays into ordinary ``RoundRecord``s. The fleet's
-scan waits with the fleet (ROADMAP Queue 1 item 3); attribution
+views the controller replays into ordinary ``RoundRecord``s; attribution
 (``attr_k``) is Queue 1 item 4, so the metrics are the ``[cost, load_std]``
 head only.
+
+The fleet half (:func:`fleet_scan_rounds`, :func:`decode_fleet_block`)
+advances every tenant K rounds in one block: the solo round body per
+tenant, in tenant order, with each tenant's rows, the per-round fleet
+rollups (``telemetry/fleet_rollup.py``) and the per-tenant tripwire lanes
+in one bundle, one capture a key (``fn="fleet_scan_rounds"``).
 """
 
 from __future__ import annotations
@@ -48,10 +53,16 @@ from kubernetes_rescheduling_tpu_torch.bench.round_end import (
 )
 from kubernetes_rescheduling_tpu_torch.core.state import CommGraph
 from kubernetes_rescheduling_tpu_torch.solver.compiled import CACHE
+from kubernetes_rescheduling_tpu_torch.solver.fleet import prefixed, tenant_inputs
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import state_from_inputs, state_inputs
 from kubernetes_rescheduling_tpu_torch.solver.round_loop import decide, decide_explain
 from kubernetes_rescheduling_tpu_torch.telemetry.accounting import pull
-from kubernetes_rescheduling_tpu_torch.telemetry.tripwire import tripwire_init, tripwire_step
+from kubernetes_rescheduling_tpu_torch.telemetry.fleet_rollup import rollup_matrix, rollup_size
+from kubernetes_rescheduling_tpu_torch.telemetry.tripwire import (
+    fleet_tripwire_step,
+    tripwire_init,
+    tripwire_step,
+)
 
 # columns of the per-round decision row inside the block bundle
 DEC_MOST, DEC_VICTIM, DEC_SERVICE, DEC_TARGET, DEC_LANDED = range(5)
@@ -153,6 +164,138 @@ def scan_rounds(state, dec_graph, metric_graph, policy_id: int, threshold: float
     out = CACHE.run("scan_rounds", key, inputs, make_body,
                     operands=(dec_adj, metric_adj, *(edges or ())))
     return out["flat"]
+
+
+def fleet_scan_body(t: dict, adjs, edges, *, policy_id: int, threshold: float, rounds: int,
+                    pinned: bool, tenants: int, rollup_k: int, tripwire: bool
+                    ) -> dict[str, torch.Tensor]:
+    """K fleet rounds as a function of device tensors that reads nothing
+    back: per round, each tenant's ``decide`` → ``apply_decision`` →
+    ``round_end_metrics`` (and tripwire lane), in tenant order. ``t`` holds
+    each tenant's state arrays and ``service_valid`` under ``"<i>:"``,
+    ``gumbel`` [K, T, N] for the ``random`` policy, ``drift`` [T] (the
+    block-start reconcile drift, for the rollups) and ``trip_cfg``.
+
+    Returns ``{"flat": f32[...]}``: decisions [K, T, 4] (``ROW_*`` of
+    ``solver.fleet``), hazard [K, T, N], landings [K, T], metrics
+    [K, T, 2], with ``rollup_k`` > 0 the rollups [K, rollup_size], each
+    rounds-leading and raveled in that order; with the tripwire, then the
+    bits [K, T] and the final per-tenant trip round [T] and mask [T]. A
+    latched tenant runs identity rounds (its row masked to -1)."""
+    T = tenants
+    sts = [state_from_inputs(tenant_inputs(t, i)) for i in range(T)]
+    graphs = [CommGraph(adj=adjs[i], service_valid=t[f"{i}:service_valid"]) for i in range(T)]
+    gumbel = t.get("gumbel")
+
+    def metrics_of(states):
+        return torch.stack([round_end_metrics(s, g, edges=e)
+                            for s, g, e in zip(states, graphs, edges)])
+
+    trip = None
+    if tripwire:
+        base = metrics_of(sts)
+        trip = tripwire_init(base[:, METRIC_COST], base[:, METRIC_LOAD_STD])
+    outs: list[list[torch.Tensor]] = [[], [], [], [], [], []]
+    for r in range(rounds):
+        rows, hazards, landings = [], [], []
+        for i in range(T):
+            g = gumbel[r, i] if gumbel is not None else None
+            most, hazard, victim, svc, target = decide(sts[i], graphs[i], policy_id, threshold, g)
+            if tripwire:
+                latched = trip[0][i]
+                most, victim, svc, target = (torch.where(latched, -1, x)
+                                             for x in (most, victim, svc, target))
+                hazard = torch.where(latched, False, hazard)
+            sts[i], landed, _moved = apply_decision(sts[i], victim, svc, target, hazard,
+                                                    pinned=pinned)
+            rows.append(torch.stack([x.float() for x in (most, victim, svc, target)]))
+            hazards.append(hazard.float())
+            landings.append(landed.float())
+        metrics = metrics_of(sts)
+        outs[0].append(torch.stack(rows))
+        outs[1].append(torch.stack(hazards))
+        outs[2].append(torch.stack(landings))
+        outs[3].append(metrics)
+        if rollup_k > 0:
+            flags = torch.zeros((T, 3), dtype=torch.float32, device=metrics.device)
+            flags[:, 2] = t["drift"]
+            outs[4].append(rollup_matrix(torch.cat([metrics, flags], dim=1), top_k=rollup_k))
+        if tripwire:
+            most_row = torch.stack(rows)[:, 0].to(torch.int32)
+            trip, bits = fleet_tripwire_step(trip, sts, metrics, most_row, t["trip_cfg"])
+            outs[5].append(bits.float())
+    pieces = [torch.stack(o).reshape(-1) for o in outs if o]
+    if tripwire:
+        pieces += [trip[1].float(), trip[2].float()]
+    return {"flat": torch.cat(pieces)}
+
+
+def fleet_scan_rounds(states, graphs, edges, policy_id: int, threshold: float,
+                      gumbel: torch.Tensor | None = None, drift: torch.Tensor | None = None,
+                      trip_cfg: torch.Tensor | None = None, *, rounds: int, pinned: bool,
+                      rollup_k: int = 0, tripwire: bool = False) -> torch.Tensor:
+    """One fleet block of ``rounds`` rounds (:func:`fleet_scan_body`) from
+    the per-tenant ``states`` over ``graphs`` (each tenant's edge list in
+    ``edges``): the flat f32 bundle on the states' device. ``gumbel`` is the
+    ``random`` policy's ``[rounds, T, N]`` rows, ``drift`` the per-tenant
+    reconcile drift at block start (needed when ``rollup_k`` > 0).
+
+    On the card: a replay of the graph captured for this key, one capture a
+    key (``fn="fleet_scan_rounds"``)."""
+    T = len(states)
+    if tripwire and trip_cfg is None:
+        raise ValueError("fleet_scan_rounds(tripwire=True) needs trip_cfg")
+    dev = states[0].device
+    inputs = {}
+    for i, (st, g) in enumerate(zip(states, graphs)):
+        inputs.update(prefixed(i, {**state_inputs(st), "service_valid": g.service_valid}))
+    if gumbel is not None:
+        if tuple(gumbel.shape) != (rounds, T, states[0].num_nodes):
+            raise ValueError(
+                f"gumbel rows {tuple(gumbel.shape)} != {(rounds, T, states[0].num_nodes)}")
+        inputs["gumbel"] = gumbel
+    if rollup_k > 0:
+        inputs["drift"] = (drift if drift is not None
+                           else torch.zeros(T)).to(dev, torch.float32)
+    if tripwire:
+        inputs["trip_cfg"] = trip_cfg.to(dev)
+    adjs = tuple(g.adj for g in graphs)
+    edges = tuple(edges)
+    static = dict(policy_id=int(policy_id), threshold=float(threshold), rounds=int(rounds),
+                  pinned=bool(pinned), tenants=T, rollup_k=int(rollup_k),
+                  tripwire=bool(tripwire))
+
+    def make_body():
+        return lambda t: fleet_scan_body(t, adjs, edges, **static)
+
+    out = CACHE.run("fleet_scan_rounds", tuple(sorted(static.items())), inputs, make_body,
+                    operands=(*adjs, *(x for e in edges for x in e)))
+    return out["flat"]
+
+
+def decode_fleet_block(flat: np.ndarray, *, rounds: int, tenants: int, num_nodes: int,
+                       rollup_k: int = 0):
+    """Unpack one fleet block bundle (its tripwire trail stripped):
+    ``(decisions i64[K, T, 4], hazard bool[K, T, N], landed i64[K, T],
+    metrics f32[K, T, 2])``, plus ``f32[K, rollup_size(rollup_k)]`` rollups
+    when ``rollup_k`` > 0."""
+    flat = np.asarray(flat, dtype=np.float32)
+    k, t, n = rounds, tenants, num_nodes
+    roll = rollup_size(rollup_k) if rollup_k > 0 else 0
+    sizes = (k * t * 4, k * t * n, k * t, k * t * 2, k * roll)
+    if flat.size != sum(sizes):
+        raise ValueError(
+            f"fleet scan bundle of {flat.size} values does not decode at rounds={k}, "
+            f"tenants={t}, num_nodes={n}, rollup_k={rollup_k}"
+        )
+    o1, o2, o3, o4 = np.cumsum(sizes)[:4]
+    decisions = flat[:o1].reshape(k, t, 4).astype(np.int64)
+    hazard = flat[o1:o2].reshape(k, t, n) > 0.5
+    landed = flat[o2:o3].reshape(k, t).astype(np.int64)
+    metrics = flat[o3:o4].reshape(k, t, 2)
+    if rollup_k <= 0:
+        return decisions, hazard, landed, metrics
+    return decisions, hazard, landed, metrics, flat[o4:].reshape(k, roll)
 
 
 def pull_block(flat_dev: torch.Tensor, registry=None) -> np.ndarray:

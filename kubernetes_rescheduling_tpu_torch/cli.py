@@ -10,6 +10,8 @@ package's commands for what the port computes.
     python -m kubernetes_rescheduling_tpu_torch reschedule --scenario large --scan-block 10
     python -m kubernetes_rescheduling_tpu_torch reschedule --scenario large --pipeline
     python -m kubernetes_rescheduling_tpu_torch reschedule --churn-profile diurnal-autoscale
+    python -m kubernetes_rescheduling_tpu_torch reschedule --fleet 16 --scenario mubench --imbalance
+    python -m kubernetes_rescheduling_tpu_torch reschedule --fleet 4 --scenario large --algorithm global
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --sparse
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --placement-unit pod
@@ -24,7 +26,8 @@ sweep count that fills that many ms of device time a round
 (``solver/autotune.py``). ``reschedule --pipeline`` runs the pipelined
 schedule, ``--scan-block K`` the scanned one (K rounds a device block, with
 the in-block tripwires), and ``--churn-profile`` churns the cluster between
-rounds. Best-of-N restarts and node sharding
+rounds. ``reschedule --fleet N`` runs N tenants under the multiplexed fleet
+loop (``bench/fleet.py``). Best-of-N restarts and node sharding
 (``--restarts``, ``--tp`` above 1) and the telemetry files
 (``--metrics-out``, ``--trace-out``) are refused, naming the ROADMAP item
 that brings them.
@@ -47,7 +50,7 @@ from kubernetes_rescheduling_tpu_torch.bench.trace import (
     load_trace,
     replay,
 )
-from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
+from kubernetes_rescheduling_tpu_torch.config import FleetConfig, RescheduleConfig
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
 from kubernetes_rescheduling_tpu_torch.core.topology import state_from_workmodel
 from kubernetes_rescheduling_tpu_torch.core.workmodel import Workmodel
@@ -154,6 +157,20 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--tripwire-hazard-streak", type=int, default=0,
                    help="tripwire hazard_streak rule: the same most-hazardous node this many "
                         "rounds in a row trips (0 = off)")
+    r.add_argument("--fleet", type=int, default=0, metavar="N",
+                   help="fleet mode: N tenants of the scenario (tenant t seeded seed*1000+t) "
+                        "under the multiplexed loop, one boundary and breaker a tenant and "
+                        "ONE device decision a round (greedy policies, or --algorithm global)")
+    r.add_argument("--fleet-plane", default="vmap", choices=["vmap", "dp"],
+                   help="device batching for --fleet: 'vmap' (one program over the "
+                        "tenants); 'dp' is refused (ROADMAP Queue 1 item 5)")
+    r.add_argument("--fleet-chaos-tenants", default="", metavar="I,J,...",
+                   help="tenant indices a chaos profile wraps (refused: chaos is ROADMAP "
+                        "Queue 1 item 4)")
+    r.add_argument("--tenant-label-budget", type=int, default=64, metavar="N",
+                   help="fleet cardinality budget: fleets of more than N tenants suppress "
+                        "the per-tenant labeled series (counted) and observe through the "
+                        "device-side rollups")
     r.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
 
@@ -228,8 +245,21 @@ def _refuse_unported(command: str, args) -> None:
                          "plane (telemetry/spans.py), not ported yet (ROADMAP Queue 1 item 4)")
 
 
+def _parse_tenant_list(raw: str) -> tuple[int, ...]:
+    try:
+        return tuple(int(x) for x in raw.split(",") if x.strip())
+    except ValueError:
+        raise SystemExit(
+            f"--fleet-chaos-tenants must be comma-separated ints, got {raw!r}") from None
+
+
 def cmd_reschedule(args) -> dict:
     algo = _norm_algo(args.algorithm)
+    if args.fleet and args.backend != "sim":
+        raise SystemExit("--fleet requires the sim backend (one live cluster is one tenant; "
+                         "fleet mode multiplexes hermetic tenants)")
+    # every solver-shaping flag reaches the config, so the fleet validation
+    # refuses what fleet mode cannot batch instead of running something else
     cfg = RescheduleConfig(
         algorithm=algo,
         max_rounds=args.rounds,
@@ -254,11 +284,16 @@ def cmd_reschedule(args) -> dict:
         tripwire_hazard_streak=args.tripwire_hazard_streak,
         elastic=args.churn_profile,
         elastic_seed=args.churn_seed,
+        fleet=FleetConfig(tenants=args.fleet, plane=args.fleet_plane,
+                          chaos_tenants=_parse_tenant_list(args.fleet_chaos_tenants)),
+        tenant_label_budget=args.tenant_label_budget,
     )
     try:
         cfg.validate()
     except ValueError as e:
-        raise SystemExit(f"reschedule: {e}")
+        raise SystemExit(f"{'--fleet' if args.fleet else 'reschedule'}: {e}") from None
+    if args.fleet:
+        return _run_fleet(args, cfg)
     backend = make_backend(args.scenario, args.seed, device=args.device,
                            workmodel_path=args.workmodel)
     if args.imbalance:
@@ -273,6 +308,40 @@ def cmd_reschedule(args) -> dict:
         "degraded_rounds": result.degraded_rounds,
         "boundary_failures": result.boundary_failures,
         "breaker_transitions": result.breaker_transitions,
+    }
+
+
+def _run_fleet(args, cfg: RescheduleConfig) -> dict:
+    """``reschedule --fleet N``: N tenants of the scenario under the
+    multiplexed loop; prints the JAX package's keys (per-tenant round
+    streams and the amortized fleet-decision cost)."""
+    from kubernetes_rescheduling_tpu_torch.backends.fleet import make_fleet
+    from kubernetes_rescheduling_tpu_torch.bench.fleet import run_fleet_controller
+
+    fleet = make_fleet(args.scenario, args.fleet, seed=args.seed,
+                       workmodel_path=args.workmodel, device=args.device)
+    if args.imbalance:
+        fleet.inject_imbalance()
+    result = run_fleet_controller(fleet, cfg, device=args.device)
+    return {
+        "algorithm": cfg.algorithm,
+        "fleet": {"tenants": args.fleet, "plane": args.fleet_plane},
+        "batched_solves": result.batched_solves,
+        "amortized_solve_ms_per_tenant_round": round(
+            result.amortized_solve_ms_per_tenant_round, 4),
+        "per_tenant": {
+            name: {
+                "rounds": len(r.rounds),
+                "skipped_rounds": r.skipped_rounds,
+                "degraded_rounds": r.degraded_rounds,
+                "moves": r.moves,
+                "boundary_failures": r.boundary_failures,
+                "final_communication_cost": (r.rounds[-1].communication_cost
+                                             if r.rounds else None),
+                "final_load_std": r.rounds[-1].load_std if r.rounds else None,
+            }
+            for name, r in result.results.items()
+        },
     }
 
 

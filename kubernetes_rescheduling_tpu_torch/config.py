@@ -7,7 +7,8 @@ their block (``reconcile_admission`` is ``reconcile.admission``,
 ``pipeline_depth`` is ``controller.depth``, ``elastic_seed`` is
 ``elastic.seed``, the tripwire fields are ``obs.*``), with the JAX
 package's defaults, and :meth:`RescheduleConfig.validate` refuses what the
-JAX package refuses, for the same reasons. The config also carries planes
+JAX package refuses, for the same reasons. Fleet mode keeps its block
+(:class:`FleetConfig`). The config also carries planes
 this port does not have yet: each keeps a field whose default is off, and
 ``validate`` refuses it, naming the ROADMAP item that brings it — a run
 never quietly does something else.
@@ -31,6 +32,43 @@ SCAN_POLICIES: tuple[str, ...] = ("spread", "binpack", "random", "communication"
 
 # the named churn profiles of elastic/events.py
 ELASTIC_PROFILES: tuple[str, ...] = ("steady", "diurnal-autoscale", "deploy-waves", "node-flap")
+
+
+@dataclass(frozen=True)
+class FleetConfig:
+    """Fleet mode (the JAX package's ``[fleet]`` block): ``tenants`` clusters
+    decided by one device plane a round under the multiplexed loop
+    (``bench/fleet.py``); 0 = off. ``plane`` is the device batching: the
+    port carries ``"vmap"`` (one captured program over the tenants);
+    ``"dp"`` (one tenant group a device) is refused with multi-device
+    (ROADMAP Queue 1 item 5). ``chaos_tenants`` selects the tenants a chaos
+    profile wraps; chaos is refused with the host-side planes (item 4)."""
+
+    tenants: int = 0
+    plane: str = "vmap"                  # "vmap" | "dp"
+    chaos_tenants: tuple[int, ...] = ()
+
+    def validate(self) -> "FleetConfig":
+        if self.tenants < 0:
+            raise ValueError(f"fleet tenants must be >= 0, got {self.tenants}")
+        if self.plane not in ("vmap", "dp"):
+            raise ValueError(f"fleet plane must be 'vmap' or 'dp', got {self.plane!r}")
+        for t in self.chaos_tenants:
+            if not (isinstance(t, int) and t >= 0):
+                raise ValueError(f"chaos_tenants must be non-negative ints, got {t!r}")
+            if self.tenants and t >= self.tenants:
+                raise ValueError(f"chaos tenant {t} out of range for {self.tenants} tenants")
+        if self.plane == "dp":
+            raise ValueError(
+                "fleet plane 'dp' shards the tenants over devices, which the port does "
+                "not do yet (ROADMAP Queue 1 item 5)"
+            )
+        if self.chaos_tenants:
+            raise ValueError(
+                "fleet chaos_tenants needs chaos injection (backends/chaos.py), not "
+                "ported yet (ROADMAP Queue 1 item 4)"
+            )
+        return self
 
 
 @dataclass(frozen=True)
@@ -106,11 +144,22 @@ class RescheduleConfig:
     elastic: str = "none"
     elastic_seed: int = 0
     bucket_floor: int = 8
+    # fleet mode only: the tenant indices the profile churns (empty = all)
+    elastic_tenants: tuple[int, ...] = ()
+
+    # fleet mode (fleet.*) and its observability (obs.*): the cardinality
+    # budget (fleets of at most this many tenants keep per-tenant labeled
+    # series; larger fleets suppress them, counted), the device-side tenant
+    # rollups riding the round-end bundle, and the worst tenants a rollup
+    # records per dimension
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+    tenant_label_budget: int = 64
+    fleet_rollup: bool = True
+    fleet_rollup_top_k: int = 3
 
     # planes of the JAX package that this port does not carry yet
     chaos: str = "none"          # chaos.profile
     shadow: bool = False         # shadow.enabled
-    fleet: int = 0               # fleet.tenants
     serving: bool = False        # serving.enabled
 
     def validate(self) -> "RescheduleConfig":
@@ -166,7 +215,6 @@ class RescheduleConfig:
         refused = (
             (self.chaos != "none", "chaos injection (backends/chaos.py)", 4),
             (self.shadow, "shadow mode (bench/shadow.py)", 4),
-            (self.fleet > 0, "fleet mode", 3),
             (self.serving, "the serving plane", 3),
         )
         for on, what, item in refused:
@@ -193,7 +241,54 @@ class RescheduleConfig:
             raise ValueError("explain_top_k must be >= 1")
         self._validate_schedules()
         self._validate_elastic()
+        self._validate_fleet()
         return self
+
+    def _validate_fleet(self) -> None:
+        if self.tenant_label_budget < 0:
+            raise ValueError(
+                "tenant_label_budget must be >= 0 (0 = per-tenant series always "
+                "suppressed in fleet mode)"
+            )
+        if self.fleet_rollup_top_k < 1:
+            raise ValueError("fleet_rollup_top_k must be >= 1")
+        self.fleet.validate()
+        if self.fleet.tenants == 0:
+            return
+        if self.pipeline:
+            raise ValueError(
+                "the pipelined fleet (pipeline with fleet tenants: the tenants' boundary "
+                "phases on worker threads) is not ported yet (ROADMAP Queue 1 item 3.4)"
+            )
+        # what the JAX package refuses of fleet mode, for its reasons
+        if self.placement_unit != "service":
+            raise ValueError(
+                "fleet mode requires placement_unit='service': the expanded per-pod "
+                "graph is built host-side per tenant, which the batched device plane "
+                "cannot amortize"
+            )
+        greedy_family = self.algorithm in POLICY_NAMES and self.moves_per_round == 1
+        global_family = self.algorithm == "global" or self.moves_per_round == "all"
+        if not (greedy_family or global_family):
+            raise ValueError(
+                "fleet mode batches whole decision planes: it requires a greedy "
+                "algorithm with moves_per_round=1, or a global round (algorithm='global' "
+                f"/ moves_per_round='all') (got algorithm={self.algorithm!r}, "
+                f"moves_per_round={self.moves_per_round!r})"
+            )
+        if global_family:
+            if self.solver_backend == "sparse":
+                raise ValueError(
+                    "fleet mode cannot batch solver_backend='sparse': the sparse form's "
+                    "degree-sorted block layout is per-tenant structure, so every tenant "
+                    "would key its own capture (the dense solver batches; sparse stays solo)"
+                )
+            if self.global_moves_cap != "all":
+                raise ValueError(
+                    "fleet mode does not support an integer global_moves_cap: wave-cap "
+                    "selection is a sequential host-side re-scoring loop per tenant, "
+                    "which defeats the batched dispatch (use move_cost)"
+                )
 
     def _validate_schedules(self) -> None:
         if self.pipeline_depth != 2:
@@ -242,3 +337,6 @@ class RescheduleConfig:
             )
         if self.bucket_floor < 1:
             raise ValueError(f"bucket_floor must be >= 1, got {self.bucket_floor}")
+        for t in self.elastic_tenants:
+            if not (isinstance(t, int) and t >= 0):
+                raise ValueError(f"elastic tenants must be non-negative ints, got {t!r}")

@@ -16,7 +16,7 @@ from kubernetes_rescheduling_tpu_torch.elastic.buckets import (
     device_graph,
     device_view,
 )
-from kubernetes_rescheduling_tpu_torch.elastic.engine import ChurnEngine
+from kubernetes_rescheduling_tpu_torch.elastic.engine import ChurnEngine, make_fleet_churn
 from kubernetes_rescheduling_tpu_torch.elastic.events import (
     GRAPH_EVENTS,
     NodeAdd,
@@ -35,6 +35,7 @@ __all__ = [
     "device_graph",
     "device_view",
     "ChurnEngine",
+    "make_fleet_churn",
     "GRAPH_EVENTS",
     "NodeAdd",
     "NodeDrain",

@@ -18,8 +18,9 @@ Per round (:meth:`ChurnEngine.step`):
    ``bucket_promotions_total``.
 
 The engine mutates host state and counts; the controller decides what to
-re-monitor. Host code only. The JAX package's shared-bucket fleet engines
-(``make_fleet_churn``) wait with the fleet (ROADMAP Queue 1 item 3).
+re-monitor. Host code only. In fleet mode :func:`make_fleet_churn` builds
+one engine per churned tenant over ONE shared set of buckets, pushed into
+every tenant's backend, so the fleet stays stackable.
 """
 
 from __future__ import annotations
@@ -51,15 +52,21 @@ REQUIRED_MUTATORS = (
 
 
 class ChurnEngine:
-    """One profile's churn stream against one backend."""
+    """One profile's churn stream against one backend.
+
+    ``buckets`` may be shared across engines (fleet mode: one promotion
+    promotes the whole fleet), and ``capacity_sinks`` lists every backend
+    whose capacities follow them (default: the bound backend alone)."""
 
     def __init__(self, profile: str, seed: int = 0, *, bucket_floor: int = 8,
+                 buckets: ShapeBuckets | None = None, capacity_sinks: list | None = None,
                  registry=None) -> None:
         self.profile_name = profile
         self.profile = make_profile(profile)
         self.seed = seed
         self._rng = np.random.default_rng(seed)
-        self.buckets = ShapeBuckets(floor=bucket_floor)
+        self.buckets = buckets if buckets is not None else ShapeBuckets(floor=bucket_floor)
+        self.capacity_sinks = list(capacity_sinks) if capacity_sinks is not None else []
         self.registry = registry
         self.horizon = 0
         self.backend = None
@@ -111,8 +118,9 @@ class ChurnEngine:
         self._publish_gauges(live)
 
     def _push_capacities(self) -> None:
-        self.backend.set_capacities(node=self.buckets.nodes, pod=self.buckets.pods,
-                                    service=self.buckets.services)
+        for sink in self.capacity_sinks or [self.backend]:
+            sink.set_capacities(node=self.buckets.nodes, pod=self.buckets.pods,
+                                service=self.buckets.services)
 
     def _view(self) -> WorkloadView:
         backend = self.backend
@@ -234,3 +242,25 @@ class ChurnEngine:
             "bucket": self.buckets.as_dict(),
             "promotions": self.buckets.promotions,
         }
+
+
+def make_fleet_churn(fleet, config, *, registry=None) -> dict[int, ChurnEngine]:
+    """Per-tenant churn engines over ONE shared :class:`ShapeBuckets`, from
+    the config's ``elastic`` profile: fleet tenants must keep one shape, so
+    every engine pushes the shared capacities into EVERY tenant backend (a
+    promotion re-pads the whole fleet) while the untouched tenants' records
+    stay as without churn. ``config.elastic_tenants`` selects the tenant
+    indices that churn (empty = all), each seeded ``elastic_seed + index``."""
+    if config.elastic == "none":
+        return {}
+    hit = set(config.elastic_tenants) or set(range(fleet.num_tenants))
+    for t in hit:
+        if t >= fleet.num_tenants:
+            raise ValueError(f"elastic tenant {t} out of range for {fleet.num_tenants} tenants")
+    shared = ShapeBuckets(floor=config.bucket_floor)
+    sinks = list(fleet.backends)
+    return {
+        t: ChurnEngine(config.elastic, seed=config.elastic_seed + t, buckets=shared,
+                       capacity_sinks=sinks, registry=registry)
+        for t in sorted(hit)
+    }

@@ -445,23 +445,12 @@ def dense_plan_inputs(plan, lay: DenseLayout, config: GlobalSolverConfig, dev,
     return t
 
 
-def global_assign(
-    state: ClusterState,
-    graph: CommGraph,
-    generator: torch.Generator | None = None,
-    config: GlobalSolverConfig = GlobalSolverConfig(),
-    w_mm: torch.Tensor | None = None,
-    plan: list[SweepPlan] | None = None,
-) -> tuple[ClusterState, dict[str, torch.Tensor]]:
-    """Re-place every service; returns the new state and solve info.
-
-    The initial point is the current placement, and only configurations
-    that improve the true objective are adopted — the result is never worse
-    than the input. ``generator`` (a CPU ``torch.Generator``) draws the
-    per-sweep plans unless ``plan`` gives them; ``w_mm`` injects a prebuilt
-    pair-weight matrix (:func:`prepare_weights`). The solve runs on the
-    state's device; on CUDA as a replay of the graph captured for its
-    shape, config and operands (``solver/compiled.py``)."""
+def dense_solve_inputs(state: ClusterState, graph: CommGraph, generator, config,
+                       plan=None) -> tuple[DenseLayout, dict[str, torch.Tensor]]:
+    """The layout of one dense solve and its inputs (the state's arrays, the
+    graph's validity mask, the per-sweep plans drawn from ``generator``
+    unless ``plan`` gives them), checked as :func:`global_assign` checks
+    them; shared with the fleet's solve, which stages T of them."""
     if not config.capacity_frac > 0:
         raise ValueError(f"capacity_frac must be > 0, got {config.capacity_frac}")
     if config.fused_epilogue not in _EPILOGUES:
@@ -480,6 +469,27 @@ def global_assign(
                           COMPOSITION_BLOCK if lay.inline_mass else 1)
     inputs = {**state_inputs(state), "service_valid": graph.service_valid,
               **dense_plan_inputs(plan, lay, config, dev, generator)}
+    return lay, inputs
+
+
+def global_assign(
+    state: ClusterState,
+    graph: CommGraph,
+    generator: torch.Generator | None = None,
+    config: GlobalSolverConfig = GlobalSolverConfig(),
+    w_mm: torch.Tensor | None = None,
+    plan: list[SweepPlan] | None = None,
+) -> tuple[ClusterState, dict[str, torch.Tensor]]:
+    """Re-place every service; returns the new state and solve info.
+
+    The initial point is the current placement, and only configurations
+    that improve the true objective are adopted — the result is never worse
+    than the input. ``generator`` (a CPU ``torch.Generator``) draws the
+    per-sweep plans unless ``plan`` gives them; ``w_mm`` injects a prebuilt
+    pair-weight matrix (:func:`prepare_weights`). The solve runs on the
+    state's device; on CUDA as a replay of the graph captured for its
+    shape, config and operands (``solver/compiled.py``)."""
+    lay, inputs = dense_solve_inputs(state, graph, generator, config, plan)
     adj = graph.adj
 
     def make_body():

@@ -25,8 +25,10 @@ so the rest of the block is identity rounds. The per-round bits and the
 final ``(trip round, trip mask)`` append to the block's one bundle
 (:func:`split_tripwire` strips them), and the host truncates the replay at
 the trip round, drains it under ``scan_drains_total{reason="tripwire"}``
-and counts :func:`count_tripwire`. The fleet's per-tenant half waits with
-the fleet (ROADMAP Queue 1 item 3).
+and counts :func:`count_tripwire`. In the fleet scan every tenant has its
+own lane (:func:`fleet_tripwire_step`): per-tenant latches, baselines and
+streaks, so one bad tenant freezes only its own rounds, and
+:func:`split_fleet_tripwire` strips the per-tenant trail.
 """
 
 from __future__ import annotations
@@ -124,25 +126,42 @@ def tripwire_step(carry, st, cost, load_std, most, cfg) -> tuple[tuple, torch.Te
     )
 
 
+def fleet_tripwire_step(carry, states, metrics, most, cfg) -> tuple[tuple, torch.Tensor]:
+    """The fleet composition: :func:`tripwire_step` per tenant lane, each
+    carry field ``[T]``; ``states`` one state a tenant, ``metrics`` the
+    round's ``f32[T, 2]`` (cost, load_std), ``most`` ``[T]``. Returns the
+    new carry and the round's bits ``i32[T]``."""
+    lanes, bits = [], []
+    for i, st in enumerate(states):
+        c, b = tripwire_step(tuple(x[i] for x in carry), st, metrics[i, 0], metrics[i, 1],
+                             most[i], cfg)
+        lanes.append(c)
+        bits.append(b)
+    return tuple(torch.stack(field) for field in zip(*lanes)), torch.stack(bits)
+
+
 # ---------------- host half: decode and accounting ----------------
 
 
 @dataclass(frozen=True)
 class TripReport:
     """One block's decoded verdict; ``trip_round`` is block-relative (-1:
-    the block ran clean)."""
+    the block ran clean). In the fleet variant the fields are per-tenant
+    arrays and :attr:`tripped` means ANY tenant tripped."""
 
-    bits: np.ndarray          # i64[K]
-    trip_round: int
-    trip_mask: int
+    bits: np.ndarray                 # i64[K] (solo) / i64[K, T] (fleet)
+    trip_round: int | np.ndarray
+    trip_mask: int | np.ndarray
 
     @property
     def tripped(self) -> bool:
-        return self.trip_round >= 0
+        return bool(np.any(np.asarray(self.trip_round) >= 0))
 
     @property
     def rules(self) -> tuple[str, ...]:
-        return rules_from_mask(int(self.trip_mask))
+        """Rule names in the (for the fleet: union) trip mask."""
+        mask = int(np.bitwise_or.reduce(np.atleast_1d(np.asarray(self.trip_mask, np.int64))))
+        return rules_from_mask(mask)
 
 
 def split_tripwire(flat: np.ndarray, *, rounds: int) -> tuple[np.ndarray, TripReport]:
@@ -159,6 +178,26 @@ def split_tripwire(flat: np.ndarray, *, rounds: int) -> tuple[np.ndarray, TripRe
     return flat[:-tail], TripReport(bits=trail[:rounds].astype(np.int64),
                                     trip_round=int(trail[rounds]),
                                     trip_mask=int(trail[rounds + 1]))
+
+
+def split_fleet_tripwire(flat: np.ndarray, *, rounds: int, tenants: int
+                         ) -> tuple[np.ndarray, TripReport]:
+    """The fleet twin of :func:`split_tripwire`: bits ``[K, T]`` and the
+    per-tenant ``trip_round[T]`` / ``trip_mask[T]`` trail the bundle."""
+    flat = np.asarray(flat, dtype=np.float32)
+    tail = rounds * tenants + 2 * tenants
+    if flat.size <= tail:
+        raise ValueError(
+            f"fleet scan bundle of {flat.size} values has no tripwire block at "
+            f"rounds={rounds}, tenants={tenants}"
+        )
+    trail = flat[-tail:]
+    n_bits = rounds * tenants
+    return flat[:-tail], TripReport(
+        bits=trail[:n_bits].reshape(rounds, tenants).astype(np.int64),
+        trip_round=trail[n_bits:n_bits + tenants].astype(np.int64),
+        trip_mask=trail[n_bits + tenants:].astype(np.int64),
+    )
 
 
 def count_tripwire(registry, rules) -> None:

@@ -47,6 +47,7 @@ from kubernetes_rescheduling_tpu_torch import cli as t_cli
 from kubernetes_rescheduling_tpu_torch.backends.base import MoveRequest as TMove
 from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller as t_run
 from kubernetes_rescheduling_tpu_torch.bench.harness import make_backend as t_make
+from kubernetes_rescheduling_tpu_torch.config import FleetConfig as TFleetConfig
 from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig as TConfig
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
 from kubernetes_rescheduling_tpu_torch.objectives import communication_cost
@@ -417,7 +418,8 @@ REFUSED = [
     # refuses of them, it refuses too
     (dict(elastic="tsunami"), "unknown churn profile"),
     (dict(shadow=True), r"ROADMAP Queue 1 item 4\b"),
-    (dict(fleet=4), r"ROADMAP Queue 1 item 3\b"),
+    # fleet mode is carried; its dp plane is multi-device
+    (dict(fleet=TFleetConfig(tenants=4, plane="dp")), r"ROADMAP Queue 1 item 5\b"),
     (dict(serving=True), r"ROADMAP Queue 1 item 3\b"),
     (dict(pipeline=True, pipeline_depth=3), "depth must be 2"),
     (dict(scan_block=8, algorithm="kubescheduling"), "pinning greedy algorithm"),

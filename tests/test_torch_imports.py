@@ -63,6 +63,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import kubernetes_rescheduling_tpu_torch.solver.round_loop\n"
         "import kubernetes_rescheduling_tpu_torch.telemetry\n"
         "import kubernetes_rescheduling_tpu_torch.utils.retry\n"
+        "import kubernetes_rescheduling_tpu_torch.solver.fleet\n"
+        "import kubernetes_rescheduling_tpu_torch.solver.fleet_global\n"
+        "import kubernetes_rescheduling_tpu_torch.backends.fleet\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.fleet\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.fleet_rollup\n"
+        "import kubernetes_rescheduling_tpu_torch.utils.logging\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -98,8 +104,14 @@ def test_chip_smoke_alone_fails_without_the_package(tmp_path):
 
 def _entry_points():
     from kubernetes_rescheduling_tpu_torch import cli, convert
+    from kubernetes_rescheduling_tpu_torch.backends.fleet import make_fleet
     from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller
-    from kubernetes_rescheduling_tpu_torch.bench.harness import make_backend, sparse_problem
+    from kubernetes_rescheduling_tpu_torch.bench.fleet import run_fleet_controller
+    from kubernetes_rescheduling_tpu_torch.bench.harness import (
+        make_backend,
+        make_fleet_problem,
+        sparse_problem,
+    )
     from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
     from kubernetes_rescheduling_tpu_torch.core import sparsegraph, topology
     from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
@@ -128,6 +140,11 @@ def _entry_points():
         "run_controller churned": lambda: run_controller(
             make_backend("mubench", 0, device="cpu"), RescheduleConfig(
                 max_rounds=2, elastic="diurnal-autoscale")),
+        "make_fleet": lambda: make_fleet("mubench", 2),
+        "make_fleet_problem": lambda: make_fleet_problem(2, 20, 4),
+        "run_fleet_controller": lambda: run_fleet_controller(
+            make_fleet("mubench", 2, device="cpu"), RescheduleConfig(max_rounds=1)),
+        "cli reschedule --fleet": lambda: cli.main(["reschedule", "--fleet", "2"]),
         "cli reschedule --scan-block": lambda: cli.main(["reschedule", "--scan-block", "2"]),
         "cli reschedule --pipeline": lambda: cli.main(["reschedule", "--pipeline"]),
         "cli reschedule --churn-profile": lambda: cli.main(

@@ -164,7 +164,7 @@ def test_pod_graph_cache_rebuilds_on_a_new_pod_set():
     cfg = TConfig(algorithm="global", placement_unit="pod", max_rounds=1,
                   sleep_after_action_s=0.0, reconcile_enabled=False)
     t_run(tb, cfg, device="cpu", registry=TRegistry())
-    slot = tb._solver_caches["pod_graph"]
+    slot = tb._solver_caches[("pod_graph", None)]
     first = slot["value"]
     t_run(tb, cfg, device="cpu", registry=TRegistry())
     assert slot["value"] is first
