@@ -45,12 +45,18 @@ explained global rounds one read of the move-scoring inputs. A scan block
 reads the device once (its bundle, a ``round_end`` transfer) and admits one
 monitor at its end, whatever its K.
 
+``algorithm="proactive"`` runs the greedy round against the state the
+forecast plane (``forecast/plane.py``) predicts for the next window: one
+captured forecast step a round before the decision, its diagnostics riding
+the round-end read into ``RoundRecord.forecast``.
+
 Randomness: round ``r`` draws from the generator of ``(config.seed, r)``
 (``_random.round_generator``), so a round's decisions do not depend on
-the rounds before it. Two keyword arguments of :func:`run_controller`,
-used by the tests, supply the draws instead: ``gumbel_rows`` (the
-``random`` policy's noise row of each decision) and ``solver_plans`` (the
-global solver's per-sweep plans of each round).
+the rounds before it. Keyword arguments of :func:`run_controller`, used by
+the tests, supply the draws instead: ``gumbel_rows`` (the ``random``
+policy's noise row of each decision) and ``solver_plans`` (the global
+solver's per-sweep plans of each round); ``forecast_deltas`` supplies the
+forecast's load deltas the same way.
 """
 
 from __future__ import annotations
@@ -104,7 +110,12 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     pct_balance_terms,
 )
 from kubernetes_rescheduling_tpu_torch.solver.compiled import to_device
-from kubernetes_rescheduling_tpu_torch.solver.round_loop import decide, decide_explain
+from kubernetes_rescheduling_tpu_torch.solver.round_loop import (
+    decide,
+    decide_explain,
+    decide_explain_with_forecast,
+    decide_with_forecast,
+)
 from kubernetes_rescheduling_tpu_torch.telemetry import tripwire as tripwire_mod
 from kubernetes_rescheduling_tpu_torch.telemetry.accounting import pull_arrays
 from kubernetes_rescheduling_tpu_torch.telemetry.explain import (
@@ -153,10 +164,13 @@ class RoundRecord:
     # quarantine/reject counts, classified divergences, corrective moves
     # and the pods still diverged — None when the round was clean
     reconcile: dict | None = None
+    # proactive rounds: the forecast plane's block (skill, MAEs, cold /
+    # predictive / degraded path) — None on reactive rounds
+    forecast: dict | None = None
     # timing fields: execute start to record finalize, and wall seconds of
     # the round's phases ("decide" or "solve", "select" on capped or
-    # explained global rounds, "apply", "monitor", "admission",
-    # "reconcile", "round_end")
+    # explained global rounds, "forecast" on proactive rounds, "apply",
+    # "monitor", "admission", "reconcile", "round_end")
     wall_s: float = 0.0
     phase_s: dict[str, float] = field(default_factory=dict)
     # the pipelined schedule's telemetry (timing field): depth, the share of
@@ -284,13 +298,22 @@ class _Runtime:
     helpers the three schedules compose."""
 
     def __init__(self, backend, config: RescheduleConfig, *, device, registry,
-                 gumbel_rows=None, solver_plans=None, logger: StructuredLogger | None = None,
+                 gumbel_rows=None, solver_plans=None, forecast_deltas=None,
+                 logger: StructuredLogger | None = None,
                  checkpoint_dir: str | None = None, graph=None, on_round=None, churn=None):
         self.config = config
         self.registry = registry
         self.device = device
         self.gumbel_rows = gumbel_rows
         self.solver_plans = solver_plans
+        self.forecast_deltas = forecast_deltas
+        # the forecast plane: one online forecaster a proactive run
+        self.forecast_plane = None
+        if config.algorithm == "proactive":
+            from kubernetes_rescheduling_tpu_torch.forecast.plane import ForecastPlane
+
+            self.forecast_plane = ForecastPlane(config.forecast, registry=registry,
+                                                device=device)
         self.logger = logger
         self.on_round = on_round
         self.breaker = CircuitBreaker(
@@ -634,12 +657,37 @@ class _Runtime:
                 explain=self.explain_k > 0, intents=intents, pre_fence_hook=pre_fence_hook,
             )
         else:
+            forecast_delta = None
+            forecast_s = 0.0
+            if self.forecast_plane is not None:
+                # fold this round's observed loads into the online model and
+                # predict the next window: one captured step, its diag
+                # riding the round-end read
+                t_fc = time.perf_counter()
+                forecast_delta = self.forecast_plane.observe_and_predict(self.state,
+                                                                         closer=closer)
+                if self.forecast_deltas is not None:
+                    forecast_delta = self.forecast_deltas(rnd).to(self.device)
+                forecast_s = time.perf_counter() - t_fc
             rows = self.noise_rows(rnd)
             record = _greedy_round(self.boundary, self.state, graph, config, rnd,
                                    noise=lambda i: rows(i).to(self.device),
                                    registry=self.registry, closer=closer,
                                    logger=self.logger, explain_k=self.explain_k,
+                                   forecast_delta=forecast_delta,
                                    intents=intents, pre_fence_hook=pre_fence_hook)
+            if self.forecast_plane is not None:
+                # the forecast step is decision work: it counts in the
+                # round's decision latencies, first
+                record.decision_latencies_s = (forecast_s,) + record.decision_latencies_s
+                record.phase_s["forecast"] = forecast_s
+                plane, registry = self.forecast_plane, self.registry
+
+                def finish_forecast() -> None:
+                    record.forecast = plane.round_info()
+                    plane.publish(registry)
+
+                closer.defer_host(finish_forecast)
         if intents:
             t0 = time.perf_counter()
             self.ledger.record_moves(intents)
@@ -772,7 +820,7 @@ class _Runtime:
         rounds BEFORE the trip, and the report waits in ``scan_trip``)."""
         config = self.config
         graph = self.graph_src()
-        scoring = scoring_policy(config.algorithm)
+        scoring = scoring_policy(config.algorithm, config.forecast)
         mech = PlacementMechanism[scoring]
         state0 = self.state
         names = state0.node_names
@@ -1050,6 +1098,7 @@ def run_controller(
     churn=None,
     gumbel_rows: Callable[[int, int], torch.Tensor] | None = None,
     solver_plans: Callable[[int], list] | None = None,
+    forecast_deltas: Callable[[int], torch.Tensor] | None = None,
 ) -> ControllerResult:
     """Run ``config.max_rounds`` rounds against a backend on ``device``
     (the card unless the caller passes ``device="cpu"``); the backend's
@@ -1107,16 +1156,25 @@ def run_controller(
     ``gumbel_rows(round, i)`` gives the ``random`` policy's noise row of the
     round's ``i``-th decision and ``solver_plans(round)`` the global or pod
     solver's per-sweep plans, in place of the round's generator (the tests
-    feed both from the JAX package's key stream).
+    feed both from the JAX package's key stream). ``forecast_deltas(round)``
+    gives a proactive round's load delta (f32[N]) in place of the forecast
+    plane's; the plane still observes the round and fills its record's
+    ``forecast`` block (the tests feed the JAX package's deltas).
+
+    ``algorithm="proactive"``: each greedy round first folds the snapshot
+    into the forecast plane (``config.forecast``) and decides against the
+    predicted state; the step's latency leads ``decision_latencies_s`` and
+    the record carries the ``forecast`` block.
 
     Not carried yet (refused by ``config.validate()``): the ops plane,
-    forecast, fleet, serving, chaos and shadow.
+    chaos and shadow.
     """
     config = config.validate()
     dev = resolve_device(device)
     registry = registry if registry is not None else get_registry()
     rt = _Runtime(backend, config, device=dev, registry=registry, gumbel_rows=gumbel_rows,
-                  solver_plans=solver_plans, logger=logger, checkpoint_dir=checkpoint_dir,
+                  solver_plans=solver_plans, forecast_deltas=forecast_deltas, logger=logger,
+                  checkpoint_dir=checkpoint_dir,
                   graph=graph, on_round=on_round, churn=churn)
     if config.scan_block:
         _scanned_loop(rt)
@@ -1130,7 +1188,7 @@ def run_controller(
 
 
 def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry, closer,
-                  logger=None, explain_k: int = 0, intents=None,
+                  logger=None, explain_k: int = 0, forecast_delta=None, intents=None,
                   pre_fence_hook=None) -> RoundRecord:
     """Up to ``config.moves_per_round`` greedy moves: after each move the
     working snapshot re-homes the moved service (reference main.py:73's
@@ -1144,9 +1202,13 @@ def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry, close
     the ``DecisionExplanation`` is built at flush, with the apply outcome
     recorded during the round.
 
+    ``forecast_delta`` (proactive rounds) routes every decide through the
+    forecast-aware decisions: the base policy scored against the predicted
+    next-window state. A zero delta decides as the reactive round.
+
     ``pre_fence_hook`` (the pipelined schedule) runs once, after the first
     decision is queued on the device and before its fence."""
-    scoring = scoring_policy(config.algorithm)
+    scoring = scoring_policy(config.algorithm, config.forecast)
     pid = POLICY_IDS[scoring]
     mechanism = PlacementMechanism[scoring]
     node_index = {name: i for i, name in enumerate(state.node_names)}
@@ -1180,15 +1242,21 @@ def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry, close
     for i in range(config.moves_per_round):
         t0 = time.perf_counter()
         g = noise(i) if scoring == "random" else None
+        thr = config.hazard_threshold_pct
         if explain_k > 0:
-            most, hazard_mask, victim, svc, target, bundle = decide_explain(
-                state, graph, pid, config.hazard_threshold_pct, g, top_k=explain_k
-            )
+            if forecast_delta is not None:
+                most, hazard_mask, victim, svc, target, bundle = decide_explain_with_forecast(
+                    state, graph, pid, thr, g, forecast_delta, top_k=explain_k)
+            else:
+                most, hazard_mask, victim, svc, target, bundle = decide_explain(
+                    state, graph, pid, thr, g, top_k=explain_k)
         else:
             bundle = None
-            most, hazard_mask, victim, svc, target = decide(
-                state, graph, pid, config.hazard_threshold_pct, g
-            )
+            if forecast_delta is not None:
+                most, hazard_mask, victim, svc, target = decide_with_forecast(
+                    state, graph, pid, thr, g, forecast_delta)
+            else:
+                most, hazard_mask, victim, svc, target = decide(state, graph, pid, thr, g)
         # the apply boundary: ONE batched host read of the decision
         scalars, hazard = fence([torch.stack([most, victim, svc.long(), target]), hazard_mask],
                                 registry)

@@ -9,10 +9,13 @@ multiplexed over N tenants:
   and its own ``ControllerResult`` with the solo invariant
   ``max_rounds == len(rounds) + skipped_rounds``;
 - **one device plane**: a round runs ONE fleet decision for every active
-  tenant — the greedy ``solver.fleet.fleet_solve`` or the dense global
-  ``solver.fleet_global.fleet_global_solve`` (on the card one replay of a
-  captured graph holding every tenant's body) — read home in ONE counted
-  transfer (``device_transfers_total{site="fleet_decision"}``), and closes
+  tenant — the greedy ``solver.fleet.fleet_solve``, the proactive
+  ``fleet_solve_proactive`` after one ``forecast.fleet`` step for every
+  tenant, or the dense global ``solver.fleet_global.fleet_global_solve``
+  (on the card each one replay of a captured graph holding every tenant's
+  body) — read home in ONE counted transfer
+  (``device_transfers_total{site="fleet_decision"}``, the proactive
+  plane's forecast diag matrix riding it), and closes
   with ONE metrics bundle (``site="fleet_metrics"``: the per-tenant
   round-end pair and, with ``config.fleet_rollup``, the fleet rollup).
 
@@ -36,9 +39,8 @@ rounds of every tenant as one device block (``bench/scan.py``'s fleet
 half) and one counted ``round_end`` read, with per-tenant tripwire lanes.
 
 Left out (refused by ``config.validate()``, each naming its ROADMAP item):
-the proactive plane (item 3), the pipelined fleet (item 3.4), chaos
-tenants, the ops plane's hooks and the ``/tenants`` endpoints (item 4), the
-dp plane and restarts (item 5).
+the pipelined fleet (item 3.4), chaos tenants, the ops plane's hooks and
+the ``/tenants`` endpoints (item 4), the dp plane and restarts (item 5).
 Checkpoint/resume is solo-only, as in the JAX package.
 """
 
@@ -80,6 +82,8 @@ from kubernetes_rescheduling_tpu_torch.bench.reconcile import (
 from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
 from kubernetes_rescheduling_tpu_torch.elastic.buckets import bucket_capacity, device_view
 from kubernetes_rescheduling_tpu_torch.elastic.engine import make_fleet_churn
+from kubernetes_rescheduling_tpu_torch.forecast.model import DIAG_SIZE
+from kubernetes_rescheduling_tpu_torch.forecast.plane import decode_diag, publish_forecast
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import comm_edge_list
 from kubernetes_rescheduling_tpu_torch.policies.proactive import scoring_policy
 from kubernetes_rescheduling_tpu_torch.policies.scoring import POLICY_IDS
@@ -91,6 +95,7 @@ from kubernetes_rescheduling_tpu_torch.solver.fleet import (
     ROW_VICTIM,
     fleet_metrics,
     fleet_solve,
+    fleet_solve_proactive,
     stack_tenants,
 )
 from kubernetes_rescheduling_tpu_torch.solver.fleet_global import (
@@ -310,8 +315,12 @@ def run_fleet_controller(
         config = dataclasses.replace(
             config, fleet=dataclasses.replace(config.fleet, tenants=fleet.num_tenants)
         ).validate()
-    fleet_mode = ("global" if config.algorithm == "global" or config.moves_per_round == "all"
-                  else "greedy")
+    if config.algorithm == "global" or config.moves_per_round == "all":
+        fleet_mode = "global"
+    elif config.algorithm == "proactive":
+        fleet_mode = "proactive"
+    else:
+        fleet_mode = "greedy"
     dev = resolve_device(device)
     registry = registry if registry is not None else get_registry()
     T = fleet.num_tenants
@@ -372,7 +381,13 @@ def run_fleet_controller(
         if logger is not None:
             logger.info("fleet_rollup", **ev)
 
-    scoring = scoring_policy(config.algorithm) if fleet_mode == "greedy" else None
+    scoring = (scoring_policy(config.algorithm, config.forecast) if fleet_mode != "global"
+               else None)
+    forecast_plane = None
+    if fleet_mode == "proactive":
+        from kubernetes_rescheduling_tpu_torch.forecast.fleet import FleetForecastPlane
+
+        forecast_plane = FleetForecastPlane(config.forecast, T, device=dev)
     pid = POLICY_IDS[scoring] if scoring is not None else None
     thr = float(config.hazard_threshold_pct)
     mech = PlacementMechanism[scoring if scoring is not None else "global"]
@@ -431,6 +446,14 @@ def run_fleet_controller(
         tseries.gauge_set("fleet_load_std",
                           "per-tenant node CPU-% standard deviation after the most recent "
                           "fleet round", t.name, rec.load_std)
+        if rec.forecast is not None:
+            # the proactive plane's per-tenant skill (through the label
+            # budget) and the solo loop's mode counter, one a tenant-round
+            tseries.gauge_set("fleet_forecast_skill",
+                              "per-tenant forecast skill (1 - mae_model/mae_persistence) "
+                              "after the most recent proactive fleet round",
+                              t.name, rec.forecast["skill"])
+            publish_forecast(registry, rec.forecast, skill_gauge=False)
         if logger is not None:
             logger.info("fleet_round", tenant=t.name, round=rnd, moved=rec.moved,
                         service=rec.service, target=rec.target,
@@ -557,7 +580,7 @@ def run_fleet_controller(
         mask_np = np.zeros((T,), bool)
         mask_np[active] = True
         mask = torch.from_numpy(mask_np).to(dev)
-        g_moves = g_objs = decisions = hazard = None
+        g_moves = g_objs = decisions = hazard = fc_rows = None
         if fleet_mode == "global":
             gens, plans = [], []
             for t in tenants:
@@ -574,13 +597,25 @@ def run_fleet_controller(
                 rows = [tenants[i].noise_row(rnd) if i in active_set
                         else torch.zeros(filler.num_nodes) for i in range(T)]
                 gumbel = to_device(torch.stack(rows), dev)
-            dec_dev, hz_dev = fleet_solve(stack_tenants(slot_states), graphs, pid, thr, mask,
-                                          gumbel)
+            stacked = stack_tenants(slot_states)
+            parts = []
+            if forecast_plane is not None:
+                # every active tenant's observed loads into its model, one
+                # step for the fleet; the diag matrix rides the decision read
+                deltas, diag_dev = forecast_plane.observe_and_predict(stacked, mask)
+                dec_dev, hz_dev = fleet_solve_proactive(stacked, graphs, pid, thr, mask,
+                                                        deltas, gumbel)
+                parts.append(diag_dev.reshape(-1))
+            else:
+                dec_dev, hz_dev = fleet_solve(stacked, graphs, pid, thr, mask, gumbel)
             n_nodes = int(hz_dev.shape[1])
-            flat = pull(torch.cat([dec_dev.reshape(-1).float(), hz_dev.reshape(-1).float()]),
+            flat = pull(torch.cat([dec_dev.reshape(-1).float(), hz_dev.reshape(-1).float(),
+                                   *parts]),
                         site=DECISION_SITE, registry=registry)
             decisions = flat[:T * 4].reshape(T, 4).astype(np.int64)
-            hazard = flat[T * 4:].reshape(T, n_nodes) > 0.5
+            hazard = flat[T * 4:T * 4 + T * n_nodes].reshape(T, n_nodes) > 0.5
+            if parts:
+                fc_rows = flat[T * 4 + T * n_nodes:].reshape(T, DIAG_SIZE)
         solve_s = time.perf_counter() - t0
         result.batched_solves += 1
         result.device_solve_s += solve_s
@@ -610,6 +645,7 @@ def run_fleet_controller(
                     services_moved=(moved_name,) if moved_name else (),
                     decision_latencies_s=(per_tenant_s,),
                     applied_moves=((moved_name, landed),) if moved_name else (),
+                    forecast=decode_diag(fc_rows[i]) if fc_rows is not None else None,
                 )
             close_tenant_round(t, rnd, rec)
             return rec

@@ -2,13 +2,16 @@
 ``kubernetes_rescheduling_tpu.bench.harness`` (the reference's µBench
 cluster and the synthetic meshes up to ``xlarge``), of ``bench.py``'s
 sparse problem (:func:`sparse_problem`) and of its fleet problem
-(:func:`make_fleet_problem`).
+(:func:`make_fleet_problem`), and the forecast plane's head-to-head cell
+(:func:`run_forecast_headtohead`).
 
 Same ``default_rng(seed)`` call sequence as the JAX package: one seed
 builds the identical cluster in both packages.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -130,3 +133,70 @@ def make_fleet_problem(
             seed=seed * 1000 + t, device=device,
         ))
     return states, graphs
+
+
+def run_forecast_headtohead(
+    profiles: tuple[str, ...] = ("diurnal-autoscale", "deploy-waves"),
+    rounds: int = 40,
+    *,
+    scenario: str = "dense",
+    seed: int = 1,
+    churn_seed: int = 7,
+    load_noise_frac: float = 0.05,
+    forecast=None,
+    logger_factory=None,
+    registry=None,
+    device: str | torch.device | None = DEFAULT_DEVICE,
+) -> dict:
+    """The forecast plane's cell: ``proactive`` against reactive CAR on
+    identically seeded churned clusters, one pair per churn profile.
+
+    Both arms get the same backend, imbalance, churn stream (profile and
+    seed), metric-reading noise (``load_noise_frac``: per-pod gaussian
+    noise in the simulator's monitor, the regime where the differenced
+    model has an edge over persistence) and round seed; only the algorithm
+    differs. Returns per profile each arm's mean and final communication
+    cost, mean load std, round and move counts, and the proactive arm's
+    last forecast block; ``_records`` holds the records."""
+    from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller
+    from kubernetes_rescheduling_tpu_torch.config import ForecastConfig, RescheduleConfig
+
+    out: dict = {"rounds": rounds, "scenario": scenario, "profiles": {}}
+    for profile in profiles:
+        arms: dict[str, dict] = {}
+        for algo in ("proactive", "communication"):
+            backend = make_backend(scenario, seed, device=device)
+            if load_noise_frac:
+                backend.load = dataclasses.replace(backend.load, noise_frac=load_noise_frac)
+            backend.inject_imbalance(backend.node_names[0])
+            cfg = RescheduleConfig(
+                algorithm=algo, max_rounds=rounds, sleep_after_action_s=0.0, seed=seed,
+                elastic=profile, elastic_seed=churn_seed,
+                forecast=forecast if forecast is not None else ForecastConfig(),
+            )
+            logger = logger_factory() if logger_factory is not None else None
+            result = run_controller(backend, cfg, device=device, logger=logger,
+                                    registry=registry)
+            costs = [r.communication_cost for r in result.rounds]
+            arms[algo] = {
+                "mean_communication_cost": float(np.mean(costs)) if costs else 0.0,
+                "final_communication_cost": costs[-1] if costs else None,
+                "mean_load_std": (float(np.mean([r.load_std for r in result.rounds]))
+                                  if result.rounds else 0.0),
+                "rounds": len(result.rounds),
+                "skipped_rounds": result.skipped_rounds,
+                "moves": result.moves,
+                "forecast": next((r.forecast for r in reversed(result.rounds)
+                                  if r.forecast is not None), None),
+                "records": result.rounds,
+            }
+        pro, rea = arms["proactive"], arms["communication"]
+        out["profiles"][profile] = {
+            **{k: {kk: vv for kk, vv in v.items() if kk != "records"} for k, v in arms.items()},
+            "proactive_vs_reactive_cost": (
+                pro["mean_communication_cost"] / rea["mean_communication_cost"]
+                if rea["mean_communication_cost"] > 0 else 1.0
+            ),
+            "_records": {k: v["records"] for k, v in arms.items()},
+        }
+    return out

@@ -12,6 +12,7 @@ package's commands for what the port computes.
     python -m kubernetes_rescheduling_tpu_torch reschedule --churn-profile diurnal-autoscale
     python -m kubernetes_rescheduling_tpu_torch reschedule --fleet 16 --scenario mubench --imbalance
     python -m kubernetes_rescheduling_tpu_torch reschedule --fleet 4 --scenario large --algorithm global
+    python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm proactive --churn-profile diurnal-autoscale
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --sparse
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --placement-unit pod
@@ -27,10 +28,13 @@ sweep count that fills that many ms of device time a round
 schedule, ``--scan-block K`` the scanned one (K rounds a device block, with
 the in-block tripwires), and ``--churn-profile`` churns the cluster between
 rounds. ``reschedule --fleet N`` runs N tenants under the multiplexed fleet
-loop (``bench/fleet.py``). Best-of-N restarts and node sharding
-(``--restarts``, ``--tp`` above 1) and the telemetry files
-(``--metrics-out``, ``--trace-out``) are refused, naming the ROADMAP item
-that brings them.
+loop (``bench/fleet.py``). ``reschedule --algorithm proactive`` decides
+against the forecast plane's predicted next window (``--forecast-*`` set
+its ``ForecastConfig``). Best-of-N restarts and node sharding
+(``--restarts``, ``--tp`` above 1), the telemetry files (``--metrics-out``,
+``--trace-out``) and the serving front (``--place``, which needs the ops
+server's ``POST /place``) are refused, naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from kubernetes_rescheduling_tpu_torch.bench.trace import (
     load_trace,
     replay,
 )
-from kubernetes_rescheduling_tpu_torch.config import FleetConfig, RescheduleConfig
+from kubernetes_rescheduling_tpu_torch.config import FleetConfig, ForecastConfig, RescheduleConfig
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
 from kubernetes_rescheduling_tpu_torch.core.topology import state_from_workmodel
 from kubernetes_rescheduling_tpu_torch.core.workmodel import Workmodel
@@ -96,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     r = sub.add_parser("reschedule", help="run the rescheduling control loop")
     r.add_argument("--algorithm", default="communication",
-                   help="spread|binpack|random|kubescheduling|communication|car|global")
+                   help="spread|binpack|random|kubescheduling|communication|car|global|"
+                        "proactive")
     r.add_argument("--backend", default="sim",
                    help="sim (the only backend the port drives so far)")
     r.add_argument("--scenario", default="mubench", choices=SCENARIOS)
@@ -171,6 +176,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fleet cardinality budget: fleets of more than N tenants suppress "
                         "the per-tenant labeled series (counted) and observe through the "
                         "device-side rollups")
+    _add_forecast_flags(r)
+    r.add_argument("--place", action="store_true",
+                   help="serving mode: the request-grain placement service behind the ops "
+                        "server's POST /place (refused: the ops server is ROADMAP Queue 1 "
+                        "item 4; build serving.ServingEngine in code instead)")
     r.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
 
@@ -235,6 +245,34 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _add_forecast_flags(parser: argparse.ArgumentParser) -> None:
+    """The forecast plane behind ``--algorithm proactive``; the defaults are
+    ``ForecastConfig``'s, so a CLI run and a run built in code agree."""
+    d = ForecastConfig()
+    parser.add_argument("--forecast-lags", type=int, default=d.lags,
+                        help="lag-feature window of the online per-node ridge forecaster "
+                             "(proactive algorithm)")
+    parser.add_argument("--forecast-decay", type=float, default=d.decay,
+                        help="exponential weight of the rolling skill window per scored "
+                             "round (~1/(1-decay) rounds dominate; 1.0 = cumulative)")
+    parser.add_argument("--forecast-ridge", type=float, default=d.ridge,
+                        help="L2 regularization of the per-node ridge fits (keeps cold "
+                             "solves well-posed)")
+    parser.add_argument("--forecast-min-history", type=int, default=d.min_history,
+                        help="observations a node needs before its model prediction is "
+                             "trusted; until then proactive rounds equal reactive CAR's")
+    parser.add_argument("--forecast-min-skill", type=float, default=d.min_skill,
+                        help="degrade gate: when forecast_skill (1 - mae_model/"
+                             "mae_persistence) drops below this, proactive rounds fall back "
+                             "to reactive CAR while the shadow model keeps scoring")
+
+
+def _forecast_config(args) -> ForecastConfig:
+    return ForecastConfig(lags=args.forecast_lags, ridge=args.forecast_ridge,
+                          min_history=args.forecast_min_history,
+                          min_skill=args.forecast_min_skill, decay=args.forecast_decay)
+
+
 def _refuse_unported(command: str, args) -> None:
     """Exit naming the ROADMAP item of a flag the port does not carry yet."""
     if getattr(args, "restarts", 1) > 1 or getattr(args, "tp", 1) > 1:
@@ -243,6 +281,10 @@ def _refuse_unported(command: str, args) -> None:
     if getattr(args, "metrics_out", None) or getattr(args, "trace_out", None):
         raise SystemExit(f"{command}: --metrics-out and --trace-out need the telemetry "
                          "plane (telemetry/spans.py), not ported yet (ROADMAP Queue 1 item 4)")
+    if getattr(args, "place", False):
+        raise SystemExit(f"{command}: --place serves placements through the ops server's "
+                         "POST /place (telemetry/server.py), not ported yet (ROADMAP Queue 1 "
+                         "item 4); serving.ServingEngine runs without it in code")
 
 
 def _parse_tenant_list(raw: str) -> tuple[int, ...]:
@@ -254,6 +296,7 @@ def _parse_tenant_list(raw: str) -> tuple[int, ...]:
 
 
 def cmd_reschedule(args) -> dict:
+    _refuse_unported("reschedule", args)
     algo = _norm_algo(args.algorithm)
     if args.fleet and args.backend != "sim":
         raise SystemExit("--fleet requires the sim backend (one live cluster is one tenant; "
@@ -287,6 +330,7 @@ def cmd_reschedule(args) -> dict:
         fleet=FleetConfig(tenants=args.fleet, plane=args.fleet_plane,
                           chaos_tenants=_parse_tenant_list(args.fleet_chaos_tenants)),
         tenant_label_budget=args.tenant_label_budget,
+        forecast=_forecast_config(args),
     )
     try:
         cfg.validate()

@@ -7,11 +7,12 @@ their block (``reconcile_admission`` is ``reconcile.admission``,
 ``pipeline_depth`` is ``controller.depth``, ``elastic_seed`` is
 ``elastic.seed``, the tripwire fields are ``obs.*``), with the JAX
 package's defaults, and :meth:`RescheduleConfig.validate` refuses what the
-JAX package refuses, for the same reasons. Fleet mode keeps its block
-(:class:`FleetConfig`). The config also carries planes
-this port does not have yet: each keeps a field whose default is off, and
-``validate`` refuses it, naming the ROADMAP item that brings it — a run
-never quietly does something else.
+JAX package refuses, for the same reasons. Fleet mode, the forecast plane
+and the serving plane keep their blocks (:class:`FleetConfig`,
+:class:`ForecastConfig`, :class:`ServingConfig`). The config also carries
+planes this port does not have yet: each keeps a field whose default is
+off, and ``validate`` refuses it, naming the ROADMAP item that brings it —
+a run never quietly does something else.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from dataclasses import dataclass, field
 from kubernetes_rescheduling_tpu_torch.policies.scoring import POLICY_NAMES
 from kubernetes_rescheduling_tpu_torch.utils.retry import RetryPolicy
 
-ALGORITHMS: tuple[str, ...] = POLICY_NAMES + ("global",)
+ALGORITHMS: tuple[str, ...] = POLICY_NAMES + ("global", "proactive")
 
 # greedy policies whose placement mechanism PINS the landing node: the
 # scanned schedule replays their moves knowing where they land.
@@ -32,6 +33,110 @@ SCAN_POLICIES: tuple[str, ...] = ("spread", "binpack", "random", "communication"
 
 # the named churn profiles of elastic/events.py
 ELASTIC_PROFILES: tuple[str, ...] = ("steady", "diurnal-autoscale", "deploy-waves", "node-flap")
+
+
+@dataclass(frozen=True)
+class ForecastConfig:
+    """The forecast plane (the JAX package's ``[forecast]`` block): the
+    online lag-feature ridge forecaster behind ``algorithm="proactive"``
+    (``forecast/``).
+
+    ``lags`` is the feature window; ``ridge`` the L2 term that keeps every
+    per-node solve well-posed; ``min_history`` the observations a node needs
+    before its model prediction is trusted (until then the prediction is
+    persistence and a proactive round equals a reactive one);
+    ``min_skill`` the device-side gate: when ``forecast_skill = 1 -
+    mae_model/mae_persistence`` drops below it the applied delta is zero.
+    ``decay`` weighs the skill window per scored round (1.0 = cumulative);
+    ``fit_decay`` is the recursive-least-squares forgetting of the ridge
+    statistics, longer than the skill window. ``base_policy`` is the greedy
+    policy proactive rounds score with: the forecast moves the state the
+    policy sees, not the policy."""
+
+    lags: int = 2
+    ridge: float = 1e-3
+    min_history: int = 12
+    min_skill: float = 0.0
+    decay: float = 0.85
+    fit_decay: float = 0.97
+    base_policy: str = "communication"
+
+    def validate(self) -> "ForecastConfig":
+        if self.lags < 1:
+            raise ValueError(f"forecast lags must be >= 1, got {self.lags}")
+        if self.ridge <= 0:
+            raise ValueError(
+                f"forecast ridge must be > 0 (it keeps cold solves well-posed), got {self.ridge}"
+            )
+        if self.min_history < self.lags + 2:
+            raise ValueError(
+                f"forecast min_history must be >= lags + 2 (a node needs a full feature "
+                f"window plus targets before its fit means anything), got "
+                f"{self.min_history} with lags={self.lags}"
+            )
+        if not 0.0 < self.decay <= 1.0:
+            raise ValueError(
+                f"forecast decay must be in (0, 1] (1 = cumulative skill window), "
+                f"got {self.decay}"
+            )
+        if not 0.0 < self.fit_decay <= 1.0:
+            raise ValueError(
+                f"forecast fit_decay must be in (0, 1] (1 = infinite fit memory), "
+                f"got {self.fit_decay}"
+            )
+        if self.base_policy not in POLICY_NAMES:
+            raise ValueError(
+                f"forecast base_policy must be a greedy policy {sorted(POLICY_NAMES)}, "
+                f"got {self.base_policy!r}"
+            )
+        return self
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """The serving plane (the JAX package's ``[serving]`` block): the
+    request-grain placement service (``serving/``).
+
+    ``enabled`` attaches the engine to a run (the engine itself can always be
+    built in code); ``max_batch`` is the static batch shape every dispatch
+    pads to (one capture in steady state); ``batch_window_ms`` how long the
+    batcher holds its first request open for company; ``queue_depth`` the
+    bounded admission queue (arrivals beyond it shed, counted
+    ``serving_shed_total{reason="queue_full"}``); ``deadline_ms`` the
+    default per-request deadline (0 = none); ``window`` the rolling
+    completed-request window behind the percentiles; ``ring`` the bounded
+    recent-request ring."""
+
+    enabled: bool = False
+    max_batch: int = 8
+    batch_window_ms: float = 2.0
+    queue_depth: int = 64
+    deadline_ms: float = 250.0
+    window: int = 256
+    ring: int = 32
+
+    def validate(self) -> "ServingConfig":
+        if self.max_batch < 1:
+            raise ValueError(f"serving max_batch must be >= 1, got {self.max_batch}")
+        if self.batch_window_ms < 0:
+            raise ValueError(
+                f"serving batch_window_ms must be >= 0 (0 = dispatch whatever is queued "
+                f"immediately), got {self.batch_window_ms}"
+            )
+        if self.queue_depth < 1:
+            raise ValueError(f"serving queue_depth must be >= 1, got {self.queue_depth}")
+        if self.deadline_ms < 0:
+            raise ValueError(
+                f"serving deadline_ms must be >= 0 (0 = no deadline), got {self.deadline_ms}"
+            )
+        if self.window < 2:
+            raise ValueError(
+                f"serving window must be >= 2 (percentiles over one sample judge nothing), "
+                f"got {self.window}"
+            )
+        if self.ring < 1:
+            raise ValueError(f"serving ring must be >= 1, got {self.ring}")
+        return self
 
 
 @dataclass(frozen=True)
@@ -157,17 +262,16 @@ class RescheduleConfig:
     fleet_rollup: bool = True
     fleet_rollup_top_k: int = 3
 
+    # the forecast plane behind algorithm="proactive" (forecast.*) and the
+    # request-grain serving plane (serving.*)
+    forecast: ForecastConfig = field(default_factory=ForecastConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
+
     # planes of the JAX package that this port does not carry yet
     chaos: str = "none"          # chaos.profile
     shadow: bool = False         # shadow.enabled
-    serving: bool = False        # serving.enabled
 
     def validate(self) -> "RescheduleConfig":
-        if self.algorithm == "proactive":
-            raise ValueError(
-                "algorithm='proactive' needs the forecast plane, which the port does not "
-                "have yet (ROADMAP Queue 1 item 3)"
-            )
         if self.algorithm not in ALGORITHMS:
             raise ValueError(
                 f"unknown algorithm {self.algorithm!r}; expected one of {sorted(ALGORITHMS)}"
@@ -212,10 +316,25 @@ class RescheduleConfig:
                 "(the k8s backend is ROADMAP Queue 1 item 4)"
             )
         self.retry.validate()
+        self.forecast.validate()
+        if self.algorithm == "proactive":
+            # the global and pod solvers never read the forecast delta: a
+            # proactive round routed through them would decide reactively
+            if self.moves_per_round == "all":
+                raise ValueError(
+                    "algorithm='proactive' requires integer moves_per_round: 'all' routes "
+                    "the round through the global solver, which does not consume the forecast"
+                )
+        self.serving.validate()
+        if self.serving.enabled and self.algorithm not in POLICY_NAMES:
+            raise ValueError(
+                "the serving plane scores requests with the greedy machinery: "
+                f"serving.enabled requires a greedy algorithm {sorted(POLICY_NAMES)}, "
+                f"got {self.algorithm!r}"
+            )
         refused = (
             (self.chaos != "none", "chaos injection (backends/chaos.py)", 4),
             (self.shadow, "shadow mode (bench/shadow.py)", 4),
-            (self.serving, "the serving plane", 3),
         )
         for on, what, item in refused:
             if on:
@@ -267,11 +386,12 @@ class RescheduleConfig:
                 "graph is built host-side per tenant, which the batched device plane "
                 "cannot amortize"
             )
-        greedy_family = self.algorithm in POLICY_NAMES and self.moves_per_round == 1
+        greedy_family = (self.algorithm in POLICY_NAMES + ("proactive",)
+                         and self.moves_per_round == 1)
         global_family = self.algorithm == "global" or self.moves_per_round == "all"
         if not (greedy_family or global_family):
             raise ValueError(
-                "fleet mode batches whole decision planes: it requires a greedy "
+                "fleet mode batches whole decision planes: it requires a greedy/proactive "
                 "algorithm with moves_per_round=1, or a global round (algorithm='global' "
                 f"/ moves_per_round='all') (got algorithm={self.algorithm!r}, "
                 f"moves_per_round={self.moves_per_round!r})"

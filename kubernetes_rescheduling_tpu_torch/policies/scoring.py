@@ -50,25 +50,38 @@ def lex_argmax(keys: Sequence[torch.Tensor], mask: torch.Tensor) -> torch.Tensor
     return torch.where(mask.any(), first_true(winners), -1)
 
 
-def node_features(
-    state: ClusterState, graph: CommGraph, service_idx: torch.Tensor
-) -> dict[str, torch.Tensor]:
-    """Every per-node feature a policy needs. ``affinity`` is CAR's score:
-    the pods on each node whose service talks to ``service_idx`` (reference
-    rescheduling.py:188-195), a row of the graph times the occupancy matrix
-    — an f32 product outside any kernel (TF32 is off in the port)."""
-    occ = state.service_node_counts(graph.num_services)                        # f32[S, N]
-    rel_row = (graph.adj.index_select(0, service_idx.reshape(1).long()) > 0).float()
+def state_features(state: ClusterState, graph: CommGraph) -> dict[str, torch.Tensor]:
+    """The per-node features that do not depend on the service being
+    placed, and the occupancy matrix ``occ`` (f32[S, N]) the affinity row is
+    read from: one computation serves every request scored against the
+    same snapshot (``serving.kernel.place_batch``)."""
     cap = state.node_cpu_cap
     free = state.node_cpu_free()
     return {
+        "occ": state.service_node_counts(graph.num_services),
         "pod_count": state.node_pod_count(),
         "cpu_pct_rounded": node_cpu_pct_rounded(state).float(),
         "cpu_free": free,
         "free_frac": torch.where(cap > 0, free / torch.where(cap > 0, cap, 1.0), 0.0),
-        "affinity": (rel_row @ occ)[0],
         "lex_rank": state.node_lex_rank.float(),
     }
+
+
+def node_features(
+    state: ClusterState, graph: CommGraph, service_idx: torch.Tensor,
+    shared: dict[str, torch.Tensor] | None = None,
+) -> dict[str, torch.Tensor]:
+    """Every per-node feature a policy needs: :func:`state_features`
+    (``shared`` when the caller computed them already) and ``affinity``,
+    CAR's score: the pods on each node whose service talks to
+    ``service_idx`` (reference rescheduling.py:188-195), a row of the graph
+    times the occupancy matrix — an f32 product outside any kernel (TF32 is
+    off in the port)."""
+    f = dict(shared if shared is not None else state_features(state, graph))
+    occ = f.pop("occ")
+    rel_row = (graph.adj.index_select(0, service_idx.reshape(1).long()) > 0).float()
+    f["affinity"] = (rel_row @ occ)[0]
+    return f
 
 
 def policy_key_table(
@@ -91,10 +104,12 @@ def policy_scores(
     service_idx: torch.Tensor,
     hazard_mask: torch.Tensor,
     gumbel: torch.Tensor | None = None,
+    shared: dict[str, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The active policy's scoring rows ``(k1, k2, cand)``: primary key,
-    tie-break key and the candidate mask (valid and not hazardous)."""
-    f = node_features(state, graph, service_idx)
+    tie-break key and the candidate mask (valid and not hazardous);
+    ``shared`` is :func:`state_features` of ``state`` if already computed."""
+    f = node_features(state, graph, service_idx, shared)
     cand = state.node_valid & ~hazard_mask
     k1, k2 = policy_key_table(f, state, gumbel)
     pid = min(max(int(policy_id), 0), len(POLICY_NAMES) - 1)

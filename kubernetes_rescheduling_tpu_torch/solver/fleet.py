@@ -25,8 +25,9 @@ stacked one: their adjacencies are large read-only operands the bodies
 read in place (stacking them would copy T × S² floats a stack and change
 the capture key's identity each time).
 
-The proactive plane (:func:`fleet_solve_proactive`) waits with the
-forecast and refuses (ROADMAP Queue 1 item 3).
+- :func:`fleet_solve_proactive`: the proactive plane — the solo
+  ``decide_with_forecast`` for every tenant against its own forecast delta
+  row, packed the same way (``fn="fleet_solve_proactive"``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from kubernetes_rescheduling_tpu_torch.bench.round_end import round_end_metrics
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
 from kubernetes_rescheduling_tpu_torch.solver.compiled import CACHE
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import state_from_inputs, state_inputs
-from kubernetes_rescheduling_tpu_torch.solver.round_loop import decide
+from kubernetes_rescheduling_tpu_torch.solver.round_loop import decide, decide_with_forecast
 
 # columns of the per-tenant decision rows (axis 1 of the i32[T, 4])
 ROW_MOST, ROW_VICTIM, ROW_SERVICE, ROW_TARGET = range(4)
@@ -121,16 +122,22 @@ def fleet_decide_body(t: dict, adjs, *, policy_id: int, threshold: float, tenant
                       ) -> dict[str, torch.Tensor]:
     """The fleet's decision as a function of device tensors that reads
     nothing back: ``t`` holds the stacked state's arrays, ``service_valid``
-    [T, S], ``mask`` [T] and, for the ``random`` policy, ``gumbel`` [T, N].
-    Returns ``{"decisions": i32[T, 4], "hazard": bool[T, N]}``."""
+    [T, S], ``mask`` [T], for the ``random`` policy ``gumbel`` [T, N], and
+    on the proactive plane the forecast ``deltas`` [T, N]. Returns
+    ``{"decisions": i32[T, 4], "hazard": bool[T, N]}``."""
     st = state_from_inputs(t)
     gumbel = t.get("gumbel")
+    deltas = t.get("deltas")
     rows, hazards = [], []
     for i in range(tenants):
         g = CommGraph(adj=adjs[i], service_valid=t["service_valid"][i].clone())
-        most, hazard, victim, svc, target = decide(
-            tenant_view(st, i), g, policy_id, threshold,
-            gumbel[i].clone() if gumbel is not None else None)
+        noise = gumbel[i].clone() if gumbel is not None else None
+        if deltas is not None:
+            most, hazard, victim, svc, target = decide_with_forecast(
+                tenant_view(st, i), g, policy_id, threshold, noise, deltas[i].clone())
+        else:
+            most, hazard, victim, svc, target = decide(tenant_view(st, i), g, policy_id,
+                                                       threshold, noise)
         rows.append(torch.stack([x.to(torch.int32) for x in (most, victim, svc, target)]))
         hazards.append(hazard)
     mask = t["mask"]
@@ -142,14 +149,16 @@ def fleet_decide_body(t: dict, adjs, *, policy_id: int, threshold: float, tenant
 
 def fleet_solve(states: ClusterState, graphs: Sequence[CommGraph], policy_id: int,
                 threshold: float, tenant_mask: torch.Tensor,
-                gumbel: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                gumbel: torch.Tensor | None = None, *, deltas: torch.Tensor | None = None,
+                fn: str = "fleet_solve") -> tuple[torch.Tensor, torch.Tensor]:
     """Every tenant's decision in one body: ``(decisions i32[T, 4], hazard
     bool[T, N])`` on the states' device, ``decisions[t]`` being ``(most,
     victim, service, target)`` of the solo ``decide`` on tenant ``t``
     (``ROW_*``). ``states`` is stacked (:func:`stack_tenants`), ``graphs``
     one graph a tenant, ``gumbel`` the ``random`` policy's noise rows
     [T, N]. A slot whose ``tenant_mask`` is False comes back as the no-op
-    (-1, -1, 0, -1) with an all-False hazard row."""
+    (-1, -1, 0, -1) with an all-False hazard row. ``deltas`` (f32[T, N]) makes
+    it the proactive plane (:func:`fleet_solve_proactive`)."""
     T = int(tenant_mask.shape[0])
     check_graphs(graphs, T)
     dev = states.device
@@ -161,24 +170,30 @@ def fleet_solve(states: ClusterState, graphs: Sequence[CommGraph], policy_id: in
         if tuple(gumbel.shape) != (T, n):
             raise ValueError(f"gumbel rows {tuple(gumbel.shape)} != {(T, n)}")
         inputs["gumbel"] = gumbel.to(dev)
+    if deltas is not None:
+        inputs["deltas"] = deltas.to(dev, torch.float32)
     adjs = tuple(g.adj for g in graphs)
     static = dict(policy_id=int(policy_id), threshold=float(threshold), tenants=T)
 
     def make_body():
         return lambda t: fleet_decide_body(t, adjs, **static)
 
-    out = CACHE.run("fleet_solve", tuple(sorted(static.items())), inputs, make_body,
-                    operands=adjs)
+    out = CACHE.run(fn, tuple(sorted(static.items())), inputs, make_body, operands=adjs)
     return out["decisions"], out["hazard"]
 
 
-def fleet_solve_proactive(*args, **kwargs):
-    """The JAX package's proactive fleet decision: it needs the forecast
-    plane, which the port does not have yet."""
-    raise ValueError(
-        "fleet_solve_proactive needs the forecast plane (forecast/fleet.py), not ported "
-        "yet (ROADMAP Queue 1 item 3)"
-    )
+def fleet_solve_proactive(states: ClusterState, graphs: Sequence[CommGraph], policy_id: int,
+                          threshold: float, tenant_mask: torch.Tensor, deltas: torch.Tensor,
+                          gumbel: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The proactive fleet decision: tenant ``t`` decides as the solo
+    ``decide_with_forecast`` on its state with its forecast delta row
+    ``deltas[t]`` (f32[T, N], from ``forecast.fleet``), packed as
+    :func:`fleet_solve` packs; one replay on the card (``fn=
+    "fleet_solve_proactive"``). A zero delta row decides as the reactive
+    plane; masked slots never emit a move."""
+    return fleet_solve(states, graphs, policy_id, threshold, tenant_mask, gumbel,
+                       deltas=deltas, fn="fleet_solve_proactive")
 
 
 def fleet_metrics(states, graphs: Sequence[CommGraph], edges=None) -> torch.Tensor:

@@ -144,7 +144,15 @@ def decide_explain(
     is overwritten when top-k by ``k1`` alone misses a tie-break winner),
     so the argmax over the recorded rows reproduces the decision."""
     state, decision, (k1, k2, cand) = _decide_scored(state, graph, policy_id, threshold, gumbel)
-    target = decision[-1]
+    return (*decision, explain_bundle(state, k1, k2, cand, decision[-1], top_k))
+
+
+def explain_bundle(state: ClusterState, k1: torch.Tensor, k2: torch.Tensor, cand: torch.Tensor,
+                   target: torch.Tensor, top_k: int) -> torch.Tensor:
+    """f32[6, k] (k = min(top_k, N)): the top-k hazard nodes and the top-k
+    candidates by ``k1`` of a decision taken from ``(k1, k2, cand)`` on
+    ``state`` (:func:`decide_explain`'s layout), ``target`` always among the
+    recorded candidates."""
     k = min(int(top_k), state.num_nodes)
     neg_inf = float("-inf")
     pct = node_cpu_pct_rounded(state).float()
@@ -154,9 +162,46 @@ def decide_explain(
     # nodes tie on the primary key: the chosen node takes the last slot
     missing = (target >= 0) & ~(c_i == target).any()
     c_i = torch.cat([c_i[:-1], torch.where(missing, target, c_i[-1]).reshape(1)])
-    bundle = torch.stack([hz_i.float(), hz_v, c_i.float(), k1[c_i].float(), k2[c_i].float(),
-                          cand[c_i].float()])
-    return (*decision, bundle)
+    return torch.stack([hz_i.float(), hz_v, c_i.float(), k1[c_i].float(), k2[c_i].float(),
+                        cand[c_i].float()])
+
+
+def decide_with_forecast(
+    state: ClusterState,
+    graph: CommGraph,
+    policy_id: int,
+    threshold: float,
+    gumbel: torch.Tensor | None,
+    delta: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ``proactive`` decision: :func:`decide` against the PREDICTED
+    next-window state, the snapshot with the forecaster's per-node load
+    ``delta`` folded into ``node_base_cpu`` (``policies.proactive.
+    predicted_state``). Hazard detection and the scores see next-window
+    loads; the pod and topology arrays stay observed. A zero ``delta``
+    makes this :func:`decide` on the raw state, bit for bit."""
+    from kubernetes_rescheduling_tpu_torch.policies.proactive import predicted_state
+
+    return decide(predicted_state(state, delta), graph, policy_id, threshold, gumbel)
+
+
+def decide_explain_with_forecast(
+    state: ClusterState,
+    graph: CommGraph,
+    policy_id: int,
+    threshold: float,
+    gumbel: torch.Tensor | None,
+    delta: torch.Tensor,
+    *,
+    top_k: int = 3,
+) -> tuple[torch.Tensor, ...]:
+    """:func:`decide_explain` against the predicted state: the bundle
+    carries the predicted scores the decision was taken from, so the
+    explanation re-derives the decision as on a reactive round."""
+    from kubernetes_rescheduling_tpu_torch.policies.proactive import predicted_state
+
+    return decide_explain(predicted_state(state, delta), graph, policy_id, threshold, gumbel,
+                          top_k=top_k)
 
 
 def round_step(

@@ -23,6 +23,14 @@ DEFAULT_BUCKETS: tuple[float, ...] = (
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
 )
 
+# request-scale buckets (seconds): the serving plane's per-stage latency
+# histograms (``serving_request_seconds{stage}``) live orders of magnitude
+# below a round
+MICRO_BUCKETS: tuple[float, ...] = (
+    50e-6, 100e-6, 250e-6, 500e-6,
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+)
+
 
 class _Metric:
     """One metric family: shared name/help/labelnames, per-label children."""

@@ -49,6 +49,7 @@ from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller as
 from kubernetes_rescheduling_tpu_torch.bench.harness import make_backend as t_make
 from kubernetes_rescheduling_tpu_torch.config import FleetConfig as TFleetConfig
 from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig as TConfig
+from kubernetes_rescheduling_tpu_torch.config import ServingConfig as TServingConfig
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
 from kubernetes_rescheduling_tpu_torch.objectives import communication_cost
 from kubernetes_rescheduling_tpu_torch.solver import sparse_solver as tss
@@ -409,7 +410,8 @@ def test_cli_reschedule_global(capsys, solver_backend):
 
 
 REFUSED = [
-    (dict(algorithm="proactive"), r"ROADMAP Queue 1 item 3\b"),
+    # proactive is carried; what the JAX package refuses of it, it refuses
+    (dict(algorithm="proactive", scan_block=4), "pinning greedy algorithm"),
     (dict(solver_restarts=2), r"ROADMAP Queue 1 item 5\b"),
     (dict(solver_tp=2), r"ROADMAP Queue 1 item 5\b"),
     (dict(backend="k8s"), r"ROADMAP Queue 1 item 4\b"),
@@ -420,7 +422,9 @@ REFUSED = [
     (dict(shadow=True), r"ROADMAP Queue 1 item 4\b"),
     # fleet mode is carried; its dp plane is multi-device
     (dict(fleet=TFleetConfig(tenants=4, plane="dp")), r"ROADMAP Queue 1 item 5\b"),
-    (dict(serving=True), r"ROADMAP Queue 1 item 3\b"),
+    # the serving plane is carried: it scores with the greedy machinery only
+    (dict(serving=TServingConfig(enabled=True), algorithm="global"),
+     "serving.enabled requires a greedy algorithm"),
     (dict(pipeline=True, pipeline_depth=3), "depth must be 2"),
     (dict(scan_block=8, algorithm="kubescheduling"), "pinning greedy algorithm"),
 ]
@@ -445,8 +449,8 @@ def test_config_refuses_planes_it_does_not_carry(kw, match):
 
 
 def test_cli_refuses_what_the_port_does_not_carry():
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 3"):
-        t_cli.main(["reschedule", "--algorithm", "proactive", "--device", "cpu"])
+    with pytest.raises(SystemExit, match=r"--place.*ROADMAP Queue 1 item 4\b"):
+        t_cli.main(["reschedule", "--place", "--device", "cpu"])
     with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 4"):
         t_cli.main(["reschedule", "--backend", "k8s", "--device", "cpu"])
 

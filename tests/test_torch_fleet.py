@@ -153,9 +153,12 @@ def test_fleet_solve_one_capture_key(monkeypatch):
 
 
 def test_fleet_solve_proactive_refused():
-    """The proactive fleet plane waits with the forecast."""
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 3\b"):
-        tfleet.fleet_solve_proactive()
+    """The proactive fleet plane is carried on one device; sharding its
+    tenants over devices (``plane="dp"``) waits with multi-device."""
+    RescheduleConfig(algorithm="proactive", fleet=FleetConfig(tenants=2)).validate()
+    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 5\b"):
+        RescheduleConfig(algorithm="proactive",
+                         fleet=FleetConfig(tenants=2, plane="dp")).validate()
 
 
 def test_stack_tenants_rejects_mismatched_shapes():
@@ -265,7 +268,7 @@ def test_cli_fleet_reschedule(capsys):
     (["--algorithm", "global", "--solver-backend", "sparse"], "sparse"),
     (["--fleet-plane", "dp"], r"ROADMAP Queue 1 item 5\b"),
     (["--fleet-chaos-tenants", "1"], r"ROADMAP Queue 1 item 4\b"),
-    (["--algorithm", "proactive"], r"ROADMAP Queue 1 item 3\b"),
+    (["--algorithm", "proactive", "--fleet-plane", "dp"], r"ROADMAP Queue 1 item 5\b"),
     (["--pipeline"], r"ROADMAP Queue 1 item 3\.4\b"),
 ], ids=["k8s", "multi-move", "sparse", "dp", "chaos-tenants", "proactive", "pipeline"])
 def test_cli_fleet_refusals(argv, match):
@@ -292,8 +295,10 @@ def test_fleet_config_validation():
         FleetConfig(tenants=4, chaos_tenants=(0, 3)).validate()
     RescheduleConfig(algorithm="global", fleet=FleetConfig(tenants=2)).validate()
     RescheduleConfig(moves_per_round="all", fleet=FleetConfig(tenants=2)).validate()
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 3\b"):
-        RescheduleConfig(algorithm="proactive", fleet=FleetConfig(tenants=2)).validate()
+    RescheduleConfig(algorithm="proactive", fleet=FleetConfig(tenants=2)).validate()
+    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 5\b"):
+        RescheduleConfig(algorithm="proactive",
+                         fleet=FleetConfig(tenants=2, plane="dp")).validate()
     with pytest.raises(ValueError, match=r"pipelined fleet.*ROADMAP Queue 1 item 3\.4\b"):
         RescheduleConfig(pipeline=True, fleet=FleetConfig(tenants=2)).validate()
     with pytest.raises(ValueError, match="greedy"):

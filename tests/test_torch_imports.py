@@ -69,6 +69,16 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import kubernetes_rescheduling_tpu_torch.bench.fleet\n"
         "import kubernetes_rescheduling_tpu_torch.telemetry.fleet_rollup\n"
         "import kubernetes_rescheduling_tpu_torch.utils.logging\n"
+        "import kubernetes_rescheduling_tpu_torch.forecast\n"
+        "import kubernetes_rescheduling_tpu_torch.forecast.model\n"
+        "import kubernetes_rescheduling_tpu_torch.forecast.plane\n"
+        "import kubernetes_rescheduling_tpu_torch.forecast.fleet\n"
+        "import kubernetes_rescheduling_tpu_torch.oracle.forecast\n"
+        "import kubernetes_rescheduling_tpu_torch.serving\n"
+        "import kubernetes_rescheduling_tpu_torch.serving.kernel\n"
+        "import kubernetes_rescheduling_tpu_torch.serving.engine\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.loadgen\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.serve\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -112,10 +122,12 @@ def _entry_points():
         make_fleet_problem,
         sparse_problem,
     )
-    from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
+    from kubernetes_rescheduling_tpu_torch.config import ForecastConfig, RescheduleConfig
     from kubernetes_rescheduling_tpu_torch.core import sparsegraph, topology
     from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
     from kubernetes_rescheduling_tpu_torch.core.workmodel import ServiceSpec, Workmodel
+    from kubernetes_rescheduling_tpu_torch.forecast import FleetForecastPlane, ForecastPlane
+    from kubernetes_rescheduling_tpu_torch.serving import ServingEngine
     from kubernetes_rescheduling_tpu_torch.solver import run_rounds
     from kubernetes_rescheduling_tpu_torch.utils.checkpoint import load_state
 
@@ -176,6 +188,14 @@ def _entry_points():
         "cli trace": lambda: cli.main(["trace", "--steps", "2"]),
         "cli solve --latency-budget": lambda: cli.main(
             ["solve", "--scenario", "dense", "--latency-budget", "100"]),
+        "ForecastPlane": lambda: ForecastPlane(ForecastConfig()),
+        "FleetForecastPlane": lambda: FleetForecastPlane(ForecastConfig(), 2),
+        "ServingEngine": lambda: ServingEngine(make_backend("mubench", 0, device="cpu")),
+        "run_controller proactive": lambda: run_controller(
+            make_backend("mubench", 0, device="cpu"), RescheduleConfig(
+                max_rounds=1, algorithm="proactive")),
+        "cli reschedule --algorithm proactive": lambda: cli.main(
+            ["reschedule", "--algorithm", "proactive"]),
     }
 
 
