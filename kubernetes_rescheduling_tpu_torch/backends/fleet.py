@@ -8,7 +8,9 @@ loop (``bench/fleet.py``) talks to every tenant through that tenant's own
 boundary (retry and breaker per tenant), so an aggregate ``monitor()``
 would couple the tenants' failure domains. The aggregate owns
 construction, naming and fleet-wide conveniences (imbalance injection,
-event collection).
+event collection). Chaos composes per tenant: the fleet loop wraps only the
+tenants of ``FleetConfig.chaos_tenants`` in the run's chaos profile
+(``backends/chaos.py``), each seeded ``chaos_seed + index``.
 """
 
 from __future__ import annotations

@@ -6,12 +6,13 @@ calls it: the load model, the seeded initial placement, ``comm_graph``,
 the simulated clock (``advance``), the event list, the cordon-style
 imbalance, per-pod move waves (``apply_pod_moves``), a checkpoint's
 placement (``restore_placement``) and another actor's moves
-(``external_move``), and the elastic mutators the churn engine drives
+(``external_move``), the elastic mutators the churn engine drives
 (``elastic/engine.py``): capacity-padded snapshots (``set_capacities``),
 service deploy and teardown (with service-index compaction), replica
-scaling, and node drain and add. The chaos mutators (``kill_node``,
-``cpu_spike``, ``churn``) wait for the chaos backend (ROADMAP Queue 1
-item 4).
+scaling, and node drain and add; and the fault mutators the chaos backend
+(``backends/chaos.py``) drives: node death and revival (``kill_node``,
+``revive_node``), a service's CPU hot spot (``cpu_spike``) and random pod
+restarts (``churn``).
 
 All bookkeeping is host-side Python and numpy; ``monitor`` hands out a
 fresh padded :class:`ClusterState` on the backend's device, uploaded from
@@ -121,6 +122,8 @@ class SimBackend:
                 self._pods.append([idx, node, f"{svc.name}-{r}"])
         self._rps_cache: tuple | None = None
         self._per_pod_cache: tuple | None = None
+        # per-service CPU multipliers of cpu_spike, by service name
+        self._cpu_spike: dict[str, float] = {}
         self._refresh_workload()
 
     def _refresh_workload(self) -> None:
@@ -190,10 +193,13 @@ class SimBackend:
 
     def _monitor(self) -> ClusterState:
         per_svc = self._per_pod_cpu()
+        spike = self._cpu_spike
         services, nodes, cpus, mems, names = [], [], [], [], []
         for svc_idx, node, name in self._pods:
             spec = self.workmodel.services[svc_idx]
             per_pod = float(per_svc[svc_idx])
+            if spike:
+                per_pod *= spike.get(spec.name, 1.0)
             if self.load.noise_frac > 0:
                 per_pod *= 1.0 + self._rng.normal(0.0, self.load.noise_frac)
             services.append(svc_idx)
@@ -319,7 +325,12 @@ class SimBackend:
         strict ``<`` would."""
         svc, node = self._table_arrays()
         placed = node >= 0
-        used = np.bincount(node[placed], weights=self._per_pod_cpu()[svc[placed]],
+        per = self._per_pod_cpu()
+        if self._cpu_spike:
+            # each pod's CPU times its service's spike, in f64, before the sum
+            per = per * np.array([self._cpu_spike.get(s.name, 1.0)
+                                  for s in self.workmodel.services])
+        used = np.bincount(node[placed], weights=per[svc[placed]],
                            minlength=len(self.node_names))
         cand = self._node_alive.copy()
         if exclude:
@@ -456,6 +467,7 @@ class SimBackend:
         )
         self._pods = [[s - 1 if s > idx else s, node, pname]
                       for s, node, pname in self._pods if s != idx]
+        self._cpu_spike.pop(name, None)
         self._refresh_workload()
         self.events.append({"t": self.clock_s, "event": "teardown", "service": name})
 
@@ -500,8 +512,7 @@ class SimBackend:
         """A node joins the pool: a drained slot of this name revives; a new
         name grows the cluster (same uniform capacity)."""
         if name in self._node_index:
-            self._node_alive[self._node_index[name]] = True
-            self.events.append({"t": self.clock_s, "event": "node_revive", "node": name})
+            self.revive_node(name)
             return
         self._node_index[name] = len(self.node_names)
         self.node_names.append(name)
@@ -510,13 +521,9 @@ class SimBackend:
 
     def drain_node(self, name: str) -> None:
         """Cordon and drain: the node leaves the pool and its pods are
-        placed again on the alive nodes (:meth:`schedule_pending`)."""
-        idx = self.node_names.index(name)
-        self._node_alive[idx] = False
-        for pod in self._pods:
-            if pod[1] == idx:
-                pod[1] = UNASSIGNED
-        self.events.append({"t": self.clock_s, "event": "node_kill", "node": name})
+        placed again on the alive nodes (:meth:`schedule_pending`); a
+        crash (:meth:`kill_node`) leaves them pending instead."""
+        self.kill_node(name)
         self.schedule_pending()
         self.events.append({"t": self.clock_s, "event": "node_drain", "node": name})
 
@@ -545,3 +552,33 @@ class SimBackend:
         for pod in self._pods:
             pod[1] = idx
         self.events.append({"t": self.clock_s, "event": "imbalance", "node": node})
+
+    def kill_node(self, node: str) -> None:
+        """Node failure: its capacity is gone and its pods go pending."""
+        idx = self.node_names.index(node)
+        self._node_alive[idx] = False
+        for pod in self._pods:
+            if pod[1] == idx:
+                pod[1] = UNASSIGNED
+        self.events.append({"t": self.clock_s, "event": "node_kill", "node": node})
+
+    def revive_node(self, node: str) -> None:
+        self._node_alive[self.node_names.index(node)] = True
+        self.events.append({"t": self.clock_s, "event": "node_revive", "node": node})
+
+    def cpu_spike(self, service: str, factor: float) -> None:
+        """Multiply one service's per-pod CPU by ``factor`` (a hot spot), in
+        the snapshots and in the simulated scheduler's sums."""
+        self._cpu_spike[service] = factor
+        self.events.append({"t": self.clock_s, "event": "cpu_spike", "service": service,
+                            "factor": factor})
+
+    def churn(self, n_restarts: int) -> None:
+        """Random pod restarts onto random alive nodes (background churn),
+        drawn from the simulator's seeded generator."""
+        alive = np.flatnonzero(self._node_alive)
+        table = self._pods
+        for _ in range(n_restarts):
+            pod = table[int(self._rng.integers(len(table)))]
+            pod[1] = int(self._rng.choice(alive))
+        self.events.append({"t": self.clock_s, "event": "churn", "n": n_restarts})

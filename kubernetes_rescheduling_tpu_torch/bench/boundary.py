@@ -19,7 +19,8 @@ skips; **half_open** once the cooldown has elapsed — one probe
 ``monitor()``, whose success closes the breaker and whose failure re-opens
 it. Transitions are recorded on the breaker, counted as
 ``circuit_breaker_transitions_total{to=...}`` and shown by the
-``circuit_breaker_state`` gauge (0=closed, 1=half_open, 2=open).
+``circuit_breaker_state`` gauge (0=closed, 1=half_open, 2=open), and
+logged as a ``breaker`` event when the breaker has a logger.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Any, Callable
 
 from kubernetes_rescheduling_tpu_torch.backends.base import Backend, MoveRequest
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import MetricsRegistry, get_registry
+from kubernetes_rescheduling_tpu_torch.utils.logging import StructuredLogger
 from kubernetes_rescheduling_tpu_torch.utils.retry import RetryPolicy, call_with_retry, is_transient
 
 CLOSED, HALF_OPEN, OPEN = "closed", "half_open", "open"
@@ -43,6 +45,7 @@ class CircuitBreaker:
 
     max_consecutive_failures: int = 5
     cooldown_rounds: int = 2
+    logger: StructuredLogger | None = None
     registry: MetricsRegistry | None = None
 
     state: str = CLOSED
@@ -57,7 +60,8 @@ class CircuitBreaker:
     def _transition(self, to: str, **fields: Any) -> None:
         if to == self.state:
             return
-        self.transitions.append({"round": self.round, "from": self.state, "to": to, **fields})
+        rec = {"round": self.round, "from": self.state, "to": to, **fields}
+        self.transitions.append(rec)
         self.state = to
         reg = self._reg()
         reg.counter(
@@ -67,6 +71,8 @@ class CircuitBreaker:
         reg.gauge(
             "circuit_breaker_state", "breaker state (0=closed, 1=half_open, 2=open)",
         ).set(_STATE_CODE[to])
+        if self.logger is not None:
+            self.logger.info("breaker", **rec)
 
     @property
     def enabled(self) -> bool:

@@ -77,6 +77,7 @@ from kubernetes_rescheduling_tpu_torch._random import round_generator
 import numpy as np
 
 from kubernetes_rescheduling_tpu_torch.backends.base import Backend, MoveRequest, PlacementMechanism
+from kubernetes_rescheduling_tpu_torch.backends.chaos import with_chaos
 from kubernetes_rescheduling_tpu_torch.bench import scan as scan_mod
 from kubernetes_rescheduling_tpu_torch.bench.admission import AdmissionGuard
 from kubernetes_rescheduling_tpu_torch.bench.boundary import (
@@ -263,6 +264,24 @@ _WALL_MS_BUCKETS = (
 )
 
 
+def adopt_snapshot(state, event, device):
+    """Make a snapshot that a background thread built on its own stream
+    usable on this thread's stream: wait for the event recorded after its
+    upload, and mark its tensors used here, so the allocator does not hand
+    their memory to that stream's next upload while this stream still reads
+    them. ``event`` None (the CPU) returns ``state`` as it is."""
+    if event is None:
+        return state
+    cur = torch.cuda.current_stream(device)
+    cur.wait_event(event)
+    if state is not None:
+        for f in dataclasses.fields(state):
+            t = getattr(state, f.name)
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                t.record_stream(cur)
+    return state
+
+
 def observe_wall_round(registry: MetricsRegistry, mode: str, wall_s: float) -> None:
     """One executed round's wall time under ``mode`` (``sequential``,
     ``pipelined`` or ``scanned``)."""
@@ -316,9 +335,15 @@ class _Runtime:
                                                 device=device)
         self.logger = logger
         self.on_round = on_round
+        if config.chaos != "none":
+            # the loop's view of the backend injects the profile's faults;
+            # everything below (boundary, churn, checkpoints) sees the wrapper
+            backend = with_chaos(backend, config.chaos, seed=config.chaos_seed,
+                                 registry=registry)
         self.breaker = CircuitBreaker(
             max_consecutive_failures=config.max_consecutive_failures,
             cooldown_rounds=config.breaker_cooldown_rounds,
+            logger=logger,
             registry=registry,
         )
         self.boundary = BoundaryClient(
@@ -770,20 +795,7 @@ class _Runtime:
         return out, event, time.perf_counter() - t0
 
     def adopt_background(self, state, event):
-        """Make a snapshot the background monitor built usable on this
-        thread's stream: wait for its upload, and mark its tensors used here,
-        so the allocator does not hand their memory to the monitor stream's
-        next upload while this stream still reads them."""
-        if event is None:
-            return state
-        cur = torch.cuda.current_stream(self.device)
-        cur.wait_event(event)
-        if state is not None:
-            for f in dataclasses.fields(state):
-                t = getattr(state, f.name)
-                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
-                    t.record_stream(cur)
-        return state
+        return adopt_snapshot(state, event, self.device)
 
     # ---- the scanned schedule (bench/scan.py) ----
 
@@ -1166,8 +1178,14 @@ def run_controller(
     predicted state; the step's latency leads ``decision_latencies_s`` and
     the record carries the ``forecast`` block.
 
-    Not carried yet (refused by ``config.validate()``): the ops plane,
-    chaos and shadow.
+    ``config.chaos`` names a ``backends/chaos.py`` profile that wraps the
+    backend (seeded ``config.chaos_seed``, counted in ``registry``) before
+    the boundary is built: the faults hit every schedule through the
+    boundary's retries and breaker, and a scanned run drains every round
+    (reason ``"backend"``).
+
+    Not carried yet (refused by ``config.validate()``): the ops plane and
+    shadow.
     """
     config = config.validate()
     dev = resolve_device(device)
@@ -1525,7 +1543,7 @@ def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, 
     """Per-replica global round: one solve on the pod-level graph, then the
     moved pods in one ``apply_pod_moves`` wave (the simulator's; the JAX
     package's per-pod ``apply_move`` for a backend without it waits with
-    the k8s backend, ROADMAP Queue 1 item 4). The pod graph is cached per
+    the k8s backend, ROADMAP Queue 1 item 4.3). The pod graph is cached per
     (declared graph, pod set)."""
     from kubernetes_rescheduling_tpu_torch.solver.pod_mode import (
         global_assign_pods,

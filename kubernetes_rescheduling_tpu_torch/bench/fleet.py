@@ -38,16 +38,36 @@ records stay as without churn. ``config.scan_block`` K runs K steady-state
 rounds of every tenant as one device block (``bench/scan.py``'s fleet
 half) and one counted ``round_end`` read, with per-tenant tripwire lanes.
 
+Chaos (``config.chaos``) wraps the tenants of ``fleet.chaos_tenants`` (all
+of them when the tuple is empty), tenant ``t`` seeded ``chaos_seed + t``:
+each tenant owns its fault stream, as it owns its clock and breaker, so a
+chaotic tenant leaves every other tenant's records as in a clean run.
+
+The pipelined fleet (``config.pipeline`` with T > 1): the active tenants'
+boundary phases — apply, pace, post-move monitor, reconcile — run on a pool
+of ``min(T, 8)`` worker threads between the decision read and the metrics
+bundle, and the records are collected in tenant order. On the card each
+tenant's phase runs on that tenant's own CUDA stream, with an event
+recorded after it; the main thread waits on the events before the metrics
+bundle reads the snapshots. The pool is joined before the main thread
+issues any device work, so no worker runs while a fleet program is
+captured. Shared host state stays safe: the registry and the logger lock
+their series and ring, ``TenantSeries`` holds nothing but its fixed budget
+decision, and a tenant's pending churn events are taken on the main thread
+before the dispatch. Each tenant's records equal the serial fleet's.
+
 Left out (refused by ``config.validate()``, each naming its ROADMAP item):
-the pipelined fleet (item 3.4), chaos tenants, the ops plane's hooks and
-the ``/tenants`` endpoints (item 4), the dp plane and restarts (item 5).
-Checkpoint/resume is solo-only, as in the JAX package.
+the ops plane's hooks and the ``/tenants`` endpoints (item 4.2), the dp
+plane and restarts (item 5). Checkpoint/resume is solo-only, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
@@ -58,6 +78,7 @@ from kubernetes_rescheduling_tpu_torch._device import DEFAULT_DEVICE, resolve_de
 from kubernetes_rescheduling_tpu_torch._random import gumbel as draw_gumbel
 from kubernetes_rescheduling_tpu_torch._random import round_generator, tenant_seed
 from kubernetes_rescheduling_tpu_torch.backends.base import MoveRequest, PlacementMechanism
+from kubernetes_rescheduling_tpu_torch.backends.chaos import with_chaos
 from kubernetes_rescheduling_tpu_torch.backends.fleet import FleetBackend
 from kubernetes_rescheduling_tpu_torch.bench import scan as scan_mod
 from kubernetes_rescheduling_tpu_torch.bench.admission import AdmissionGuard
@@ -72,7 +93,10 @@ from kubernetes_rescheduling_tpu_torch.bench.controller import (
     ControllerResult,
     RoundRecord,
     _solver_config,
+    adopt_snapshot,
     observe_wall_round,
+    pipeline_depth_gauge,
+    pipeline_overlap_gauge,
 )
 from kubernetes_rescheduling_tpu_torch.bench.reconcile import (
     IntentLedger,
@@ -134,6 +158,9 @@ class FleetResult:
     # wall seconds of each executed fleet round (sequential schedule) or
     # scan block, in order (timing field)
     round_wall_s: list[float] = field(default_factory=list)
+    # the pipelined fleet's overlap ratio of each round it ran on the pool:
+    # 1 - (pool wall / summed tenant phases) (timing field)
+    pipeline_overlap: list[float] = field(default_factory=list)
     # the /healthz fleet block as the last round left it
     health: dict = field(default_factory=dict)
 
@@ -164,6 +191,7 @@ class _Tenant:
         self.breaker = CircuitBreaker(
             max_consecutive_failures=config.max_consecutive_failures,
             cooldown_rounds=config.breaker_cooldown_rounds,
+            logger=logger,
             registry=registry,
         )
         self.boundary = BoundaryClient(
@@ -194,6 +222,18 @@ class _Tenant:
         self.remask = False
         self.last_drift = 0
         self.result = ControllerResult()
+        # the pipelined fleet's stream for this tenant's boundary phase (the
+        # card only; made at first use)
+        self._stream = None
+
+    def phase_stream(self):
+        """The context a pooled boundary phase runs in, and its stream: on
+        the card this tenant's own CUDA stream, on the CPU none."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext(), None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        return torch.cuda.stream(self._stream), self._stream
 
     def refresh_graph(self) -> None:
         self.graph = self.boundary.comm_graph().to(self.device)
@@ -328,6 +368,10 @@ def run_fleet_controller(
         if seam is not None and len(seam) != T:
             raise ValueError(f"{what} has {len(seam)} entries for {T} tenants")
     backends = list(fleet.backends)
+    if config.chaos != "none":
+        hit = set(config.fleet.chaos_tenants) or set(range(T))
+        backends = [with_chaos(b, config.chaos, seed=config.chaos_seed + t, registry=registry)
+                    if t in hit else b for t, b in enumerate(backends)]
     _align_fleet_buckets(backends, floor=config.bucket_floor, registry=registry)
 
     tseries = TenantSeries(registry, tenants=T, budget=config.tenant_label_budget)
@@ -503,18 +547,17 @@ def run_fleet_controller(
                 applied.append((service_name, landed))
         return moved_names, applied
 
-    def close_tenant_round(t: _Tenant, rnd: int, rec: RoundRecord) -> None:
+    def close_tenant_round(t: _Tenant, rnd: int, rec: RoundRecord, carried) -> None:
         """Pace, post-move monitor, churn info and reconcile of one tenant's
-        round (the solo round's close, per tenant)."""
+        round (the solo round's close, per tenant); ``carried`` holds the
+        tenant's pending churn events, None when it is not churned."""
         t.boundary.advance(config.sleep_after_action_s)
         new_state = _admitted_monitor(t)
         rec.degraded = rec.degraded or new_state is None
         if new_state is not None:
             t.state = new_state
-        i = t.index
-        if i in churn:
-            rec.churn = churn[i].round_info(pending_churn.pop(i, []))
-            pending_churn[i] = []
+        if carried is not None:
+            rec.churn = churn[t.index].round_info(carried)
         rec.reconcile, t.last_drift = reconcile_round_block(
             t.guard, t.ledger, state=t.state, service_names=t.graph.names,
             churn_events=(rec.churn or {}).get("events") or (), fresh=new_state is not None,
@@ -620,6 +663,12 @@ def run_fleet_controller(
         result.batched_solves += 1
         result.device_solve_s += solve_s
         per_tenant_s = solve_s / len(active)
+        # the churned tenants' pending events, taken here on the main thread
+        carried = {}
+        for i in active:
+            if i in churn:
+                carried[i] = pending_churn.pop(i, [])
+                pending_churn[i] = []
 
         def tenant_round(i: int) -> RoundRecord:
             """Tenant ``i``'s boundary phase: apply, pace, post-move monitor,
@@ -647,10 +696,37 @@ def run_fleet_controller(
                     applied_moves=((moved_name, landed),) if moved_name else (),
                     forecast=decode_diag(fc_rows[i]) if fc_rows is not None else None,
                 )
-            close_tenant_round(t, rnd, rec)
+            close_tenant_round(t, rnd, rec, carried.get(i))
             return rec
 
-        records = {i: tenant_round(i) for i in active}
+        def pooled_round(i: int):
+            """Tenant ``i``'s boundary phase on a worker: on its own stream,
+            with an event after it. Returns ``(record, event, seconds)``."""
+            t_bg = time.perf_counter()
+            ctx, stream = tenants[i].phase_stream()
+            with ctx:
+                rec = tenant_round(i)
+                event = None
+                if stream is not None:
+                    event = torch.cuda.Event()
+                    event.record(stream)
+            return rec, event, time.perf_counter() - t_bg
+
+        if pool is not None and len(active) > 1:
+            t_par = time.perf_counter()
+            futures = {i: pool.submit(pooled_round, i) for i in active}
+            records, busy = {}, 0.0
+            for i in active:
+                records[i], event, secs = futures[i].result()
+                busy += secs
+                t = tenants[i]
+                t.state = adopt_snapshot(t.state, event, dev)
+            par_wall = time.perf_counter() - t_par
+            ratio = max(0.0, min(1.0, 1.0 - par_wall / busy)) if busy > 1e-9 else 0.0
+            overlap_gauge.set(ratio)
+            result.pipeline_overlap.append(ratio)
+        else:
+            records = {i: tenant_round(i) for i in active}
 
         # ONE metrics bundle closes the round for every tenant (with the
         # rollup riding it); inactive slots' rows use the filler snapshot
@@ -697,6 +773,13 @@ def run_fleet_controller(
 
     scan_k = config.scan_block
     trip_on = bool(scan_k) and config.scan_tripwires
+    # the pipelined fleet's worker pool (config.validate() keeps it apart
+    # from the fleet scan)
+    pool = overlap_gauge = None
+    if config.pipeline and T > 1:
+        pool = ThreadPoolExecutor(max_workers=min(T, 8), thread_name_prefix="krt-fleet")
+        pipeline_depth_gauge(registry).set(config.pipeline_depth)
+        overlap_gauge = pipeline_overlap_gauge(registry)
 
     def scan_static_reason() -> str | None:
         from kubernetes_rescheduling_tpu_torch.backends.sim_device import scan_compatible
@@ -863,6 +946,8 @@ def run_fleet_controller(
     try:
         run_rounds()
     finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
         if prev_logger_state is not None:
             logger.registry, logger.max_records_per_tenant = prev_logger_state
 

@@ -2,8 +2,9 @@
 ``kubernetes_rescheduling_tpu.bench.harness`` (the reference's µBench
 cluster and the synthetic meshes up to ``xlarge``), of ``bench.py``'s
 sparse problem (:func:`sparse_problem`) and of its fleet problem
-(:func:`make_fleet_problem`), and the forecast plane's head-to-head cell
-(:func:`run_forecast_headtohead`).
+(:func:`make_fleet_problem`), the forecast plane's head-to-head cell
+(:func:`run_forecast_headtohead`) and the chaos soak cell
+(:func:`run_chaos_soak`).
 
 Same ``default_rng(seed)`` call sequence as the JAX package: one seed
 builds the identical cluster in both packages.
@@ -200,3 +201,72 @@ def run_forecast_headtohead(
             "_records": {k: v["records"] for k, v in arms.items()},
         }
     return out
+
+
+def run_chaos_soak(
+    profile: str = "soak",
+    rounds: int = 30,
+    *,
+    scenario: str = "mubench",
+    algorithm: str = "communication",
+    seed: int = 0,
+    chaos_seed: int = 0,
+    max_consecutive_failures: int = 3,
+    breaker_cooldown_rounds: int = 2,
+    failure_budget_per_round: int = 2,
+    retry=None,
+    logger=None,
+    registry=None,
+    ops=None,
+    device: str | torch.device | None = DEFAULT_DEVICE,
+) -> dict:
+    """The chaos soak cell: one seeded fault profile against one scenario
+    (piled on its first node), with the loop's degraded-mode machinery on.
+
+    The chaos wrapper is built here, not through ``config.chaos``, so the
+    report can hold the wrapper's own ``fault_counts`` against the
+    registry's ``chaos_faults_total``: every injected fault is counted,
+    every round is accounted (``rounds == records + skipped_rounds``), and
+    the loop finishes without raising. The JAX package wraps the run in a
+    ``bench/chaos_soak`` span; spans, and the live ops plane that ``ops=``
+    attaches there, come with ROADMAP Queue 1 item 4.2, so ``ops`` is
+    refused."""
+    from kubernetes_rescheduling_tpu_torch.backends.chaos import with_chaos
+    from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller
+    from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
+    from kubernetes_rescheduling_tpu_torch.utils.retry import RetryPolicy
+
+    if ops is not None:
+        raise ValueError(
+            "run_chaos_soak(ops=...) attaches the ops plane (telemetry/server.py), not "
+            "ported yet (ROADMAP Queue 1 item 4.2)"
+        )
+    backend = make_backend(scenario, seed, device=device)
+    backend.inject_imbalance(backend.node_names[0])
+    chaos = with_chaos(backend, profile, seed=chaos_seed, registry=registry)
+    cfg = RescheduleConfig(
+        algorithm=algorithm,
+        max_rounds=rounds,
+        sleep_after_action_s=0.0,
+        seed=seed,
+        retry=retry if retry is not None else RetryPolicy(max_attempts=2, base_delay_s=0.05),
+        max_consecutive_failures=max_consecutive_failures,
+        breaker_cooldown_rounds=breaker_cooldown_rounds,
+        failure_budget_per_round=failure_budget_per_round,
+    )
+    result = run_controller(chaos, cfg, device=device, logger=logger, registry=registry)
+    fault_counts = dict(getattr(chaos, "fault_counts", {}))
+    return {
+        "profile": profile,
+        "rounds": rounds,
+        "records": len(result.rounds),
+        "skipped_rounds": result.skipped_rounds,
+        "degraded_rounds": result.degraded_rounds,
+        "boundary_failures": result.boundary_failures,
+        "moves": result.moves,
+        "breaker_transitions": result.breaker_transitions,
+        "breaker_opens": sum(1 for t in result.breaker_transitions if t["to"] == "open"),
+        "breaker_closes": sum(1 for t in result.breaker_transitions if t["to"] == "closed"),
+        "fault_counts": fault_counts,
+        "faults_injected": sum(fault_counts.values()),
+    }

@@ -39,7 +39,7 @@ boundary's ``landed`` return is only what the cluster claimed. The
 - queues **rate-limited corrective moves** (:meth:`IntentLedger.issue_repairs`:
   pod-granular ``MoveRequest``s; the JAX package's Deployment-scoped ones,
   for a backend that cannot pin one replica, wait with the k8s backend,
-  ROADMAP Queue 1 item 4) through the
+  ROADMAP Queue 1 item 4.3) through the
   boundary's retry, breaker and budget, at most ``repair_budget_per_round``
   a round, until observed state converges back to intent. The pending
   repairs are the ``reconcile_drift_pods`` gauge.
@@ -105,7 +105,7 @@ def move_intent(
     override reads as a ``wrong_node`` divergence. (The JAX package's
     fifth element, the advisory flag that adopts the node observed at the
     next diff, serves a backend that can only echo the advisory target —
-    the k8s backend, ROADMAP Queue 1 item 4; the simulator reports where
+    the k8s backend, ROADMAP Queue 1 item 4.3; the simulator reports where
     the move landed.)"""
     intended = landed if mechanism == "affinityOnly" and landed is not None else requested
     return (service, pod, intended, landed)
@@ -119,7 +119,7 @@ class IntentLedger:
     ``fleet_reconcile_drift_pods``, published through ``tenant_series``,
     the fleet's cardinality gate, and the ledger's events carry the
     tenant). The JAX package's adopt-observed mode (its shadow plane's
-    replay backend) waits with that plane (ROADMAP Queue 1 item 4).
+    replay backend) waits with that plane (ROADMAP Queue 1 item 4.3).
     """
 
     def __init__(self, *, registry=None, logger=None, tenant=None, tenant_series=None):

@@ -27,7 +27,7 @@ the ``[K, N]`` rows through pinned memory without a wait.
 
 The host half (:func:`decode_block`) slices the bundle back into per-round
 views the controller replays into ordinary ``RoundRecord``s; attribution
-(``attr_k``) is Queue 1 item 4, so the metrics are the ``[cost, load_std]``
+(``attr_k``) is Queue 1 item 4.2, so the metrics are the ``[cost, load_std]``
 head only.
 
 The fleet half (:func:`fleet_scan_rounds`, :func:`decode_fleet_block`)

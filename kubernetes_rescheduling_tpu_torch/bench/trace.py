@@ -15,7 +15,7 @@ captured for the step, its inputs (the step's multipliers, plans and
 seeds) copied into the graph's buffers first.
 
 Not ported: ``observed_step`` (it needs ``bench/loadgen.py``, ROADMAP
-Queue 1 item 4) and ``replay(restarts > 1)`` (``parallel/sharded.py``,
+Queue 1 item 4.4) and ``replay(restarts > 1)`` (``parallel/sharded.py``,
 item 5); both raise naming their item.
 """
 
@@ -175,7 +175,7 @@ def observed_step(t: float, loadgen, samples) -> TraceStep:
     """Not ported: the observed-traffic step needs the load generator
     (``bench/loadgen.py``)."""
     raise NotImplementedError(
-        "observed_step needs bench/loadgen.py, not ported yet (ROADMAP Queue 1 item 4)"
+        "observed_step needs bench/loadgen.py, not ported yet (ROADMAP Queue 1 item 4.4)"
     )
 
 

@@ -129,6 +129,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "global round ('all' = uncapped)")
     r.add_argument("--placement-unit", default="service", choices=["service", "pod"],
                    help="pod = every replica places independently (global algorithm)")
+    r.add_argument("--chaos-profile", default="none", metavar="NAME",
+                   help="wrap the loop's backend in the fault-injecting ChaosBackend under "
+                        "this named profile (none|flaky-monitor|flaky-moves|node-flap|soak|"
+                        "reconcile); faults are seeded and counted as chaos_faults_total{kind}")
+    r.add_argument("--chaos-seed", type=int, default=0,
+                   help="seed for the injected fault stream (reproducible chaos)")
     r.add_argument("--churn-profile", default="none", metavar="NAME",
                    help="elastic topology churn between rounds under this seeded profile "
                         "(none|steady|diurnal-autoscale|deploy-waves|node-flap): services "
@@ -140,7 +146,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "transfer and record overlap this round's device work, and the "
                         "post-move monitor runs on a background thread; the records equal "
                         "the sequential loop's. Rounds it cannot honor (open breaker, "
-                        "churn) drain to the sequential path")
+                        "churn) drain to the sequential path. With --fleet N: the tenants' "
+                        "boundary phases run on a worker pool, each tenant's records equal "
+                        "to the serial fleet's")
     r.add_argument("--pipeline-depth", type=int, default=2,
                    help="depth of the pipelined loop; only 2 is implemented")
     r.add_argument("--scan-block", type=int, default=0,
@@ -170,8 +178,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device batching for --fleet: 'vmap' (one program over the "
                         "tenants); 'dp' is refused (ROADMAP Queue 1 item 5)")
     r.add_argument("--fleet-chaos-tenants", default="", metavar="I,J,...",
-                   help="tenant indices a chaos profile wraps (refused: chaos is ROADMAP "
-                        "Queue 1 item 4)")
+                   help="tenant indices the --chaos-profile wraps (empty = every tenant; "
+                        "tenant t's faults seeded --chaos-seed + t)")
     r.add_argument("--tenant-label-budget", type=int, default=64, metavar="N",
                    help="fleet cardinality budget: fleets of more than N tenants suppress "
                         "the per-tenant labeled series (counted) and observe through the "
@@ -180,7 +188,7 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--place", action="store_true",
                    help="serving mode: the request-grain placement service behind the ops "
                         "server's POST /place (refused: the ops server is ROADMAP Queue 1 "
-                        "item 4; build serving.ServingEngine in code instead)")
+                        "item 4.2; build serving.ServingEngine in code instead)")
     r.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
 
@@ -280,11 +288,11 @@ def _refuse_unported(command: str, args) -> None:
                          "not ported yet (ROADMAP Queue 1 item 5)")
     if getattr(args, "metrics_out", None) or getattr(args, "trace_out", None):
         raise SystemExit(f"{command}: --metrics-out and --trace-out need the telemetry "
-                         "plane (telemetry/spans.py), not ported yet (ROADMAP Queue 1 item 4)")
+                         "plane (telemetry/spans.py), not ported yet (ROADMAP Queue 1 item 4.2)")
     if getattr(args, "place", False):
         raise SystemExit(f"{command}: --place serves placements through the ops server's "
                          "POST /place (telemetry/server.py), not ported yet (ROADMAP Queue 1 "
-                         "item 4); serving.ServingEngine runs without it in code")
+                         "item 4.2); serving.ServingEngine runs without it in code")
 
 
 def _parse_tenant_list(raw: str) -> tuple[int, ...]:
@@ -318,6 +326,8 @@ def cmd_reschedule(args) -> dict:
         capacity_frac=args.capacity_frac if args.capacity_frac is not None else 1.0,
         seed=args.seed,
         backend=args.backend,
+        chaos=args.chaos_profile,
+        chaos_seed=args.chaos_seed,
         pipeline=args.pipeline,
         pipeline_depth=args.pipeline_depth,
         scan_block=args.scan_block,

@@ -5,7 +5,8 @@ sequential control loop on the simulator reads it.
 Fields of the JAX package's nested blocks are flat here, named after
 their block (``reconcile_admission`` is ``reconcile.admission``,
 ``pipeline_depth`` is ``controller.depth``, ``elastic_seed`` is
-``elastic.seed``, the tripwire fields are ``obs.*``), with the JAX
+``elastic.seed``, ``chaos`` and ``chaos_seed`` are ``chaos.profile`` and
+``chaos.seed``, the tripwire fields are ``obs.*``), with the JAX
 package's defaults, and :meth:`RescheduleConfig.validate` refuses what the
 JAX package refuses, for the same reasons. Fleet mode, the forecast plane
 and the serving plane keep their blocks (:class:`FleetConfig`,
@@ -33,6 +34,11 @@ SCAN_POLICIES: tuple[str, ...] = ("spread", "binpack", "random", "communication"
 
 # the named churn profiles of elastic/events.py
 ELASTIC_PROFILES: tuple[str, ...] = ("steady", "diurnal-autoscale", "deploy-waves", "node-flap")
+
+# the named fault profiles of backends/chaos.py (kept here so the config
+# stays light; a test holds the two equal)
+CHAOS_PROFILES: tuple[str, ...] = ("none", "flaky-monitor", "flaky-moves", "node-flap", "soak",
+                                   "reconcile")
 
 
 @dataclass(frozen=True)
@@ -146,8 +152,8 @@ class FleetConfig:
     (``bench/fleet.py``); 0 = off. ``plane`` is the device batching: the
     port carries ``"vmap"`` (one captured program over the tenants);
     ``"dp"`` (one tenant group a device) is refused with multi-device
-    (ROADMAP Queue 1 item 5). ``chaos_tenants`` selects the tenants a chaos
-    profile wraps; chaos is refused with the host-side planes (item 4)."""
+    (ROADMAP Queue 1 item 5). ``chaos_tenants`` selects the tenants the
+    run's chaos profile wraps (empty = every tenant)."""
 
     tenants: int = 0
     plane: str = "vmap"                  # "vmap" | "dp"
@@ -167,11 +173,6 @@ class FleetConfig:
             raise ValueError(
                 "fleet plane 'dp' shards the tenants over devices, which the port does "
                 "not do yet (ROADMAP Queue 1 item 5)"
-            )
-        if self.chaos_tenants:
-            raise ValueError(
-                "fleet chaos_tenants needs chaos injection (backends/chaos.py), not "
-                "ported yet (ROADMAP Queue 1 item 4)"
             )
         return self
 
@@ -267,8 +268,13 @@ class RescheduleConfig:
     forecast: ForecastConfig = field(default_factory=ForecastConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
 
-    # planes of the JAX package that this port does not carry yet
+    # fault injection (chaos.*): the named backends/chaos.py profile that
+    # wraps the loop's backend ("none" = off) and its fault stream's seed;
+    # in fleet mode it wraps fleet.chaos_tenants, tenant t seeded seed + t
     chaos: str = "none"          # chaos.profile
+    chaos_seed: int = 0          # chaos.seed
+
+    # planes of the JAX package that this port does not carry yet
     shadow: bool = False         # shadow.enabled
 
     def validate(self) -> "RescheduleConfig":
@@ -313,7 +319,7 @@ class RescheduleConfig:
         if self.backend != "sim":
             raise ValueError(
                 f"backend {self.backend!r}: the port drives only the simulator so far "
-                "(the k8s backend is ROADMAP Queue 1 item 4)"
+                "(the k8s backend is ROADMAP Queue 1 item 4.3)"
             )
         self.retry.validate()
         self.forecast.validate()
@@ -332,15 +338,16 @@ class RescheduleConfig:
                 f"serving.enabled requires a greedy algorithm {sorted(POLICY_NAMES)}, "
                 f"got {self.algorithm!r}"
             )
-        refused = (
-            (self.chaos != "none", "chaos injection (backends/chaos.py)", 4),
-            (self.shadow, "shadow mode (bench/shadow.py)", 4),
-        )
-        for on, what, item in refused:
-            if on:
-                raise ValueError(
-                    f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
-                )
+        if self.chaos not in CHAOS_PROFILES:
+            # backends.chaos.with_chaos's message
+            raise ValueError(
+                f"unknown chaos profile {self.chaos!r}; expected one of "
+                f"{sorted(CHAOS_PROFILES)}"
+            )
+        if self.shadow:
+            raise ValueError(
+                "shadow mode (bench/shadow.py) is not ported yet (ROADMAP Queue 1 item 4.3)"
+            )
         if self.max_consecutive_failures < 0:
             raise ValueError("max_consecutive_failures must be >= 0")
         if self.breaker_cooldown_rounds < 1:
@@ -374,11 +381,6 @@ class RescheduleConfig:
         self.fleet.validate()
         if self.fleet.tenants == 0:
             return
-        if self.pipeline:
-            raise ValueError(
-                "the pipelined fleet (pipeline with fleet tenants: the tenants' boundary "
-                "phases on worker threads) is not ported yet (ROADMAP Queue 1 item 3.4)"
-            )
         # what the JAX package refuses of fleet mode, for its reasons
         if self.placement_unit != "service":
             raise ValueError(

@@ -43,6 +43,20 @@ def segment_sum(values: torch.Tensor, index: torch.Tensor, num_segments: int) ->
     return out[:num_segments]
 
 
+def on_device(have: torch.device, device: str | torch.device) -> bool:
+    """Whether tensors on ``have`` already sit on ``device``; ``"cuda"``
+    without an index names the current card. ``to`` returns the object
+    itself then, so identity-keyed logic (the intent ledger's re-served
+    snapshot, the admission guard's handover) holds on the card as on the
+    CPU."""
+    want = torch.device(device)
+    if want.type != have.type:
+        return False
+    if want.index is None:
+        return have.type != "cuda" or have.index == torch.cuda.current_device()
+    return want.index == have.index
+
+
 def _count(index: torch.Tensor, size: int) -> torch.Tensor:
     """i64[size] occurrences of each value of ``index`` (all in
     ``[0, size)``): an integer scatter-add, exact in any order and — unlike
@@ -78,7 +92,7 @@ class CommGraph:
     def to(self, device: str | torch.device) -> "CommGraph":
         """The same graph with its tensors on ``device`` (itself when they
         are there already)."""
-        if self.adj.device == torch.device(device):
+        if on_device(self.adj.device, device):
             return self
         return dataclasses.replace(
             self, adj=self.adj.to(device), service_valid=self.service_valid.to(device)
@@ -200,7 +214,7 @@ class ClusterState:
     def to(self, device: str | torch.device) -> "ClusterState":
         """The same state with its tensors on ``device`` (itself when they
         are there already)."""
-        if self.device == torch.device(device):
+        if on_device(self.device, device):
             return self
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)

@@ -23,7 +23,7 @@ rollups and the cardinality budget.
   breaker counts and the worst-k rows over it) and
   :class:`TenantSummaryRing` (the bounded per-tenant summary store; the
   ``/tenants`` endpoints that serve it wait with the ops plane, ROADMAP
-  Queue 1 item 4).
+  Queue 1 item 4.2).
 
 The numpy twin :func:`rollup_numpy` re-derives the device rollup on the
 host (same nearest-rank positions, same tie order).

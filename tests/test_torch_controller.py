@@ -415,7 +415,8 @@ REFUSED = [
     (dict(solver_restarts=2), r"ROADMAP Queue 1 item 5\b"),
     (dict(solver_tp=2), r"ROADMAP Queue 1 item 5\b"),
     (dict(backend="k8s"), r"ROADMAP Queue 1 item 4\b"),
-    (dict(chaos="soak"), r"ROADMAP Queue 1 item 4\b"),
+    # chaos is carried: an unknown profile is refused with with_chaos's message
+    (dict(chaos="tsunami"), "unknown chaos profile 'tsunami'"),
     # the port carries churn and both schedules now; what the JAX package
     # refuses of them, it refuses too
     (dict(elastic="tsunami"), "unknown churn profile"),

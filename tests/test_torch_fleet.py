@@ -267,13 +267,15 @@ def test_cli_fleet_reschedule(capsys):
     (["--moves-per-round", "3"], "greedy"),
     (["--algorithm", "global", "--solver-backend", "sparse"], "sparse"),
     (["--fleet-plane", "dp"], r"ROADMAP Queue 1 item 5\b"),
-    (["--fleet-chaos-tenants", "1"], r"ROADMAP Queue 1 item 4\b"),
+    (["--fleet-chaos-tenants", "2", "--chaos-profile", "soak"], "chaos tenant 2 out of range"),
     (["--algorithm", "proactive", "--fleet-plane", "dp"], r"ROADMAP Queue 1 item 5\b"),
-    (["--pipeline"], r"ROADMAP Queue 1 item 3\.4\b"),
+    (["--pipeline", "--scan-block", "4"], "mutually exclusive"),
 ], ids=["k8s", "multi-move", "sparse", "dp", "chaos-tenants", "proactive", "pipeline"])
 def test_cli_fleet_refusals(argv, match):
     """tests/test_fleet.py:376-400: what fleet mode cannot batch exits with
-    its reason, and what the port does not carry names its ROADMAP item."""
+    its reason, what the JAX package refuses of a carried plane (a chaos
+    tenant out of range, a pipelined fleet scan) is refused for its reason,
+    and what the port does not carry names its ROADMAP item."""
     with pytest.raises(SystemExit, match=match):
         t_cli.main(["reschedule", "--fleet", "2", "--device", "cpu", *argv])
 
@@ -291,16 +293,24 @@ def test_fleet_config_validation():
         FleetConfig(tenants=2, chaos_tenants=(2,)).validate()
     with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 5\b"):
         FleetConfig(tenants=4, plane="dp").validate()
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 4\b"):
-        FleetConfig(tenants=4, chaos_tenants=(0, 3)).validate()
+    # chaos tenants are carried
+    FleetConfig(tenants=4, chaos_tenants=(0, 3)).validate()
+    RescheduleConfig(chaos="soak", fleet=FleetConfig(tenants=4, chaos_tenants=(3,))).validate()
     RescheduleConfig(algorithm="global", fleet=FleetConfig(tenants=2)).validate()
     RescheduleConfig(moves_per_round="all", fleet=FleetConfig(tenants=2)).validate()
     RescheduleConfig(algorithm="proactive", fleet=FleetConfig(tenants=2)).validate()
     with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 5\b"):
         RescheduleConfig(algorithm="proactive",
                          fleet=FleetConfig(tenants=2, plane="dp")).validate()
-    with pytest.raises(ValueError, match=r"pipelined fleet.*ROADMAP Queue 1 item 3\.4\b"):
-        RescheduleConfig(pipeline=True, fleet=FleetConfig(tenants=2)).validate()
+    # the pipelined fleet is carried; the JAX package refuses it only as it
+    # refuses any pipelined run
+    RescheduleConfig(pipeline=True, fleet=FleetConfig(tenants=2)).validate()
+    RescheduleConfig(algorithm="global", pipeline=True, fleet=FleetConfig(tenants=2)).validate()
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        RescheduleConfig(pipeline=True, scan_block=4, fleet=FleetConfig(tenants=2)).validate()
+    with pytest.raises(ValueError, match="depth must be 2"):
+        RescheduleConfig(pipeline=True, pipeline_depth=3,
+                         fleet=FleetConfig(tenants=2)).validate()
     with pytest.raises(ValueError, match="greedy"):
         RescheduleConfig(moves_per_round=2, fleet=FleetConfig(tenants=2)).validate()
     with pytest.raises(ValueError, match="sparse"):

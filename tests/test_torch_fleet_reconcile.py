@@ -1,14 +1,12 @@
 """Per-tenant intent ledgers and fleet churn in the port's fleet loop,
 against the JAX package's.
 
-- ``TestFleetReconcile.test_per_tenant_ledgers_and_isolation``
-  (tests/test_reconcile.py:1259): drift on one tenant is detected and
-  repaired by that tenant's ledger only, and the drift gauge is
-  tenant-labeled. The JAX case drifts its tenant through the chaos
-  backend's ``reconcile`` profile, which waits with ``backends/chaos.py``
-  (ROADMAP Queue 1 item 4); here the same drift is another actor's
+- ``TestFleetReconcile`` (tests/test_reconcile.py:1259): drift on one
+  tenant is detected and repaired by that tenant's ledger only, and the
+  drift gauge is tenant-labeled — with the JAX case's own drift, the chaos
+  backend's ``reconcile`` profile on that tenant, and with another actor's
   ``SimBackend.external_move_random`` between rounds (an ``on_round`` hook,
-  seeded), run identically on both packages.
+  seeded), each run identically on both packages.
 - Fleet churn on a tenant subset (``elastic_tenants``, the JAX package's
   ``ElasticConfig.tenants``; tests/test_fleet_v2.py:607's engines over one
   shared set of buckets): the churned tenant's records equal the JAX
@@ -29,6 +27,7 @@ from kubernetes_rescheduling_tpu.backends.fleet import FleetBackend as JFleetBac
 from kubernetes_rescheduling_tpu.backends.sim import LoadModel as JLoad
 from kubernetes_rescheduling_tpu.backends.sim import SimBackend as JSim
 from kubernetes_rescheduling_tpu.bench.fleet import run_fleet_controller as j_run_fleet
+from kubernetes_rescheduling_tpu.config import ChaosConfig as JChaos
 from kubernetes_rescheduling_tpu.config import ElasticConfig as JElastic
 from kubernetes_rescheduling_tpu.config import FleetConfig as JFleetConfig
 from kubernetes_rescheduling_tpu.config import RescheduleConfig as JConfig
@@ -114,6 +113,39 @@ class TestFleetReconcile:
             assert reg.value("fleet_reconcile_drift_pods", tenant=name) == 0
         assert "reconcile_drift_pods" not in reg._metrics
         _assert_same_records(res, runs["jax"][0], NAMES)
+
+    def test_per_tenant_ledgers_under_reconcile_chaos(self):
+        """tests/test_reconcile.py:1259 as the JAX package runs it: the
+        ``reconcile`` chaos profile on ``t-chaos`` only (seed 3). That tenant
+        detects and repairs divergences, ``t-clean`` sees none, both converge
+        to zero drift, and the records equal the JAX fleet's."""
+        runs = {}
+        for package in ("torch", "jax"):
+            chaos, clean = _backend(package, seed=1), _backend(package, seed=2)
+            kw = dict(algorithm="communication", max_rounds=12, sleep_after_action_s=0.0)
+            if package == "torch":
+                reg = TRegistry()
+                res = t_run_fleet(FleetBackend([chaos, clean], tenant_names=NAMES),
+                                  RescheduleConfig(**kw, chaos="reconcile", chaos_seed=3,
+                                                   fleet=FleetConfig(tenants=2,
+                                                                     chaos_tenants=(0,))),
+                                  device="cpu", registry=reg)
+            else:
+                reg = JRegistry()
+                res = j_run_fleet(JFleetBackend([chaos, clean], tenant_names=NAMES),
+                                  JConfig(**kw, chaos=JChaos(profile="reconcile", seed=3),
+                                          fleet=JFleetConfig(tenants=2, chaos_tenants=(0,))),
+                                  key=jax.random.PRNGKey(0), registry=reg)
+            runs[package] = (res, reg, chaos)
+        res, reg, chaos = runs["torch"]
+        div = {name: [d for rec in r.rounds for d in (rec.reconcile or {}).get("divergences", ())]
+               for name, r in res.results.items()}
+        assert div["t-chaos"]
+        assert div["t-clean"] == []
+        for name in NAMES:
+            assert reg.value("fleet_reconcile_drift_pods", tenant=name) == 0
+        _assert_same_records(res, runs["jax"][0], NAMES)
+        assert chaos.events == runs["jax"][2].events
 
 
 @pytest.mark.parametrize("algorithm", ["communication", "global"])

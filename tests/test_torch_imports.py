@@ -52,6 +52,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import kubernetes_rescheduling_tpu_torch.bench.round_end\n"
         "import kubernetes_rescheduling_tpu_torch.bench.scan\n"
         "import kubernetes_rescheduling_tpu_torch.backends.sim_device\n"
+        "import kubernetes_rescheduling_tpu_torch.backends.chaos\n"
+        "import kubernetes_rescheduling_tpu_torch.backends\n"
         "import kubernetes_rescheduling_tpu_torch.telemetry.tripwire\n"
         "import kubernetes_rescheduling_tpu_torch.elastic\n"
         "import kubernetes_rescheduling_tpu_torch.elastic.engine\n"
@@ -120,6 +122,7 @@ def _entry_points():
     from kubernetes_rescheduling_tpu_torch.bench.harness import (
         make_backend,
         make_fleet_problem,
+        run_chaos_soak,
         sparse_problem,
     )
     from kubernetes_rescheduling_tpu_torch.config import ForecastConfig, RescheduleConfig
@@ -196,6 +199,18 @@ def _entry_points():
                 max_rounds=1, algorithm="proactive")),
         "cli reschedule --algorithm proactive": lambda: cli.main(
             ["reschedule", "--algorithm", "proactive"]),
+        "run_chaos_soak": lambda: run_chaos_soak(rounds=1),
+        "run_controller chaos": lambda: run_controller(
+            make_backend("mubench", 0, device="cpu"), RescheduleConfig(max_rounds=1,
+                                                                       chaos="soak")),
+        "run_fleet_controller pipelined": lambda: run_fleet_controller(
+            make_fleet("mubench", 2, device="cpu"), RescheduleConfig(max_rounds=1,
+                                                                     pipeline=True)),
+        "cli reschedule --chaos-profile": lambda: cli.main(
+            ["reschedule", "--chaos-profile", "soak"]),
+        "cli reschedule --fleet --pipeline": lambda: cli.main(
+            ["reschedule", "--fleet", "2", "--pipeline", "--fleet-chaos-tenants", "1",
+             "--chaos-profile", "soak"]),
     }
 
 

@@ -1,7 +1,7 @@
 """The scanned schedule (``bench/scan.py`` and ``_scanned_loop``) against the
 JAX package's and against the port's sequential loop, after
-tests/test_scan.py:284-530 (without the chaos-drain soak, which waits for
-``backends/chaos.py``, ROADMAP Queue 1 item 4, and without the fleet).
+tests/test_scan.py:284-530 (without the fleet; the chaos-drain soak is in
+tests/test_torch_chaos_loop.py).
 
 - ``scan_rounds``: the same state, graph, edge list and noise (the JAX key
   stream's rows) give the JAX bundle — decision rows, hazard masks,

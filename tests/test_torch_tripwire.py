@@ -1,7 +1,7 @@
 """The in-block tripwires (``telemetry/tripwire.py``) against the JAX
 package's, and in the port's scanned loop, after tests/test_tripwire.py's
 cases without the ops plane (the watchdog rule, /healthz and the flight
-recorder wait for ROADMAP Queue 1 item 4) and without the fleet.
+recorder wait for ROADMAP Queue 1 item 4.2) and without the fleet.
 
 The rule kernel is held to the JAX one on seeded (cost, load, most-hazard)
 sequences, bit for bit and carry for carry. In the loop: a trip-free block
