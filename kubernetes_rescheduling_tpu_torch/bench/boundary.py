@@ -53,6 +53,9 @@ class CircuitBreaker:
     opened_at_round: int = 0
     round: int = 0
     transitions: list[dict] = field(default_factory=list)
+    # called with each transition record (the ops plane's breaker-open
+    # bundle dump); None = nobody listens
+    on_transition: Callable[[dict], None] | None = None
 
     def _reg(self) -> MetricsRegistry:
         return self.registry if self.registry is not None else get_registry()
@@ -73,6 +76,8 @@ class CircuitBreaker:
         ).set(_STATE_CODE[to])
         if self.logger is not None:
             self.logger.info("breaker", **rec)
+        if self.on_transition is not None:
+            self.on_transition(rec)
 
     @property
     def enabled(self) -> bool:

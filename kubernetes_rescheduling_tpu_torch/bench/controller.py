@@ -96,6 +96,7 @@ from kubernetes_rescheduling_tpu_torch.bench.reconcile import (
 )
 from kubernetes_rescheduling_tpu_torch.bench.round_end import (
     METRIC_COST,
+    METRIC_HEAD,
     METRIC_LOAD_STD,
     RoundCloser,
     dispatch_round_end,
@@ -117,6 +118,7 @@ from kubernetes_rescheduling_tpu_torch.solver.round_loop import (
     decide_explain_with_forecast,
     decide_with_forecast,
 )
+from kubernetes_rescheduling_tpu_torch.telemetry import attribution as attribution_mod
 from kubernetes_rescheduling_tpu_torch.telemetry import tripwire as tripwire_mod
 from kubernetes_rescheduling_tpu_torch.telemetry.accounting import pull_arrays
 from kubernetes_rescheduling_tpu_torch.telemetry.explain import (
@@ -124,6 +126,7 @@ from kubernetes_rescheduling_tpu_torch.telemetry.explain import (
     solver_explanation,
 )
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import MetricsRegistry, get_registry
+from kubernetes_rescheduling_tpu_torch.telemetry.spans import span
 from kubernetes_rescheduling_tpu_torch.utils.checkpoint import CheckpointManager
 from kubernetes_rescheduling_tpu_torch.utils.logging import StructuredLogger
 
@@ -155,6 +158,10 @@ class RoundRecord:
     # one DecisionExplanation dict per decide/solve (telemetry.explain);
     # empty when explanations are off
     explanations: tuple[dict, ...] = ()
+    # cost attribution (telemetry.attribution): the per-edge / node-pair
+    # decomposition of communication_cost plus the round's move provenance
+    # — None when attribution is off
+    attribution: dict | None = None
     # every move that LANDED this round as (service, landed_node) pairs
     applied_moves: tuple[tuple[str, str], ...] = ()
     # the churn applied before this round (elastic/engine.py): events, live
@@ -319,8 +326,10 @@ class _Runtime:
     def __init__(self, backend, config: RescheduleConfig, *, device, registry,
                  gumbel_rows=None, solver_plans=None, forecast_deltas=None,
                  logger: StructuredLogger | None = None,
-                 checkpoint_dir: str | None = None, graph=None, on_round=None, churn=None):
+                 checkpoint_dir: str | None = None, graph=None, on_round=None, churn=None,
+                 ops=None):
         self.config = config
+        self.ops = ops
         self.registry = registry
         self.device = device
         self.gumbel_rows = gumbel_rows
@@ -373,8 +382,17 @@ class _Runtime:
             # through the boundary's passthrough; bind() pushes the initial
             # bucket capacities, so even round 1's snapshot is padded
             churn.bind(self.boundary, config.max_rounds, registry=registry)
-        # explanations: on when configured AND a logger listens
-        self.explain_k = config.explain_top_k if config.explain and logger is not None else 0
+        if ops is not None:
+            ops.bind(breaker=self.breaker, logger=logger, algorithm=config.algorithm)
+            self.breaker.on_transition = ops.on_breaker_transition
+        # explanations: on when configured AND someone listens (a logger or
+        # the ops plane) — the bare loop keeps the plain decision
+        listening = ops is not None or logger is not None
+        self.explain_k = config.explain_top_k if config.explain and listening else 0
+        # cost attribution rides the same gate: its bundle rides the
+        # round-end transfer the loop pays anyway
+        self.attr_k = config.attribution_top_k if config.attribution and listening else 0
+        self.timeline = attribution_mod.PlacementTimeline() if self.attr_k > 0 else None
         # in-block tripwires of the scanned schedule; the latest tripped
         # block's report waits in scan_trip until _scanned_loop drains it
         self.scan_tripwire = bool(config.scan_block and config.scan_tripwires)
@@ -429,6 +447,7 @@ class _Runtime:
         # predates applied churn (remask_needed: the next executed round
         # monitors afresh before deciding)
         self.remask_needed = False
+        self.rebind_timeline = False
         self.pending_churn: list[dict] = resumed_pending_churn
         # the previous round's unrepaired drift: a round that resolves it
         # still carries an explicit drift_pods=0
@@ -451,6 +470,10 @@ class _Runtime:
                 "backend unavailable: initial monitor() failed after retries "
                 "(no last good snapshot to degrade to)"
             )
+        if self.timeline is not None:
+            # the provenance model: the initial residency, collapsed on the
+            # host once a run, the per-move deltas telescope from
+            self.timeline.bind(self.state, self.metric_graph)
         if self.ledger is not None:
             if not self.ledger.intent:
                 # startup baseline: intent := the first admitted snapshot (a
@@ -495,38 +518,72 @@ class _Runtime:
 
     def metric_edges(self):
         """The round-end cost's edge list (``comm_edge_list``), built once
-        per metric-graph object: churn's graph changes rebuild it."""
+        per metric-graph object: churn's graph changes rebuild it. None with
+        attribution on: the round end then takes the dense form, whose S×S
+        work the attribution bundle needs anyway."""
+        if self.attr_k > 0:
+            return None
         graph = self.metric_graph
         if self._edge_cache is None or self._edge_cache[0] is not graph:
             self._edge_cache = (graph, comm_edge_list(graph))
         return self._edge_cache[1]
 
+    def round_end_ctx(self, state) -> dict:
+        """What decoding a snapshot's attribution bundle needs: the names
+        and the (bucket-padded) shapes it was computed at."""
+        return {"node_names": state.node_names, "svc_names": self.metric_graph.names,
+                "num_nodes": state.num_nodes, "num_services": self.metric_graph.num_services}
+
     def note_fresh_snapshot(self, state) -> None:
-        """Adopt a fresh snapshot and queue its round-end metrics on the
-        device; they are read only when a record closes on them."""
+        """Adopt a fresh snapshot and queue its round-end metrics (and the
+        attribution bundle with attribution on) on the device; they are
+        read only when a record closes on them."""
         self.state = state
         self._pending_end = {
-            "dev": dispatch_round_end(state, self.metric_graph, edges=self.metric_edges())
+            "dev": dispatch_round_end(state, self.metric_graph, top_k=self.attr_k,
+                                      edges=self.metric_edges()),
+            "ctx": self.round_end_ctx(state),
         }
 
-    def _attach_metrics(self, record: RoundRecord, closer: RoundCloser) -> None:
+    def apply_round_metrics(self, rnd: int, record: RoundRecord, cost: float, lstd: float,
+                            attr_flat, ctx: dict) -> None:
+        """Land a round's closing metrics on its record: the cost and load
+        spread and, with attribution on, the decoded bundle with the
+        round's move provenance, the gauges and the attribution book. One
+        definition for the per-round close and the scan block's decode."""
+        record.communication_cost = cost
+        record.load_std = lstd
+        if self.attr_k <= 0:
+            return
+        attr = attribution_mod.decode_attribution(
+            attr_flat, node_names=ctx["node_names"], service_names=ctx["svc_names"],
+            top_k=self.attr_k, num_nodes=ctx["num_nodes"], num_services=ctx["num_services"],
+        )
+        attr["round"] = rnd
+        attr["algorithm"] = self.config.algorithm
+        attr.update(self.timeline.observe_round(
+            rnd, record.applied_moves, pod_level=self.config.placement_unit == "pod"))
+        record.attribution = attr
+        attribution_mod.publish_attribution(self.registry, attr, top_k=self.attr_k)
+        attribution_mod.get_attribution_book().update(self.config.algorithm, rnd, attr)
+
+    def _attach_metrics(self, rnd: int, record: RoundRecord, closer: RoundCloser) -> None:
         """Register the record's closing metrics on the closer: the pending
         snapshot's tensor, or — when a degraded round closes on a snapshot
         already read — its cached host values (no transfer)."""
         pend = self._pending_end
+        ctx = pend["ctx"]
         if "host" in pend:
-            cost, lstd = pend["host"]
-
-            def apply_cached() -> None:
-                record.communication_cost, record.load_std = cost, lstd
-
-            closer.defer_host(apply_cached)
+            cost, lstd, attr_flat = pend["host"]
+            closer.defer_host(
+                lambda: self.apply_round_metrics(rnd, record, cost, lstd, attr_flat, ctx))
             return
         dev = pend.pop("dev")
 
         def decode(flat) -> None:
-            pend["host"] = (float(flat[METRIC_COST]), float(flat[METRIC_LOAD_STD]))
-            record.communication_cost, record.load_std = pend["host"]
+            attr_flat = flat[METRIC_HEAD:] if self.attr_k > 0 else None
+            pend["host"] = (float(flat[METRIC_COST]), float(flat[METRIC_LOAD_STD]), attr_flat)
+            self.apply_round_metrics(rnd, record, *pend["host"], ctx)
 
         closer.defer(dev, decode)
 
@@ -550,7 +607,7 @@ class _Runtime:
         # move like any other, and a failed one shows in this round
         record.breaker_state = self.breaker.state
         record.boundary_failures = self.boundary.round_failures
-        self._attach_metrics(record, closer)
+        self._attach_metrics(record.round, record, closer)
 
     def _reconcile_round(self, record: RoundRecord, *, fresh: bool) -> None:
         """The reconcile plane's step: the admission counts, the round's
@@ -588,6 +645,8 @@ class _Runtime:
             self.logger.info("round_skipped", round=rnd, breaker=self.breaker.state,
                              consecutive_failures=self.breaker.consecutive_failures,
                              **({"admission": adm} if adm else {}))
+        if self.ops is not None:
+            self.ops.observe_skip(rnd, breaker_state=self.breaker.state)
         self.boundary.advance(self.config.sleep_after_action_s)
         self.save_checkpoint(rnd, skipped=True)
 
@@ -605,6 +664,7 @@ class _Runtime:
                 self.remask_needed = True
                 if self.churn.graph_changed:
                     self.metric_graph = self.boundary.comm_graph().to(self.device)
+                    self.rebind_timeline = True
         mode = self.boundary.begin_round(rnd)
         if mode == OPEN:
             self.skip_round(rnd)
@@ -632,6 +692,13 @@ class _Runtime:
             refreshed = True
         if refreshed:
             self.remask_needed = False
+        if self.rebind_timeline and self.timeline is not None:
+            # the provenance model is defined over a fixed service set:
+            # re-anchor it at the post-churn snapshot (move deltas
+            # telescope within a churn epoch)
+            self.timeline = attribution_mod.PlacementTimeline()
+            self.timeline.bind(self.state, self.metric_graph)
+        self.rebind_timeline = False
         return True
 
     def solve_graph(self, graph):
@@ -689,8 +756,9 @@ class _Runtime:
                 # predict the next window: one captured step, its diag
                 # riding the round-end read
                 t_fc = time.perf_counter()
-                forecast_delta = self.forecast_plane.observe_and_predict(self.state,
-                                                                         closer=closer)
+                with span("controller/forecast", round=rnd):
+                    forecast_delta = self.forecast_plane.observe_and_predict(self.state,
+                                                                             closer=closer)
                 if self.forecast_deltas is not None:
                     forecast_delta = self.forecast_deltas(rnd).to(self.device)
                 forecast_s = time.perf_counter() - t_fc
@@ -731,21 +799,27 @@ class _Runtime:
                 "rounds completed on a stale snapshot after boundary failure",
                 labelnames=("algorithm",),
             ).labels(algorithm=self.config.algorithm).inc()
+        round_event = dict(
+            round=record.round,
+            moved=record.moved,
+            services=list(record.services_moved),
+            most_hazard=record.most_hazard,
+            communication_cost=record.communication_cost,
+            load_std=record.load_std,
+            decision_latency_s=record.decision_latency_s,
+            objective_before=record.objective_before,
+            objective_after=record.objective_after,
+            breaker=record.breaker_state,
+            degraded=record.degraded,
+            boundary_failures=record.boundary_failures,
+        )
         if self.logger is not None:
-            self.logger.info(
-                "round",
-                round=record.round,
-                moved=record.moved,
-                services=list(record.services_moved),
-                most_hazard=record.most_hazard,
-                communication_cost=record.communication_cost,
-                load_std=record.load_std,
-                decision_latency_s=record.decision_latency_s,
-                objective_before=record.objective_before,
-                objective_after=record.objective_after,
-                breaker=record.breaker_state,
-                degraded=record.degraded,
-                boundary_failures=record.boundary_failures,
+            self.logger.info("round", **round_event)
+        if self.ops is not None:
+            self.ops.observe_round(
+                record, self.state,
+                events=[{"event": "decision", **e} for e in record.explanations]
+                + [{"event": "round", **round_event}],
             )
         if self.on_round is not None:
             self.on_round(record, self.state)
@@ -757,10 +831,12 @@ class _Runtime:
             return
         t0 = time.perf_counter()
         closer = RoundCloser(self.registry)
-        record = self.execute_round(rnd, closer)
-        self.boundary.advance(self.config.sleep_after_action_s)
-        t_mon = time.perf_counter()
-        new_state = self.monitor_admitted()
+        with span("controller/round", round=rnd, algorithm=self.config.algorithm):
+            record = self.execute_round(rnd, closer)
+            self.boundary.advance(self.config.sleep_after_action_s)
+            t_mon = time.perf_counter()
+            with span("backend/monitor"):
+                new_state = self.monitor_admitted()
         t_end = time.perf_counter()
         self.begin_close(record, closer, new_state)
         closer.flush()
@@ -836,26 +912,40 @@ class _Runtime:
         mech = PlacementMechanism[scoring]
         state0 = self.state
         names = state0.node_names
+        ctx = self.round_end_ctx(state0)
+        prof = getattr(self.ops, "profiler", None)
+        if self.ops is not None:
+            # K rounds of healthy silence follow: scale the /healthz
+            # staleness budget so a long block never reads as a stale loop
+            self.ops.health.mark_block_inflight(rounds)
+            if prof is not None:
+                # an armed capture covers the whole block (a block is atomic)
+                prof.maybe_start(label="scan_block", rounds=rounds, round=start)
         t0 = time.perf_counter()
-        gumbel = None
-        if scoring == "random":
-            gumbel = to_device(torch.stack([self.noise_rows(start + i)(0)
-                                            for i in range(rounds)]), self.device)
-        flat_dev = scan_mod.scan_rounds(
-            state0, graph, self.metric_graph, POLICY_IDS[scoring], config.hazard_threshold_pct,
-            gumbel, self.metric_edges(),
-            tripwire_mod.trip_config_array(config, self.device) if self.scan_tripwire else None,
-            rounds=rounds, pinned=True, explain_k=self.explain_k, tripwire=self.scan_tripwire,
-        )
-        flat = scan_mod.pull_block(flat_dev, self.registry)
+        with span("controller/scan_block", round=start, rounds=rounds,
+                  algorithm=config.algorithm):
+            gumbel = None
+            if scoring == "random":
+                gumbel = to_device(torch.stack([self.noise_rows(start + i)(0)
+                                                for i in range(rounds)]), self.device)
+            flat_dev = scan_mod.scan_rounds(
+                state0, graph, self.metric_graph, POLICY_IDS[scoring],
+                config.hazard_threshold_pct, gumbel, self.metric_edges(),
+                tripwire_mod.trip_config_array(config, self.device) if self.scan_tripwire else None,
+                rounds=rounds, pinned=True, explain_k=self.explain_k, attr_k=self.attr_k,
+                tripwire=self.scan_tripwire,
+            )
+            flat = scan_mod.pull_block(flat_dev, self.registry)
         fence_s = time.perf_counter() - t0
+        if prof is not None:
+            prof.advance(rounds)
         scan_mod.count_scan_block(self.registry, rounds)
         self.scan_trip = None
         trip = None
         if self.scan_tripwire:
             flat, trip = tripwire_mod.split_tripwire(flat, rounds=rounds)
         views = scan_mod.decode_block(flat, rounds=rounds, num_nodes=state0.num_nodes,
-                                      explain_k=self.explain_k)
+                                      explain_k=self.explain_k, attr_k=self.attr_k)
         if trip is not None and trip.tripped:
             # the trip round decided on a state the rules judged unhealthy:
             # commit only the rounds before it
@@ -937,7 +1027,8 @@ class _Runtime:
                 # the block's end: ONE admitted monitor realigns the
                 # controller with the backend and arms the degraded-close
                 # fallback for a following drained round
-                new_state = self.monitor_admitted()
+                with span("backend/monitor"):
+                    new_state = self.monitor_admitted()
                 if new_state is None:
                     record.degraded = True
                 else:
@@ -946,11 +1037,17 @@ class _Runtime:
             self._reconcile_round(record, fresh=fresh)
             record.breaker_state = self.breaker.state
             record.boundary_failures = self.boundary.round_failures
+            self.apply_round_metrics(rnd, record, v.cost, v.load_std, v.attr_flat, ctx)
             record.wall_s = fence_s / rounds + time.perf_counter() - t_r
             self.emit(record, mode="scanned")
             consumed += 1
             if diverged:
                 break
+        if self.ops is not None:
+            # every block reports: a clean one clears the scan_tripwire rule
+            # and the in-flight staleness scaling, a tripped one flips
+            # /healthz and dumps a bundle scoped to the partial block
+            self.ops.observe_scan_block(rounds=rounds, trip=self.scan_trip)
         return consumed
 
 
@@ -1035,7 +1132,8 @@ def _pipelined_loop(rt: _Runtime) -> None:
                 def hook(prev=pend, end_t=t0):
                     finish(prev, end_t)
 
-            record = rt.execute_round(rnd, closer, pre_fence_hook=hook)
+            with span("controller/round", round=rnd, algorithm=cfg.algorithm):
+                record = rt.execute_round(rnd, closer, pre_fence_hook=hook)
             if pend is not None:
                 # a round that never reached its fence still owes the
                 # previous round its close
@@ -1074,7 +1172,8 @@ def _scanned_loop(rt: _Runtime) -> None:
     while rnd <= cfg.max_rounds:
         reason = static_reason
         if reason is None:
-            if rt.churn is not None or rt.pending_churn or rt.remask_needed:
+            if (rt.churn is not None or rt.pending_churn or rt.remask_needed
+                    or rt.rebind_timeline):
                 reason = "churn"
             elif rt.breaker.state != CLOSED:
                 reason = "breaker"
@@ -1083,6 +1182,8 @@ def _scanned_loop(rt: _Runtime) -> None:
                 reason = "tail"
         if reason is not None:
             scan_mod.count_scan_drain(rt.registry, reason)
+            if rt.ops is not None:
+                rt.ops.observe_scan_drain(reason)
             rt.sequential_round(rnd)
             rnd += 1
             continue
@@ -1092,6 +1193,8 @@ def _scanned_loop(rt: _Runtime) -> None:
             # re-runs on the per-round path (the same decision: the same
             # state and noise row), which guarantees progress
             scan_mod.count_scan_drain(rt.registry, "tripwire")
+            if rt.ops is not None:
+                rt.ops.observe_scan_drain("tripwire")
             rt.scan_trip = None
             rt.sequential_round(rnd)
             rnd += 1
@@ -1111,6 +1214,7 @@ def run_controller(
     gumbel_rows: Callable[[int, int], torch.Tensor] | None = None,
     solver_plans: Callable[[int], list] | None = None,
     forecast_deltas: Callable[[int], torch.Tensor] | None = None,
+    ops=None,
 ) -> ControllerResult:
     """Run ``config.max_rounds`` rounds against a backend on ``device``
     (the card unless the caller passes ``device="cpu"``); the backend's
@@ -1184,8 +1288,19 @@ def run_controller(
     boundary's retries and breaker, and a scanned run drains every round
     (reason ``"backend"``).
 
-    Not carried yet (refused by ``config.validate()``): the ops plane and
-    shadow.
+    ``ops`` (a ``telemetry.server.OpsPlane``) attaches the live ops plane:
+    it binds the breaker (an open transition dumps a flight-recorder
+    bundle), observes every executed and skipped round (``/healthz``, the
+    SLO watchdog, the flight recorder's ring, the SLO v2 history plane) and
+    every scan block and drain, arms its profiler gate around scan blocks,
+    and dumps a ``crash`` bundle for whatever escapes the loop. A logger or
+    the plane turns on explanations (``config.explain``) and cost
+    attribution (``config.attribution``): each record then carries the
+    round's edge / node-pair decomposition of the cost and its move
+    provenance (``record.attribution``), the bundle riding the round-end
+    transfer, and the round end takes the dense cost form.
+
+    Not carried yet (refused by ``config.validate()``): shadow.
     """
     config = config.validate()
     dev = resolve_device(device)
@@ -1193,13 +1308,19 @@ def run_controller(
     rt = _Runtime(backend, config, device=dev, registry=registry, gumbel_rows=gumbel_rows,
                   solver_plans=solver_plans, forecast_deltas=forecast_deltas, logger=logger,
                   checkpoint_dir=checkpoint_dir,
-                  graph=graph, on_round=on_round, churn=churn)
-    if config.scan_block:
-        _scanned_loop(rt)
-    elif config.pipeline:
-        _pipelined_loop(rt)
-    else:
-        _sequential_loop(rt)
+                  graph=graph, on_round=on_round, churn=churn, ops=ops)
+    try:
+        if config.scan_block:
+            _scanned_loop(rt)
+        elif config.pipeline:
+            _pipelined_loop(rt)
+        else:
+            _sequential_loop(rt)
+    except BaseException as e:
+        # whatever escapes the loop leaves a flight-recorder bundle behind
+        if ops is not None:
+            ops.on_crash(e)
+        raise
     rt.result.breaker_transitions = list(rt.breaker.transitions)
     rt.result.boundary_failures = rt.boundary.total_failures
     return rt.result
@@ -1259,25 +1380,26 @@ def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry, close
 
     for i in range(config.moves_per_round):
         t0 = time.perf_counter()
-        g = noise(i) if scoring == "random" else None
-        thr = config.hazard_threshold_pct
-        if explain_k > 0:
-            if forecast_delta is not None:
-                most, hazard_mask, victim, svc, target, bundle = decide_explain_with_forecast(
-                    state, graph, pid, thr, g, forecast_delta, top_k=explain_k)
+        with span("controller/decide", round=rnd):
+            g = noise(i) if scoring == "random" else None
+            thr = config.hazard_threshold_pct
+            if explain_k > 0:
+                if forecast_delta is not None:
+                    most, hazard_mask, victim, svc, target, bundle = decide_explain_with_forecast(
+                        state, graph, pid, thr, g, forecast_delta, top_k=explain_k)
+                else:
+                    most, hazard_mask, victim, svc, target, bundle = decide_explain(
+                        state, graph, pid, thr, g, top_k=explain_k)
             else:
-                most, hazard_mask, victim, svc, target, bundle = decide_explain(
-                    state, graph, pid, thr, g, top_k=explain_k)
-        else:
-            bundle = None
-            if forecast_delta is not None:
-                most, hazard_mask, victim, svc, target = decide_with_forecast(
-                    state, graph, pid, thr, g, forecast_delta)
-            else:
-                most, hazard_mask, victim, svc, target = decide(state, graph, pid, thr, g)
-        # the apply boundary: ONE batched host read of the decision
-        scalars, hazard = fence([torch.stack([most, victim, svc.long(), target]), hazard_mask],
-                                registry)
+                bundle = None
+                if forecast_delta is not None:
+                    most, hazard_mask, victim, svc, target = decide_with_forecast(
+                        state, graph, pid, thr, g, forecast_delta)
+                else:
+                    most, hazard_mask, victim, svc, target = decide(state, graph, pid, thr, g)
+            # the apply boundary: ONE batched host read of the decision
+            scalars, hazard = fence([torch.stack([most, victim, svc.long(), target]), hazard_mask],
+                                    registry)
         latencies.append(time.perf_counter() - t0)
         most_i, victim_i, svc_i, target_i = (int(v) for v in scalars)
         service_name = graph.names[svc_i] if victim_i >= 0 else None
@@ -1562,13 +1684,14 @@ def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, 
         value = pod_level_graph(state, graph)
         cache["graph"], cache["sig"], cache["value"] = graph, sig, value
     pod_graph = cache["value"]
-    new_state, info = global_assign_pods(state, graph, generator, _solver_config(config),
-                                         pod_graph=pod_graph, plan=plan)
-    if pre_fence_hook is not None:
-        # the pipelined overlap window, while the solve executes
-        pre_fence_hook()
-    # the apply boundary: ONE batched host read of the new placement
-    (new_nodes,) = fence([new_state.pod_node], registry)
+    with span("controller/pod_solve", round=rnd):
+        new_state, info = global_assign_pods(state, graph, generator, _solver_config(config),
+                                             pod_graph=pod_graph, plan=plan)
+        if pre_fence_hook is not None:
+            # the pipelined overlap window, while the solve executes
+            pre_fence_hook()
+        # the apply boundary: ONE batched host read of the new placement
+        (new_nodes,) = fence([new_state.pod_node], registry)
     latency = time.perf_counter() - t0
 
     t_apply = time.perf_counter()
@@ -1650,25 +1773,26 @@ def _global_round(boundary, state, graph, config, rnd, *, generator, plan, close
                           intents=intents, pre_fence_hook=pre_fence_hook)
     cfg = _solver_config(config)
     t0 = time.perf_counter()
-    if config.solver_backend == "sparse":
-        from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
-        from kubernetes_rescheduling_tpu_torch.solver.sparse_solver import global_assign_sparse
+    with span("controller/global_solve", round=rnd):
+        if config.solver_backend == "sparse":
+            from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
+            from kubernetes_rescheduling_tpu_torch.solver.sparse_solver import global_assign_sparse
 
-        # the block-local form is built once per graph: the controller
-        # re-solves the same declared graph every round
-        cache = boundary.solver_cache("sparse_graph")
-        if cache.get("graph") is not graph:
-            cache["graph"], cache["value"] = graph, from_comm_graph(graph)
-        new_state, info = global_assign_sparse(state, cache["value"], generator, cfg, plan=plan)
-    else:
-        new_state, info = global_assign(state, graph, generator, cfg, plan=plan)
-    if pre_fence_hook is not None:
-        # the pipelined overlap window, while the solve executes
-        pre_fence_hook()
-    # the apply boundary: ONE batched host read of the old and new placement
-    old_nodes, new_nodes, valid, svc_arr = fence(
-        [state.pod_node, new_state.pod_node, state.pod_valid, state.pod_service], registry
-    )
+            # the block-local form is built once per graph: the controller
+            # re-solves the same declared graph every round
+            cache = boundary.solver_cache("sparse_graph")
+            if cache.get("graph") is not graph:
+                cache["graph"], cache["value"] = graph, from_comm_graph(graph)
+            new_state, info = global_assign_sparse(state, cache["value"], generator, cfg, plan=plan)
+        else:
+            new_state, info = global_assign(state, graph, generator, cfg, plan=plan)
+        if pre_fence_hook is not None:
+            # the pipelined overlap window, while the solve executes
+            pre_fence_hook()
+        # the apply boundary: ONE batched host read of the old and new placement
+        old_nodes, new_nodes, valid, svc_arr = fence(
+            [state.pod_node, new_state.pod_node, state.pod_valid, state.pod_service], registry
+        )
     latency = time.perf_counter() - t0
 
     changed: list[tuple[int, int]] = []  # (service, target node), first pod order

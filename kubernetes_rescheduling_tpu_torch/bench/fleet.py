@@ -56,10 +56,20 @@ their series and ring, ``TenantSeries`` holds nothing but its fixed budget
 decision, and a tenant's pending churn events are taken on the main thread
 before the dispatch. Each tenant's records equal the serial fleet's.
 
+The ops plane (``ops=``, a ``telemetry.server.OpsPlane``): ``/healthz``
+grows a ``fleet`` block (per-tenant rows at the label budget, the bounded
+summary over it — one tenant's open breaker is degraded service, not a
+503), every tenant-round feeds the watchdog, the flight recorder's ring and
+the ``/tenants`` summary ring, every rollup feeds the ``fleet_tail_cost``
+rule, a tenant's breaker opening dumps a bundle scoped to that tenant, the
+per-tenant SLO budgets publish through the label budget, and the profiler
+gate opens around the next rounds or scan block. Breaker transitions of
+the pipelined fleet fire on its workers; the plane's hooks they reach take
+no lock the main thread holds while it waits for them.
+
 Left out (refused by ``config.validate()``, each naming its ROADMAP item):
-the ops plane's hooks and the ``/tenants`` endpoints (item 4.2), the dp
-plane and restarts (item 5). Checkpoint/resume is solo-only, as in the JAX
-package.
+the dp plane and its device rollups behind ``/devices``, and restarts
+(item 5). Checkpoint/resume is solo-only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -138,6 +148,7 @@ from kubernetes_rescheduling_tpu_torch.telemetry.fleet_rollup import (
     rollup_event,
 )
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import MetricsRegistry, get_registry
+from kubernetes_rescheduling_tpu_torch.telemetry.spans import span
 from kubernetes_rescheduling_tpu_torch.utils.logging import StructuredLogger
 
 # the fleet loop's two round-end transfer sites
@@ -331,6 +342,7 @@ def run_fleet_controller(
     churn: dict | None = None,
     gumbel_rows: Sequence[Callable[[int, int], torch.Tensor]] | None = None,
     solver_plans: Sequence[Callable[[int], list]] | None = None,
+    ops=None,
 ) -> FleetResult:
     """Run ``config.max_rounds`` multiplexed rounds over a fleet on
     ``device`` (the card unless the caller passes ``device="cpu"``).
@@ -343,7 +355,8 @@ def run_fleet_controller(
     (the solo loop's seams, per tenant). ``registry`` gets the fleet's
     families: ``fleet_tenants``, the per-tenant ``fleet_rounds_total`` /
     ``fleet_moves_total`` / cost and load gauges through the cardinality
-    gate (``config.tenant_label_budget``), and the rollup families."""
+    gate (``config.tenant_label_budget``), and the rollup families.
+    ``ops`` attaches the live ops plane (module docstring)."""
     config = config.validate()
     if config.fleet.tenants and config.fleet.tenants != fleet.num_tenants:
         raise ValueError(
@@ -375,6 +388,9 @@ def run_fleet_controller(
     _align_fleet_buckets(backends, floor=config.bucket_floor, registry=registry)
 
     tseries = TenantSeries(registry, tenants=T, budget=config.tenant_label_budget)
+    if ops is not None:
+        # per-tenant SLO budgets publish through the same label budget
+        ops.bind_tenant_series(tseries)
     tenants = [
         _Tenant(i, name, backend, config, device=dev, logger=logger, registry=registry,
                 tseries=tseries,
@@ -417,13 +433,31 @@ def run_fleet_controller(
         result.health = fleet_health_block({t.name: t.health_row() for t in tenants},
                                            budget=config.tenant_label_budget,
                                            event=last_rollup_event[0])
+        if ops is not None:
+            ops.health.fleet = result.health
 
     def emit_rollup(rollup: dict, rnd: int) -> None:
+        """One round's rollup everywhere at once: the bounded families, the
+        named event, the fleet_tail_cost window and the bundle cache."""
         publish_rollup(registry, rollup)
         ev = rollup_event(rollup, names, round=rnd)
         last_rollup_event[0] = ev
         if logger is not None:
             logger.info("fleet_rollup", **ev)
+        if ops is not None:
+            ops.observe_fleet_rollup(rollup, event=ev)
+
+    if ops is not None:
+        ops.bind(logger=logger, algorithm=config.algorithm)
+        update_fleet_health()
+        for t in tenants:
+            # a tenant's breaker opening dumps a bundle tagged with the
+            # tenant: the rollup plus only that tenant's summary
+            t.breaker.on_transition = (
+                lambda rec, _name=t.name: ops.on_breaker_transition({**rec, "tenant": _name}))
+    # the profiler gate (POST /profile, --profile-rounds): an armed capture
+    # opens just before a dispatch and closes once its rounds committed
+    prof = getattr(ops, "profiler", None)
 
     scoring = (scoring_policy(config.algorithm, config.forecast) if fleet_mode != "global"
                else None)
@@ -459,12 +493,17 @@ def run_fleet_controller(
             "tenant rounds frozen by that tenant's open breaker (or a dark backend)",
             t.name,
         )
+        if ops is not None:
+            ops.observe_tenant(t.name, breaker=t.breaker.state, drift=t.last_drift,
+                               skipped=True)
         adm = t.guard.take_info() if t.guard is not None else {}
         if logger is not None:
             logger.info("fleet_round_skipped", tenant=t.name, round=rnd,
                         breaker=t.breaker.state,
                         consecutive_failures=t.breaker.consecutive_failures,
                         **({"admission": adm} if adm else {}))
+        if ops is not None:
+            ops.observe_skip(rnd, breaker_state=t.breaker.state)
         t.boundary.advance(config.sleep_after_action_s)
 
     # churn applied while a tenant's rounds are skipped flushes into its next
@@ -498,12 +537,25 @@ def run_fleet_controller(
                               "after the most recent proactive fleet round",
                               t.name, rec.forecast["skill"])
             publish_forecast(registry, rec.forecast, skill_gauge=False)
+        round_event = dict(tenant=t.name, round=rnd, moved=rec.moved, service=rec.service,
+                           target=rec.target, communication_cost=rec.communication_cost,
+                           load_std=rec.load_std, breaker=rec.breaker_state,
+                           degraded=rec.degraded, boundary_failures=rec.boundary_failures)
         if logger is not None:
-            logger.info("fleet_round", tenant=t.name, round=rnd, moved=rec.moved,
-                        service=rec.service, target=rec.target,
-                        communication_cost=rec.communication_cost, load_std=rec.load_std,
-                        breaker=rec.breaker_state, degraded=rec.degraded,
-                        boundary_failures=rec.boundary_failures)
+            logger.info("fleet_round", **round_event)
+        if ops is not None:
+            # the solo loop's per-round feed, per tenant-round (the
+            # watchdog keys its per-source state on the tenant), and the
+            # /tenants drill-down ring
+            ops.observe_round(rec, t.state, events=[{"event": "fleet_round", **round_event}],
+                              tenant=t.name)
+            ops.observe_tenant(
+                t.name,
+                record={"round": rnd, "moved": rec.moved, "service": rec.service,
+                        "target": rec.target, "communication_cost": rec.communication_cost,
+                        "load_std": rec.load_std, "degraded": rec.degraded},
+                breaker=rec.breaker_state, drift=t.last_drift,
+            )
         if on_round is not None:
             on_round(t.name, rec, t.state)
 
@@ -612,6 +664,8 @@ def run_fleet_controller(
         if not active:
             update_fleet_health()
             return
+        if prof is not None:
+            prof.maybe_start(label="fleet_rounds", round=rnd)
         t0 = time.perf_counter()
         # inactive slots carry the first active tenant's snapshot (shapes
         # stay static) and are masked; their graphs are their own
@@ -629,9 +683,10 @@ def run_fleet_controller(
             for t in tenants:
                 gens.append(round_generator(t.seed, rnd))
                 plans.append(t.solver_plans(rnd) if t.solver_plans is not None else None)
-            flat_dev = fleet_global_solve(slot_states, graphs, mask, config=solver_cfg,
-                                          generators=gens, plans=plans)
-            flat = pull(flat_dev, site=DECISION_SITE, registry=registry)
+            with span("fleet/global_solve", round=rnd, tenants=len(active)):
+                flat_dev = fleet_global_solve(slot_states, graphs, mask, config=solver_cfg,
+                                              generators=gens, plans=plans)
+                flat = pull(flat_dev, site=DECISION_SITE, registry=registry)
             g_moves, g_objs = decode_fleet_global(flat, tenants=T,
                                                   num_services=graphs[0].num_services)
         else:
@@ -645,16 +700,19 @@ def run_fleet_controller(
             if forecast_plane is not None:
                 # every active tenant's observed loads into its model, one
                 # step for the fleet; the diag matrix rides the decision read
-                deltas, diag_dev = forecast_plane.observe_and_predict(stacked, mask)
-                dec_dev, hz_dev = fleet_solve_proactive(stacked, graphs, pid, thr, mask,
-                                                        deltas, gumbel)
-                parts.append(diag_dev.reshape(-1))
-            else:
-                dec_dev, hz_dev = fleet_solve(stacked, graphs, pid, thr, mask, gumbel)
-            n_nodes = int(hz_dev.shape[1])
-            flat = pull(torch.cat([dec_dev.reshape(-1).float(), hz_dev.reshape(-1).float(),
-                                   *parts]),
-                        site=DECISION_SITE, registry=registry)
+                with span("fleet/forecast", round=rnd, tenants=len(active)):
+                    deltas, diag_dev = forecast_plane.observe_and_predict(stacked, mask)
+            with span("fleet/solve", round=rnd, tenants=len(active)):
+                if forecast_plane is not None:
+                    dec_dev, hz_dev = fleet_solve_proactive(stacked, graphs, pid, thr, mask,
+                                                            deltas, gumbel)
+                    parts.append(diag_dev.reshape(-1))
+                else:
+                    dec_dev, hz_dev = fleet_solve(stacked, graphs, pid, thr, mask, gumbel)
+                n_nodes = int(hz_dev.shape[1])
+                flat = pull(torch.cat([dec_dev.reshape(-1).float(), hz_dev.reshape(-1).float(),
+                                       *parts]),
+                            site=DECISION_SITE, registry=registry)
             decisions = flat[:T * 4].reshape(T, 4).astype(np.int64)
             hazard = flat[T * 4:T * 4 + T * n_nodes].reshape(T, n_nodes) > 0.5
             if parts:
@@ -770,6 +828,8 @@ def run_fleet_controller(
         if rollup is not None:
             emit_rollup(rollup, rnd)
         update_fleet_health()
+        if prof is not None:
+            prof.advance(1)
 
     scan_k = config.scan_block
     trip_on = bool(scan_k) and config.scan_tripwires
@@ -797,6 +857,10 @@ def run_fleet_controller(
         read as ONE counted ``round_end`` transfer, then the moves replayed
         per tenant in the sequential call order. Returns the rounds
         committed: ``k``, or the earliest tripped round across tenants."""
+        if ops is not None:
+            ops.health.mark_block_inflight(k)
+        if prof is not None:
+            prof.maybe_start(label="fleet_scan_block", rounds=k, round=start)
         t0 = time.perf_counter()
         states = [device_view(t.state) for t in tenants]
         n_nodes = states[0].num_nodes
@@ -808,15 +872,16 @@ def run_fleet_controller(
             ]), dev)
         drift = (torch.tensor([float(t.last_drift) for t in tenants], dtype=torch.float32)
                  if scan_rollup_k else None)
-        flat = scan_mod.pull_block(
-            scan_mod.fleet_scan_rounds(
-                states, [t.graph for t in tenants], [t.edges() for t in tenants], pid, thr,
-                gumbel, drift,
-                tripwire_mod.trip_config_array(config, dev) if trip_on else None,
-                rounds=k, pinned=True, rollup_k=scan_rollup_k, tripwire=trip_on,
-            ),
-            registry,
-        )
+        with span("fleet/scan_block", round=start, rounds=k, tenants=T):
+            flat = scan_mod.pull_block(
+                scan_mod.fleet_scan_rounds(
+                    states, [t.graph for t in tenants], [t.edges() for t in tenants], pid, thr,
+                    gumbel, drift,
+                    tripwire_mod.trip_config_array(config, dev) if trip_on else None,
+                    rounds=k, pinned=True, rollup_k=scan_rollup_k, tripwire=trip_on,
+                ),
+                registry,
+            )
         fence_s = time.perf_counter() - t0
         scan_mod.count_scan_block(registry, k)
         result.batched_solves += 1
@@ -829,6 +894,7 @@ def run_fleet_controller(
         decisions, hazard, landed_idx, metrics = decoded[:4]
         rollups = decoded[4] if scan_rollup_k else None
         commit = k
+        trip_info = None
         if trip is not None and trip.tripped:
             # fleet-wide truncation at the earliest trip: every tenant's
             # ledger advances in lockstep, and the tripped round re-runs
@@ -847,11 +913,12 @@ def run_fleet_controller(
                 tripped[t.name] = {"round": start + int(trip_rounds[i]),
                                    "block_round": int(trip_rounds[i]), "rules": list(rules),
                                    "mask": int(trip.trip_mask[i])}
+            trip_info = {"round": start + commit, "block_start": start,
+                         "block_round": commit, "rules": list(trip.rules),
+                         "mask": int(np.bitwise_or.reduce(np.asarray(trip.trip_mask))),
+                         "tenants": tripped}
             if logger is not None:
-                logger.warn("scan_tripwire", round=start + commit, block_start=start,
-                            block_round=commit, rules=list(trip.rules),
-                            mask=int(np.bitwise_or.reduce(np.asarray(trip.trip_mask))),
-                            tenants=tripped)
+                logger.warn("scan_tripwire", **trip_info)
         per_tenant_s = fence_s / (k * T)
         resync: set[int] = set()  # tenants whose replay diverged from the twin
         for r in range(commit):
@@ -911,6 +978,12 @@ def run_fleet_controller(
             observe_wall_round(registry, "scanned", fence_s / k + time.perf_counter() - t_r0)
             update_fleet_health()
         result.round_wall_s.append(time.perf_counter() - t0)
+        if ops is not None:
+            # every block reports: a clean one clears the scan_tripwire rule
+            # and the in-flight staleness scaling
+            ops.observe_scan_block(rounds=k, trip=trip_info)
+        if prof is not None:
+            prof.advance(k)
         return commit
 
     def run_rounds() -> None:
@@ -936,15 +1009,24 @@ def run_fleet_controller(
                     rnd += consumed
                     if consumed < scan_k:
                         scan_mod.count_scan_drain(registry, "tripwire")
+                        if ops is not None:
+                            ops.observe_scan_drain("tripwire")
                         round_once(rnd)
                         rnd += 1
                     continue
                 scan_mod.count_scan_drain(registry, reason)
+                if ops is not None:
+                    ops.observe_scan_drain(reason)
             round_once(rnd)
             rnd += 1
 
     try:
         run_rounds()
+    except BaseException as e:
+        # whatever escapes the loop leaves a flight-recorder bundle behind
+        if ops is not None:
+            ops.on_crash(e)
+        raise
     finally:
         if pool is not None:
             pool.shutdown(wait=True)

@@ -227,20 +227,16 @@ def run_chaos_soak(
     report can hold the wrapper's own ``fault_counts`` against the
     registry's ``chaos_faults_total``: every injected fault is counted,
     every round is accounted (``rounds == records + skipped_rounds``), and
-    the loop finishes without raising. The JAX package wraps the run in a
-    ``bench/chaos_soak`` span; spans, and the live ops plane that ``ops=``
-    attaches there, come with ROADMAP Queue 1 item 4.2, so ``ops`` is
-    refused."""
+    the loop finishes without raising. The run is one ``bench/chaos_soak``
+    span. ``ops`` optionally attaches a live ops plane
+    (``telemetry.server.OpsPlane``): ``/healthz`` watches the breaker open
+    and recover, and an open transition dumps a flight-recorder bundle."""
     from kubernetes_rescheduling_tpu_torch.backends.chaos import with_chaos
     from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller
     from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
+    from kubernetes_rescheduling_tpu_torch.telemetry.spans import span
     from kubernetes_rescheduling_tpu_torch.utils.retry import RetryPolicy
 
-    if ops is not None:
-        raise ValueError(
-            "run_chaos_soak(ops=...) attaches the ops plane (telemetry/server.py), not "
-            "ported yet (ROADMAP Queue 1 item 4.2)"
-        )
     backend = make_backend(scenario, seed, device=device)
     backend.inject_imbalance(backend.node_names[0])
     chaos = with_chaos(backend, profile, seed=chaos_seed, registry=registry)
@@ -254,7 +250,9 @@ def run_chaos_soak(
         breaker_cooldown_rounds=breaker_cooldown_rounds,
         failure_budget_per_round=failure_budget_per_round,
     )
-    result = run_controller(chaos, cfg, device=device, logger=logger, registry=registry)
+    with span("bench/chaos_soak", profile=profile):
+        result = run_controller(chaos, cfg, device=device, logger=logger, registry=registry,
+                                ops=ops)
     fault_counts = dict(getattr(chaos, "fault_counts", {}))
     return {
         "profile": profile,

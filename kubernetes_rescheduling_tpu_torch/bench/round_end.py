@@ -3,7 +3,10 @@
 
 - :func:`round_end_metrics`: ``[communication_cost, load_std]`` of a
   snapshot as one f32 device tensor (the edge-list cost when an edge list is
-  given).
+  given), followed with attribution on (``top_k`` > 0) by the flat
+  attribution bundle (``objectives.metrics.communication_cost_attribution``:
+  ``[total, tail, k×5 edge rows, N·N node-pair matrix]``), whose edge costs
+  and tail sum back to the cost two slots earlier.
 - :class:`RoundCloser`: the round's device-resident pieces (the metrics,
   the solver's objectives) and host callbacks, pulled in ONE counted
   transfer (``device_transfers_total{site="round_end"}``) by
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import (
+    attribution_parts,
     communication_cost,
     communication_cost_edges,
     load_std,
@@ -33,12 +37,19 @@ FENCE_SITE = "fence"
 # layout of the metrics head inside the round-end vector
 METRIC_COST = 0
 METRIC_LOAD_STD = 1
+METRIC_HEAD = 2
 
 
-def round_end_metrics(state, graph, *, edges=None) -> torch.Tensor:
-    """f32[2] ``[communication_cost, load_std]`` of ``state``, the cost over
-    ``edges`` (``objectives.metrics.comm_edge_list``) when given, else the
-    dense quadratic form."""
+def round_end_metrics(state, graph, *, top_k: int = 0, edges=None) -> torch.Tensor:
+    """``[communication_cost, load_std]`` of ``state`` and, with ``top_k`` >
+    0, the flat attribution bundle after them. With attribution off the
+    cost contracts over ``edges`` (``objectives.metrics.comm_edge_list``)
+    when given, else the dense quadratic form; with it on the cost is the
+    dense form (its S×S work is the bundle's anyway, computed in the same
+    pass), so every consumer of a run uses one form throughout."""
+    if top_k > 0:
+        cost, bundle = attribution_parts(state, graph, top_k=top_k)
+        return torch.cat([torch.stack([cost.float(), load_std(state).float()]), bundle])
     if edges is None:
         cost = communication_cost(state, graph)
     else:
@@ -46,9 +57,9 @@ def round_end_metrics(state, graph, *, edges=None) -> torch.Tensor:
     return torch.stack([cost.float(), load_std(state).float()])
 
 
-def dispatch_round_end(state, graph, *, edges=None) -> torch.Tensor:
+def dispatch_round_end(state, graph, *, top_k: int = 0, edges=None) -> torch.Tensor:
     """Queue the round-end metrics on the device (no host sync)."""
-    return round_end_metrics(state, graph, edges=edges)
+    return round_end_metrics(state, graph, top_k=top_k, edges=edges)
 
 
 def fence(parts: Sequence[torch.Tensor], registry: MetricsRegistry | None = None

@@ -26,9 +26,12 @@ port draws round r's row on the host from the generator of ``(seed, r)``
 the ``[K, N]`` rows through pinned memory without a wait.
 
 The host half (:func:`decode_block`) slices the bundle back into per-round
-views the controller replays into ordinary ``RoundRecord``s; attribution
-(``attr_k``) is Queue 1 item 4.2, so the metrics are the ``[cost, load_std]``
-head only.
+views the controller replays into ordinary ``RoundRecord``s. With
+attribution on (``attr_k`` > 0) each round's metrics carry its attribution
+bundle after the ``[cost, load_std]`` head (``bench/round_end.py``), so
+scanned records equal sequential ones attribution included; the S×S work
+runs inside the captured graph, its temporaries freed into the graph's
+private pool round by round.
 
 The fleet half (:func:`fleet_scan_rounds`, :func:`decode_fleet_block`)
 advances every tenant K rounds in one block: the solo round body per
@@ -67,13 +70,14 @@ from kubernetes_rescheduling_tpu_torch.telemetry.tripwire import (
 # columns of the per-round decision row inside the block bundle
 DEC_MOST, DEC_VICTIM, DEC_SERVICE, DEC_TARGET, DEC_LANDED = range(5)
 DEC_COLS = 5
-# the metrics head of a round ([cost, load_std]); attribution is not carried
+# the metrics head of a round ([cost, load_std]); the attribution bundle
+# follows it when attr_k > 0
 METRIC_HEAD = 2
 
 
 def scan_body(t: dict, dec_adj: torch.Tensor, metric_adj: torch.Tensor, edges, *,
               policy_id: int, threshold: float, rounds: int, pinned: bool, explain_k: int,
-              tripwire: bool) -> dict[str, torch.Tensor]:
+              tripwire: bool, attr_k: int = 0) -> dict[str, torch.Tensor]:
     """K rounds of decide (or ``decide_explain``) → ``apply_decision`` →
     ``round_end_metrics`` → optional tripwire, as a function of device
     tensors that reads nothing back. ``t`` holds the state's arrays, the
@@ -82,7 +86,8 @@ def scan_body(t: dict, dec_adj: torch.Tensor, metric_adj: torch.Tensor, edges, *
 
     Returns ``{"flat": f32[...]}``: the decision rows [K, 5], the hazard
     masks [K, N], the explain bundles [K, 6, k] (``explain_k`` > 0), the
-    metrics [K, 2], each rounds-leading and raveled in that order; with the
+    metrics [K, 2] (with ``attr_k`` > 0 [K, 2 + the attribution bundle's
+    size]), each rounds-leading and raveled in that order; with the
     tripwire, then the bits [K] and the final ``(trip round, trip mask)``.
     A latched round's decision is masked to the ``-1`` no-op with
     ``torch.where``, so the rest of the block is identity rounds."""
@@ -112,7 +117,7 @@ def scan_body(t: dict, dec_adj: torch.Tensor, metric_adj: torch.Tensor, edges, *
             target = torch.where(latched, -1, target)
             hazard = torch.where(latched, False, hazard)
         st, landed, _moved = apply_decision(st, victim, svc, target, hazard, pinned=pinned)
-        m = round_end_metrics(st, metric_graph, edges=edges)
+        m = round_end_metrics(st, metric_graph, top_k=attr_k, edges=edges)
         rows.append(torch.stack([x.float() for x in (most, victim, svc, target, landed)]))
         hazards.append(hazard.float())
         metrics.append(m)
@@ -131,14 +136,16 @@ def scan_body(t: dict, dec_adj: torch.Tensor, metric_adj: torch.Tensor, edges, *
 
 def scan_rounds(state, dec_graph, metric_graph, policy_id: int, threshold: float,
                 gumbel: torch.Tensor | None = None, edges=None, trip_cfg=None, *,
-                rounds: int, pinned: bool, explain_k: int, tripwire: bool = False
-                ) -> torch.Tensor:
+                rounds: int, pinned: bool, explain_k: int, tripwire: bool = False,
+                attr_k: int = 0) -> torch.Tensor:
     """One block of ``rounds`` rounds from ``state`` (:func:`scan_body`):
     the flat f32 bundle on the state's device. ``gumbel`` is the ``random``
     policy's ``[rounds, N]`` noise rows (None for the other policies),
     ``edges`` the metric graph's edge list (``objectives.metrics.
-    comm_edge_list``), ``trip_cfg`` the tripwire thresholds
-    (``telemetry.tripwire.trip_config_array``) when ``tripwire``.
+    comm_edge_list``; None with ``attr_k`` > 0, whose cost is the dense
+    form), ``trip_cfg`` the tripwire thresholds
+    (``telemetry.tripwire.trip_config_array``) when ``tripwire``, ``attr_k``
+    the attribution's top-k (0 = off).
 
     On the card: a replay of the graph captured for this key, one capture a
     key; a capture or replay that fails raises."""
@@ -155,7 +162,8 @@ def scan_rounds(state, dec_graph, metric_graph, policy_id: int, threshold: float
         inputs["trip_cfg"] = trip_cfg.to(dev)
     dec_adj, metric_adj = dec_graph.adj, metric_graph.adj
     static = dict(policy_id=int(policy_id), threshold=float(threshold), rounds=int(rounds),
-                  pinned=bool(pinned), explain_k=int(explain_k), tripwire=bool(tripwire))
+                  pinned=bool(pinned), explain_k=int(explain_k), tripwire=bool(tripwire),
+                  attr_k=int(attr_k))
 
     def make_body():
         return lambda t: scan_body(t, dec_adj, metric_adj, edges, **static)
@@ -317,6 +325,7 @@ class RoundView:
     hazard: np.ndarray            # bool[N]
     cost: float
     load_std: float
+    attr_flat: np.ndarray | None  # the flat attribution bundle (attr_k > 0)
     explain: np.ndarray | None    # f32[6, k] (explain_k > 0)
 
     @property
@@ -324,29 +333,34 @@ class RoundView:
         return self.landed >= 0
 
 
-def decode_block(flat: np.ndarray, *, rounds: int, num_nodes: int, explain_k: int
-                 ) -> list[RoundView]:
-    """Unpack one pulled block bundle into per-round views."""
+def decode_block(flat: np.ndarray, *, rounds: int, num_nodes: int, explain_k: int,
+                 attr_k: int = 0) -> list[RoundView]:
+    """Unpack one pulled block bundle into per-round views. The metrics'
+    width is the residual length a round (the attribution bundle's size
+    depends on top_k and the topology)."""
     flat = np.asarray(flat, dtype=np.float32)
     # decide_explain clamps its bundle to min(top_k, num_nodes) columns
     explain_k = min(explain_k, num_nodes)
     n_dec, n_hz, n_ex = rounds * DEC_COLS, rounds * num_nodes, rounds * 6 * explain_k
-    if flat.size != n_dec + n_hz + n_ex + rounds * METRIC_HEAD:
+    n_metrics = flat.size - n_dec - n_hz - n_ex
+    if (n_metrics < rounds * METRIC_HEAD or n_metrics % rounds
+            or (attr_k <= 0 and n_metrics != rounds * METRIC_HEAD)):
         raise ValueError(
             f"scan block bundle of {flat.size} values does not decode at rounds={rounds}, "
-            f"num_nodes={num_nodes}, explain_k={explain_k}"
+            f"num_nodes={num_nodes}, explain_k={explain_k}, attr_k={attr_k}"
         )
     dec = flat[:n_dec].reshape(rounds, DEC_COLS).astype(np.int64)
     hazard = flat[n_dec:n_dec + n_hz].reshape(rounds, num_nodes) > 0.5
     off = n_dec + n_hz
     explain = flat[off:off + n_ex].reshape(rounds, 6, explain_k) if explain_k > 0 else None
-    metrics = flat[off + n_ex:].reshape(rounds, METRIC_HEAD)
+    metrics = flat[off + n_ex:].reshape(rounds, n_metrics // rounds)
     return [
         RoundView(
             most=int(dec[r, DEC_MOST]), victim=int(dec[r, DEC_VICTIM]),
             service=int(dec[r, DEC_SERVICE]), target=int(dec[r, DEC_TARGET]),
             landed=int(dec[r, DEC_LANDED]), hazard=hazard[r],
             cost=float(metrics[r, METRIC_COST]), load_std=float(metrics[r, METRIC_LOAD_STD]),
+            attr_flat=metrics[r, METRIC_HEAD:] if attr_k > 0 else None,
             explain=explain[r] if explain is not None else None,
         )
         for r in range(rounds)

@@ -38,6 +38,7 @@ from kubernetes_rescheduling_tpu_torch.core.sparsegraph import (
 )
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
 from kubernetes_rescheduling_tpu_torch.core.workmodel import ServiceSpec, Workmodel
+from kubernetes_rescheduling_tpu_torch.telemetry.spans import span
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import communication_cost, load_std
 from kubernetes_rescheduling_tpu_torch.solver.compiled import CACHE, to_device
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
@@ -225,8 +226,9 @@ def replay(
         adj.copy_(with_weights(graph, step.weights).adj)
         graph = dataclasses.replace(graph, adj=adj)
         before = float(communication_cost(state, graph))
-        new_state, _ = global_assign(state, graph, generator, config,
-                                     plan=None if plans is None else plans[k])
+        with span("trace/step", t=step.t):
+            new_state, _ = global_assign(state, graph, generator, config,
+                                         plan=None if plans is None else plans[k])
         moves = int((state.pod_valid & (state.pod_node != new_state.pod_node)).sum())
         records.append(ReplayRecord(
             t=step.t,

@@ -13,6 +13,8 @@ package's commands for what the port computes.
     python -m kubernetes_rescheduling_tpu_torch reschedule --fleet 16 --scenario mubench --imbalance
     python -m kubernetes_rescheduling_tpu_torch reschedule --fleet 4 --scenario large --algorithm global
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm proactive --churn-profile diurnal-autoscale
+    python -m kubernetes_rescheduling_tpu_torch reschedule --serve 0 --metrics-out m.jsonl --trace-out t.json
+    python -m kubernetes_rescheduling_tpu_torch reschedule --serve 0 --place --imbalance
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --sparse
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --placement-unit pod
@@ -30,11 +32,14 @@ the in-block tripwires), and ``--churn-profile`` churns the cluster between
 rounds. ``reschedule --fleet N`` runs N tenants under the multiplexed fleet
 loop (``bench/fleet.py``). ``reschedule --algorithm proactive`` decides
 against the forecast plane's predicted next window (``--forecast-*`` set
-its ``ForecastConfig``). Best-of-N restarts and node sharding
-(``--restarts``, ``--tp`` above 1), the telemetry files (``--metrics-out``,
-``--trace-out``) and the serving front (``--place``, which needs the ops
-server's ``POST /place``) are refused, naming the ROADMAP item that brings
-them.
+its ``ForecastConfig``). ``--serve PORT`` runs the live ops plane beside the
+loop (``/metrics``, ``/healthz``, ``/events``, ``/tenants``, ``/slo``,
+``/query``, ``POST /profile``; the flight recorder and the SLO watchdog;
+``--place`` adds the serving engine behind ``POST /place``), and
+``--metrics-out`` / ``--trace-out`` write the metrics registry (JSONL and a
+``.prom`` exposition) and the host-side spans (Chrome trace JSON), each with
+a run manifest. Best-of-N restarts and node sharding (``--restarts``,
+``--tp`` above 1) are refused, naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import argparse
 import dataclasses
 import json
 import sys
+from pathlib import Path
 
 import torch
 
@@ -54,7 +60,14 @@ from kubernetes_rescheduling_tpu_torch.bench.trace import (
     load_trace,
     replay,
 )
-from kubernetes_rescheduling_tpu_torch.config import FleetConfig, ForecastConfig, RescheduleConfig
+from kubernetes_rescheduling_tpu_torch.config import (
+    POLICY_NAMES,
+    FleetConfig,
+    ForecastConfig,
+    RescheduleConfig,
+    ServingConfig,
+    SloConfig,
+)
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
 from kubernetes_rescheduling_tpu_torch.core.topology import state_from_workmodel
 from kubernetes_rescheduling_tpu_torch.core.workmodel import Workmodel
@@ -185,10 +198,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "the per-tenant labeled series (counted) and observe through the "
                         "device-side rollups")
     _add_forecast_flags(r)
-    r.add_argument("--place", action="store_true",
-                   help="serving mode: the request-grain placement service behind the ops "
-                        "server's POST /place (refused: the ops server is ROADMAP Queue 1 "
-                        "item 4.2; build serving.ServingEngine in code instead)")
+    _add_telemetry_flags(r)
+    _add_serve_flags(r)
     r.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
 
@@ -244,13 +255,161 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--restarts", type=int, default=1,
                    help="best-of-N solves per trace step (only 1 is ported)")
     t.add_argument("--seed", type=int, default=0)
-    t.add_argument("--metrics-out", default=None, metavar="PATH",
-                   help="the metrics registry as JSONL (not ported)")
-    t.add_argument("--trace-out", default=None, metavar="PATH",
-                   help="host-side spans as Chrome trace JSON (not ported)")
+    _add_telemetry_flags(t)
     t.add_argument("--device", default="cuda",
                    help="torch device to replay on (default: cuda)")
     return p
+
+
+def _add_telemetry_flags(parser: argparse.ArgumentParser) -> None:
+    """The observability outputs of a run command."""
+    parser.add_argument("--metrics-out", default=None, metavar="PATH",
+                        help="write the metrics registry as JSONL here, plus a Prometheus "
+                             "text exposition at <PATH stem>.prom and a run manifest at "
+                             "<PATH stem>.manifest.json")
+    parser.add_argument("--trace-out", default=None, metavar="PATH",
+                        help="write host-side spans as Chrome trace-event JSON here (load in "
+                             "ui.perfetto.dev); also writes the run manifest")
+
+
+def _add_serve_flags(parser: argparse.ArgumentParser) -> None:
+    """The live ops plane of ``reschedule``."""
+    parser.add_argument("--serve", type=int, default=None, metavar="PORT",
+                        help="serve the live ops plane on 127.0.0.1:PORT while the run "
+                             "executes: /metrics, /healthz (breaker + SLO + staleness; 503 "
+                             "when unhealthy), /events, /tenants, /slo, /query, POST /profile, "
+                             "POST /place (with --place). 0 picks an ephemeral port. Also "
+                             "arms the flight recorder (bundle on breaker-open/crash/SIGUSR1) "
+                             "and the SLO watchdog")
+    parser.add_argument("--bundle-dir", default=None, metavar="DIR",
+                        help="where flight-recorder bundles and profiler captures land "
+                             "(default: ./flight_recorder)")
+    parser.add_argument("--place", action="store_true",
+                        help="serving mode: the request-grain placement service behind POST "
+                             "/place on the ops server, scoring each request against the "
+                             "device-resident state with the run's greedy policy. Requires "
+                             "--serve and a greedy algorithm")
+    parser.add_argument("--place-max-batch", type=int, default=None, metavar="B",
+                        help="serving batcher: the static batch shape dispatches pad to "
+                             "(default 8)")
+    parser.add_argument("--place-queue-depth", type=int, default=None, metavar="N",
+                        help="serving admission queue bound; arrivals beyond it shed "
+                             "(default 64)")
+    parser.add_argument("--place-window-ms", type=float, default=None, metavar="MS",
+                        help="serving batch-formation window (default 2.0)")
+    parser.add_argument("--place-deadline-ms", type=float, default=None, metavar="MS",
+                        help="default per-request deadline; requests still queued past it "
+                             "complete 'timeout' (default 250; 0 = none)")
+    parser.add_argument("--slo-serving-p99-ms", type=float, default=0.0, metavar="MS",
+                        help="serving_p99 watchdog rule: rolling-window p99 request latency "
+                             "above this many ms flips /healthz to 503 and dumps a "
+                             "flight-recorder bundle (0 = off)")
+    parser.add_argument("--profile-rounds", type=int, default=0, metavar="N",
+                        help="arm one torch.profiler capture covering the next N committed "
+                             "rounds (a scan block rounds it up to the block); the artifact "
+                             "lands as profile_NNN/ under the bundle dir. POST /profile arms "
+                             "later captures (0 = none armed at start)")
+    d = SloConfig()
+    parser.add_argument("--slo", action="store_true",
+                        help="the SLO v2 plane: sample registry families into the bounded "
+                             "history store each round/batch, account per-SLO error budgets, "
+                             "page/ticket on multi-window burn rates (/slo and /query)")
+    parser.add_argument("--slo-objective", type=float, default=None, metavar="FRAC",
+                        help=f"success-fraction objective of every default SLO "
+                             f"(default {d.objective})")
+    parser.add_argument("--slo-latency-ms", type=float, default=None, metavar="MS",
+                        help="also a serving-latency SLO: requests over this end-to-end "
+                             "threshold burn budget (default 0 = off)")
+    parser.add_argument("--slo-budget-window", type=int, default=None, metavar="TICKS",
+                        help=f"error-budget window in ticks (default {d.budget_window})")
+    parser.add_argument("--slo-fast-window", type=int, default=None, metavar="TICKS",
+                        help=f"fast (page) burn window in ticks (default {d.fast_window})")
+    parser.add_argument("--slo-fast-burn", type=float, default=None, metavar="X",
+                        help=f"fast burn-rate threshold (default {d.fast_burn}; 0 = off)")
+    parser.add_argument("--slo-slow-window", type=int, default=None, metavar="TICKS",
+                        help=f"slow (ticket) burn window in ticks (default {d.slow_window})")
+    parser.add_argument("--slo-slow-burn", type=float, default=None, metavar="X",
+                        help=f"slow burn-rate threshold (default {d.slow_burn}; 0 = off)")
+    parser.add_argument("--slo-series-capacity", type=int, default=None, metavar="N",
+                        help=f"history ring points per series (default {d.series_capacity})")
+    parser.add_argument("--slo-max-series", type=int, default=None, metavar="N",
+                        help=f"history series budget (default {d.max_series})")
+
+
+def _slo_config(args) -> SloConfig:
+    """The SloConfig of the --slo* flags (unset flags keep the defaults)."""
+    overrides = {
+        k: v for k, v in (
+            ("objective", args.slo_objective),
+            ("latency_threshold_ms", args.slo_latency_ms),
+            ("budget_window", args.slo_budget_window),
+            ("fast_window", args.slo_fast_window),
+            ("fast_burn", args.slo_fast_burn),
+            ("slow_window", args.slo_slow_window),
+            ("slow_burn", args.slo_slow_burn),
+            ("series_capacity", args.slo_series_capacity),
+            ("max_series", args.slo_max_series),
+        ) if v is not None
+    }
+    return SloConfig(enabled=bool(args.slo), **overrides)
+
+
+def _serving_config(args) -> ServingConfig:
+    """The ServingConfig of the --place* flags (unset flags keep the
+    defaults)."""
+    overrides = {
+        k: v for k, v in (
+            ("max_batch", args.place_max_batch),
+            ("queue_depth", args.place_queue_depth),
+            ("batch_window_ms", args.place_window_ms),
+            ("deadline_ms", args.place_deadline_ms),
+        ) if v is not None
+    }
+    return ServingConfig(enabled=bool(args.place), **overrides)
+
+
+def _build_ops_plane(args, config: RescheduleConfig):
+    """The live ops plane of a run (``--serve``), started; ``(None, None)``
+    when off. Returns ``(ops, logger)``: the logger feeds ``/events`` and
+    the decision events."""
+    if args.serve is None:
+        return None, None
+    from kubernetes_rescheduling_tpu_torch.telemetry.server import OpsPlane
+    from kubernetes_rescheduling_tpu_torch.utils.logging import get_logger
+
+    logger = get_logger()
+    ops = OpsPlane.from_config(dataclasses.replace(config, serve_port=args.serve),
+                               logger=logger, bundle_dir=args.bundle_dir).start()
+    if ops.server is not None:
+        sys.stderr.write(f"ops plane: http://127.0.0.1:{ops.server.port}/metrics "
+                         "/healthz /events\n")
+    return ops, logger
+
+
+def write_telemetry_artifacts(args) -> dict | None:
+    """Flush the process registry and tracer to the paths the run asked
+    for (``--metrics-out``, ``--trace-out``) and write the run manifest
+    beside them; returns the manifest (None when neither was asked)."""
+    metrics_out = getattr(args, "metrics_out", None)
+    trace_out = getattr(args, "trace_out", None)
+    if not metrics_out and not trace_out:
+        return None
+    from kubernetes_rescheduling_tpu_torch.telemetry import (
+        get_registry,
+        get_tracer,
+        write_manifest,
+    )
+
+    if metrics_out:
+        registry = get_registry()
+        registry.dump_jsonl(metrics_out)
+        registry.write_exposition(Path(metrics_out).with_suffix(".prom"))
+    if trace_out:
+        get_tracer().export_chrome(trace_out)
+    anchor = Path(metrics_out if metrics_out else trace_out)
+    config = {k: v for k, v in vars(args).items() if k != "command" and not callable(v)}
+    config["command"] = args.command
+    return write_manifest(anchor.with_suffix(".manifest.json"), config)
 
 
 def _add_forecast_flags(parser: argparse.ArgumentParser) -> None:
@@ -286,13 +445,6 @@ def _refuse_unported(command: str, args) -> None:
     if getattr(args, "restarts", 1) > 1 or getattr(args, "tp", 1) > 1:
         raise SystemExit(f"{command}: --restarts and --tp above 1 need parallel/sharded.py, "
                          "not ported yet (ROADMAP Queue 1 item 5)")
-    if getattr(args, "metrics_out", None) or getattr(args, "trace_out", None):
-        raise SystemExit(f"{command}: --metrics-out and --trace-out need the telemetry "
-                         "plane (telemetry/spans.py), not ported yet (ROADMAP Queue 1 item 4.2)")
-    if getattr(args, "place", False):
-        raise SystemExit(f"{command}: --place serves placements through the ops server's "
-                         "POST /place (telemetry/server.py), not ported yet (ROADMAP Queue 1 "
-                         "item 4.2); serving.ServingEngine runs without it in code")
 
 
 def _parse_tenant_list(raw: str) -> tuple[int, ...]:
@@ -306,6 +458,15 @@ def _parse_tenant_list(raw: str) -> tuple[int, ...]:
 def cmd_reschedule(args) -> dict:
     _refuse_unported("reschedule", args)
     algo = _norm_algo(args.algorithm)
+    if args.place and args.fleet:
+        raise SystemExit("--place is a solo-loop plane: serving scores against ONE backend's "
+                         "snapshot (per-tenant serving is future work)")
+    if args.place and args.serve is None:
+        raise SystemExit("--place requires --serve PORT: the ops plane's HTTP server is the "
+                         "serving front (POST /place)")
+    if args.place and algo not in POLICY_NAMES:
+        raise SystemExit("--place requires a greedy algorithm (the serving plane scores "
+                         f"requests with the greedy machinery): got {algo!r}")
     if args.fleet and args.backend != "sim":
         raise SystemExit("--fleet requires the sim backend (one live cluster is one tenant; "
                          "fleet mode multiplexes hermetic tenants)")
@@ -341,6 +502,10 @@ def cmd_reschedule(args) -> dict:
                           chaos_tenants=_parse_tenant_list(args.fleet_chaos_tenants)),
         tenant_label_budget=args.tenant_label_budget,
         forecast=_forecast_config(args),
+        serving=_serving_config(args),
+        slo=_slo_config(args),
+        slo_serving_p99_ms=args.slo_serving_p99_ms,
+        profile_rounds=args.profile_rounds,
     )
     try:
         cfg.validate()
@@ -352,7 +517,24 @@ def cmd_reschedule(args) -> dict:
                            workmodel_path=args.workmodel)
     if args.imbalance:
         backend.inject_imbalance(backend.node_names[0])
-    result = run_controller(backend, cfg, device=args.device)
+    ops, logger = _build_ops_plane(args, cfg)
+    engine = None
+    try:
+        if args.place:
+            from kubernetes_rescheduling_tpu_torch.serving import ServingEngine
+
+            engine = ServingEngine(backend, config=cfg.serving, policy=algo,
+                                   threshold=cfg.hazard_threshold_pct, seed=cfg.seed,
+                                   top_k=cfg.explain_top_k, ops=ops, device=args.device).start()
+            ops.bind_serving(engine)
+            sys.stderr.write(f"serving: POST http://127.0.0.1:{ops.server.port}/place "
+                             '{"service": <name>}\n')
+        result = run_controller(backend, cfg, device=args.device, logger=logger, ops=ops)
+    finally:
+        if engine is not None:
+            engine.stop()
+        if ops is not None:
+            ops.close()
     return {
         "algorithm": algo,
         "rounds": [rec.as_dict() for rec in result.rounds],
@@ -376,7 +558,12 @@ def _run_fleet(args, cfg: RescheduleConfig) -> dict:
                        workmodel_path=args.workmodel, device=args.device)
     if args.imbalance:
         fleet.inject_imbalance()
-    result = run_fleet_controller(fleet, cfg, device=args.device)
+    ops, logger = _build_ops_plane(args, cfg)
+    try:
+        result = run_fleet_controller(fleet, cfg, device=args.device, logger=logger, ops=ops)
+    finally:
+        if ops is not None:
+            ops.close()
     return {
         "algorithm": cfg.algorithm,
         "fleet": {"tenants": args.fleet, "plane": args.fleet_plane},
@@ -488,11 +675,19 @@ def cmd_solve(args) -> dict:
     return out
 
 
-def main(argv: list[str] | None = None) -> int:
+def run_command(argv: list[str] | None = None) -> dict:
+    """Parse ``argv``, run the command and write its telemetry artifacts;
+    returns the command's JSON object (what :func:`main` prints)."""
     args = build_parser().parse_args(argv)
     out = {"reschedule": cmd_reschedule, "solve": cmd_solve,
            "trace": cmd_trace}[args.command](args)
-    json.dump(out, sys.stdout, indent=2)
+    write_telemetry_artifacts(args)
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    out = run_command(argv)
+    json.dump(out, sys.stdout, indent=2, default=float)
     print()
     return 0
 

@@ -6,11 +6,12 @@ Fields of the JAX package's nested blocks are flat here, named after
 their block (``reconcile_admission`` is ``reconcile.admission``,
 ``pipeline_depth`` is ``controller.depth``, ``elastic_seed`` is
 ``elastic.seed``, ``chaos`` and ``chaos_seed`` are ``chaos.profile`` and
-``chaos.seed``, the tripwire fields are ``obs.*``), with the JAX
-package's defaults, and :meth:`RescheduleConfig.validate` refuses what the
-JAX package refuses, for the same reasons. Fleet mode, the forecast plane
-and the serving plane keep their blocks (:class:`FleetConfig`,
-:class:`ForecastConfig`, :class:`ServingConfig`). The config also carries
+``chaos.seed``, the tripwire, explanation, attribution and ops-plane
+fields are ``obs.*`` under the same names), with the JAX package's
+defaults, and :meth:`RescheduleConfig.validate` refuses what the JAX
+package refuses, for the same reasons. Fleet mode, the forecast plane, the
+serving plane and SLO v2 keep their blocks (:class:`FleetConfig`,
+:class:`ForecastConfig`, :class:`ServingConfig`, :class:`SloConfig`). The config also carries
 planes this port does not have yet: each keeps a field whose default is
 off, and ``validate`` refuses it, naming the ROADMAP item that brings it —
 a run never quietly does something else.
@@ -178,6 +179,80 @@ class FleetConfig:
 
 
 @dataclass(frozen=True)
+class SloConfig:
+    """SLO v2 block (the JAX package's ``[slo]``): error budgets and multi-window
+    burn-rate alerting over the in-process history plane
+    (``telemetry/timeseries.py`` + ``telemetry/slo.py``).
+
+    ``enabled`` turns the plane on (off by default: disabled runs must
+    stay bit-identical to pre-SLO output). ``objective`` is the success
+    fraction every default SLO targets (0.99 = 1% error budget);
+    ``latency_threshold_ms`` additionally compiles a serving-latency SLO
+    over the ``serving_request_seconds{stage="total"}`` histogram (0
+    disables it). All windows are in *ticks* (rounds/batches — the sim
+    clock is not wall time): ``budget_window`` is the long accounting
+    window behind ``slo_budget_remaining_frac``; the
+    ``fast_window``/``fast_burn`` pair is the page
+    (``slo_fast_burn``, the 5m-of-1h analogue with a 14.4x default
+    threshold), ``slow_window``/``slow_burn`` the ticket
+    (``slo_slow_burn``, 6x); each long window carries an implicit 1/12
+    confirm window, and a burn of 0 disables that rule.
+    ``series_capacity``/``max_series`` bound the history plane: points
+    per ring and the hard global series budget (LRU-evicted, counted
+    ``timeseries_evictions_total``)."""
+
+    enabled: bool = False
+    objective: float = 0.99
+    latency_threshold_ms: float = 0.0
+    budget_window: int = 512
+    fast_window: int = 48
+    fast_burn: float = 14.4
+    slow_window: int = 288
+    slow_burn: float = 6.0
+    series_capacity: int = 512
+    max_series: int = 256
+
+    def validate(self) -> "SloConfig":
+        if not 0.0 < self.objective < 1.0:
+            raise ValueError(
+                f"slo objective must be in (0, 1), got {self.objective}"
+            )
+        if self.latency_threshold_ms < 0:
+            raise ValueError(
+                f"slo latency_threshold_ms must be >= 0 (0 disables the "
+                f"latency SLO), got {self.latency_threshold_ms}"
+            )
+        for name in ("budget_window", "fast_window", "slow_window"):
+            if getattr(self, name) < 2:
+                raise ValueError(
+                    f"slo {name} must be >= 2, got {getattr(self, name)}"
+                )
+        if self.fast_window >= self.slow_window:
+            raise ValueError(
+                f"slo fast_window ({self.fast_window}) must be shorter "
+                f"than slow_window ({self.slow_window})"
+            )
+        if self.budget_window < self.slow_window:
+            raise ValueError(
+                f"slo budget_window ({self.budget_window}) must cover "
+                f"slow_window ({self.slow_window})"
+            )
+        if self.fast_burn < 0 or self.slow_burn < 0:
+            raise ValueError(
+                "slo burn thresholds must be >= 0 (0 disables the rule)"
+            )
+        if self.series_capacity < 2:
+            raise ValueError(
+                f"slo series_capacity must be >= 2, got {self.series_capacity}"
+            )
+        if self.max_series < 1:
+            raise ValueError(
+                f"slo max_series must be >= 1, got {self.max_series}"
+            )
+        return self
+
+
+@dataclass(frozen=True)
 class RescheduleConfig:
     """One config object for a rescheduling run."""
 
@@ -228,9 +303,42 @@ class RescheduleConfig:
     max_quarantine_frac: float = 0.5
 
     # decision explanations (obs.explain, obs.explain_top_k): recorded when
-    # on AND a logger is attached to the run
+    # on AND a logger or the ops plane is attached to the run
     explain: bool = True
     explain_top_k: int = 3
+    # cost attribution (obs.attribution*): the per-round edge / node-pair
+    # decomposition of the cost and the move provenance, recorded when on
+    # AND a logger or the ops plane is attached; the drift rule's top-1
+    # edge share of total cost (0 = rule off)
+    attribution: bool = True
+    attribution_top_k: int = 8
+    attribution_drift_frac: float = 0.0
+
+    # the live ops plane (obs.*, telemetry/server.py): the HTTP endpoint
+    # (None = no server, 0 = an ephemeral port), the flight recorder's ring
+    # and bundle directory, the /healthz staleness rule (0 = off), the SLO
+    # watchdog's window and rules (a zero threshold disables its rule), and
+    # the bounded torch.profiler captures of POST /profile
+    serve_port: int | None = None
+    flight_recorder_rounds: int = 16
+    bundle_dir: str = "flight_recorder"
+    max_round_age_s: float = 0.0
+    slo_window: int = 20
+    slo_min_samples: int = 5
+    slo_latency_p95_s: float = 0.0
+    slo_cost_regression_frac: float = 0.0
+    slo_max_retraces: int = 1
+    slo_forecast_min_skill: float = 0.0
+    slo_pipeline_min_overlap: float = 0.0
+    slo_reconcile_drift_pods: int = 0
+    slo_fleet_tail_frac: float = 0.0
+    slo_scan_tripwire: bool = True
+    slo_serving_p99_ms: float = 0.0
+    profile_rounds: int = 0
+    profile_max_captures: int = 4
+    profile_max_mb: float = 256.0
+    # SLO v2 (slo.*): error budgets and burn-rate alerting, off by default
+    slo: SloConfig = field(default_factory=SloConfig)
 
     # the schedules (controller.*): the software-pipelined loop (depth 2
     # only), or K steady-state rounds a scan block (0 = off); exclusive
@@ -365,10 +473,58 @@ class RescheduleConfig:
             )
         if self.explain_top_k < 1:
             raise ValueError("explain_top_k must be >= 1")
+        self._validate_obs()
+        self.slo.validate()
         self._validate_schedules()
         self._validate_elastic()
         self._validate_fleet()
         return self
+
+    def _validate_obs(self) -> None:
+        """The JAX package's ``ObsConfig.validate`` over the fields the port
+        carries."""
+        if self.serve_port is not None and not (0 <= self.serve_port <= 65535):
+            raise ValueError(f"serve_port must be in [0, 65535], got {self.serve_port}")
+        if self.attribution_top_k < 1:
+            raise ValueError("attribution_top_k must be >= 1")
+        if not (0.0 <= self.attribution_drift_frac <= 1.0):
+            raise ValueError("attribution_drift_frac must be in [0, 1]")
+        if self.slo_fleet_tail_frac < 0:
+            raise ValueError(
+                "slo_fleet_tail_frac must be >= 0 (0 disables the fleet_tail_cost rule)")
+        if self.flight_recorder_rounds < 1:
+            raise ValueError("flight_recorder_rounds must be >= 1")
+        if self.max_round_age_s < 0:
+            raise ValueError("max_round_age_s must be >= 0")
+        if self.slo_window < 2:
+            raise ValueError("slo_window must be >= 2")
+        if self.slo_min_samples < 1:
+            raise ValueError("slo_min_samples must be >= 1")
+        if self.slo_latency_p95_s < 0 or self.slo_cost_regression_frac < 0:
+            raise ValueError("SLO thresholds must be >= 0")
+        if self.slo_max_retraces < 0:
+            raise ValueError("slo_max_retraces must be >= 0")
+        if self.slo_forecast_min_skill > 1.0:
+            raise ValueError(
+                "slo_forecast_min_skill must be <= 1.0 (skill is bounded above by 1, so a "
+                "larger threshold would always violate)")
+        if not (0.0 <= self.slo_pipeline_min_overlap <= 1.0):
+            raise ValueError(
+                "slo_pipeline_min_overlap must be in [0, 1] (overlap_ratio is a fraction of "
+                "background boundary time hidden)")
+        if self.slo_reconcile_drift_pods < 0:
+            raise ValueError(
+                "slo_reconcile_drift_pods must be >= 0 (0 disables the reconcile_divergence "
+                "rule)")
+        if self.slo_serving_p99_ms < 0:
+            raise ValueError(
+                "slo_serving_p99_ms must be >= 0 (0 disables the serving_p99 rule)")
+        if self.profile_rounds < 0:
+            raise ValueError("profile_rounds must be >= 0 (0 = no capture armed at run start)")
+        if self.profile_max_captures < 1:
+            raise ValueError("profile_max_captures must be >= 1")
+        if self.profile_max_mb <= 0:
+            raise ValueError("profile_max_mb must be > 0 (the per-artifact size cap)")
 
     def _validate_fleet(self) -> None:
         if self.tenant_label_budget < 0:

@@ -6,8 +6,9 @@ answers "where should THIS pod go, now". :func:`serving.kernel.place_one`
 scores one request against the device-resident state with the greedy
 machinery; :class:`serving.engine.ServingEngine` coalesces concurrent
 arrivals into ONE :func:`serving.kernel.place_batch` (one captured graph on
-the card), each row equal to the solo decision. The HTTP front
-(``POST /place`` on the ops server) waits for ROADMAP Queue 1 item 4.2.
+the card), each row equal to the solo decision. The HTTP front is
+``POST /place`` on the ops server (``telemetry/server.py``:
+``OpsPlane.bind_serving``).
 """
 
 from kubernetes_rescheduling_tpu_torch.serving.engine import (

@@ -28,10 +28,14 @@ Host-side request plumbing around :mod:`serving.kernel`:
   the admission guard (``bench/admission.py``).
 
 The rolling summary (:meth:`ServingEngine.summary`) and the bounded
-recent-request ring (:meth:`ServingEngine.ring`) are kept as in the JAX
-package; the ops plane they feed there (``ops=``: ``/healthz``, the
-``serving_p99`` watchdog rule, flight-recorder bundles, ``POST /place``)
-waits for the ops server (ROADMAP Queue 1 item 4.2).
+recent-request ring (:meth:`ServingEngine.ring`) feed the ops plane
+(``ops=``, a ``telemetry.server.OpsPlane``) after every dispatched batch
+and admission-time shed: the ``/healthz`` serving stanza, the
+``serving_p99`` watchdog rule and its flight-recorder bundle. The plane's
+``bind_serving`` puts the engine behind ``POST /place``: an HTTP handler
+thread only enqueues, the batcher thread owns the device work. Lock order:
+``_feed_lock`` → ``_cond`` / ``_feed_lock`` → the plane's lock; nothing
+feeds the plane while holding ``_cond``.
 """
 
 from __future__ import annotations
@@ -90,6 +94,20 @@ class PlaceResult:
     timings_ms: dict[str, float] = field(default_factory=dict)
     explain: dict[str, Any] | None = None
 
+    def as_dict(self) -> dict[str, Any]:
+        """The JSON body ``POST /place`` answers with."""
+        return {
+            "request_id": self.request_id,
+            "service": self.service,
+            "outcome": self.outcome,
+            "node": self.node,
+            "node_index": self.node_index,
+            **({"shed_reason": self.shed_reason} if self.shed_reason is not None else {}),
+            "batch_size": self.batch_size,
+            "timings_ms": dict(self.timings_ms),
+            **({"explain": self.explain} if self.explain is not None else {}),
+        }
+
 
 class _Request:
     """A queue item; ``done`` releases the submitting thread."""
@@ -144,11 +162,7 @@ class ServingEngine:
             raise ValueError(
                 f"unknown serving policy {policy!r}; expected one of {sorted(POLICY_IDS)}"
             )
-        if ops is not None:
-            raise ValueError(
-                "serving ops hooks (/healthz, the serving_p99 rule, POST /place) need the ops "
-                "server (telemetry/server.py), not ported yet (ROADMAP Queue 1 item 4.2)"
-            )
+        self.ops = ops
         self.device = resolve_device(device)
         self.policy = policy
         self.registry = registry
@@ -189,6 +203,10 @@ class ServingEngine:
             maxlen=self.config.ring)
         self._started_mono = time.perf_counter()
         self._completed = 0
+        # makes {compute summary → publish to ops} atomic: the plane's
+        # state is last-write-wins, so without it a request thread's stale
+        # summary could overwrite the batcher's fresher one
+        self._feed_lock = threading.Lock()
 
     # ---- snapshot admission ----
 
@@ -301,6 +319,9 @@ class ServingEngine:
                 self._set_inflight(self._inflight + 1)
                 self._cond.notify()
         if shed is not None:
+            # feed the plane only AFTER _cond is released: _feed_ops
+            # re-enters _cond through summary()/ring()
+            self._feed_ops()
             return shed
         req.done.wait()
         assert req.result is not None
@@ -397,6 +418,7 @@ class ServingEngine:
         for i, req in enumerate(live):
             self._complete_placed(req, int(target_h[i]), int(most_h[i]), bundle_h[i],
                                   batch_size=len(live), t_closed=t_closed, t_dispatch=(t0, t1))
+        self._feed_ops()
 
     def _complete_timeout(self, req: _Request, now: float) -> None:
         timings = {"queue_wait": ((req.t_dequeue or now) - req.t_submit) * 1e3,
@@ -483,6 +505,17 @@ class ServingEngine:
         }
 
     def ring(self) -> list[dict[str, Any]]:
-        """The bounded recent-request ring (newest last)."""
+        """The bounded recent-request ring (newest last) — the payload
+        breaker-open and serving_p99 flight-recorder bundles ship."""
         with self._cond:
             return [dict(e) for e in self._ring]
+
+    def _feed_ops(self) -> None:
+        """Publish the summary and ring to the ops plane. Never called while
+        holding ``_cond`` (summary()/ring() take it briefly, and the plane
+        takes its own lock inside): ``_feed_lock`` → ``_cond`` and
+        ``_feed_lock`` → the plane's lock are the only orders."""
+        if self.ops is None:
+            return
+        with self._feed_lock:
+            self.ops.observe_serving(self.summary(), requests=self.ring())

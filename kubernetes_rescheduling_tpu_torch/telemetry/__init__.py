@@ -1,16 +1,104 @@
-"""Metrics registry and transfer accounting of the control loop."""
+"""Telemetry of the port — the counterpart of
+``kubernetes_rescheduling_tpu.telemetry``:
 
+- :mod:`registry` — labeled ``Counter``/``Gauge``/``Histogram`` series with
+  Prometheus text exposition and a JSONL sink;
+- :mod:`spans` — nested host-side spans exported as Chrome trace-event
+  JSON, with ``torch.profiler`` folded in (``span(..., profile_dir=...)``);
+- :mod:`accounting` — counted device→host transfers (``pull``) and the
+  boundary's call timings;
+- :mod:`manifest` — per-run provenance (config, torch, CUDA, the card, git
+  rev);
+- :mod:`explain` and :mod:`attribution` — decision explanations, and the
+  per-edge / node-pair decomposition of the cost with its move provenance;
+- :mod:`fleet_rollup` — device-side tenant rollups and the tenant-label
+  budget;
+- :mod:`flight_recorder`, :mod:`watchdog`, :mod:`timeseries`, :mod:`slo`,
+  :mod:`mesh` (the profiler gate) and :mod:`server` — the live ops plane:
+  ``/metrics``, ``/healthz``, ``/events``, ``/tenants``, ``POST /place``,
+  ``/slo``, ``/query``, ``POST /profile``, and the :class:`OpsPlane` the
+  loops consume.
+
+The compiled-cost book and the perf ledger (``costmodel.py``,
+``perf_ledger.py``, ``report.py``) are ROADMAP Queue 1 item 4.4; the mesh
+plane (``MeshPlane``, ``DeviceSeries``) is item 5.
+"""
+
+from kubernetes_rescheduling_tpu_torch.telemetry.registry import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    get_registry,
+    set_registry,
+)
+from kubernetes_rescheduling_tpu_torch.telemetry.spans import (
+    Tracer,
+    get_tracer,
+    set_tracer,
+    span,
+    trace_to,
+)
 from kubernetes_rescheduling_tpu_torch.telemetry.accounting import (
     count_reconcile,
     pull,
     timed_call,
 )
-from kubernetes_rescheduling_tpu_torch.telemetry.registry import MetricsRegistry, get_registry
+from kubernetes_rescheduling_tpu_torch.telemetry.manifest import (
+    run_manifest,
+    write_manifest,
+)
+from kubernetes_rescheduling_tpu_torch.telemetry.explain import (
+    explanation_consistent,
+)
+from kubernetes_rescheduling_tpu_torch.telemetry.attribution import (
+    AttributionBook,
+    PlacementTimeline,
+    attribution_consistent,
+    get_attribution_book,
+)
+from kubernetes_rescheduling_tpu_torch.telemetry.fleet_rollup import (
+    TenantSeries,
+    TenantSummaryRing,
+)
+from kubernetes_rescheduling_tpu_torch.telemetry.mesh import ProfilerGate
+from kubernetes_rescheduling_tpu_torch.telemetry.flight_recorder import FlightRecorder
+from kubernetes_rescheduling_tpu_torch.telemetry.server import (
+    HealthState,
+    OpsPlane,
+    OpsServer,
+)
+from kubernetes_rescheduling_tpu_torch.telemetry.watchdog import SLORules, Watchdog
 
 __all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
     "MetricsRegistry",
-    "count_reconcile",
     "get_registry",
+    "set_registry",
+    "Tracer",
+    "get_tracer",
+    "set_tracer",
+    "span",
+    "trace_to",
+    "count_reconcile",
     "pull",
     "timed_call",
+    "run_manifest",
+    "write_manifest",
+    "ProfilerGate",
+    "TenantSeries",
+    "TenantSummaryRing",
+    "explanation_consistent",
+    "AttributionBook",
+    "PlacementTimeline",
+    "attribution_consistent",
+    "get_attribution_book",
+    "FlightRecorder",
+    "HealthState",
+    "OpsPlane",
+    "OpsServer",
+    "SLORules",
+    "Watchdog",
 ]

@@ -21,9 +21,8 @@ rollups and the cardinality budget.
   ``tenant_series_suppressed_total{family}``.
 - **Bounded views** — :func:`fleet_health_block` (per-tenant rows at budget,
   breaker counts and the worst-k rows over it) and
-  :class:`TenantSummaryRing` (the bounded per-tenant summary store; the
-  ``/tenants`` endpoints that serve it wait with the ops plane, ROADMAP
-  Queue 1 item 4.2).
+  :class:`TenantSummaryRing` (the bounded per-tenant summary store behind
+  the ops server's ``/tenants`` endpoints).
 
 The numpy twin :func:`rollup_numpy` re-derives the device rollup on the
 host (same nearest-rank positions, same tie order).

@@ -54,6 +54,7 @@ from kubernetes_rescheduling_tpu_torch.config import CHAOS_PROFILES
 from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig as TConfig
 from kubernetes_rescheduling_tpu_torch.core import workmodel as twm
 from kubernetes_rescheduling_tpu_torch.telemetry import MetricsRegistry as TRegistry
+from kubernetes_rescheduling_tpu_torch.telemetry import OpsPlane as TOpsPlane
 from kubernetes_rescheduling_tpu_torch.utils.logging import StructuredLogger as TLogger
 from kubernetes_rescheduling_tpu_torch.utils.retry import RetryPolicy as TRetry
 
@@ -491,12 +492,14 @@ def test_controller_config_chaos_wraps_backend():
     assert_same_records(t, j)
 
 
-def test_chaos_soak_acceptance():
+def test_chaos_soak_acceptance(tmp_path):
     """tests/test_resilience.py:698 on the port: 35 rounds under the seeded
     ``soak`` profile never raise, the breaker opens and closes, every round
     is accounted, the fault counts equal the registry's, the skip counts
     agree between the result, the registry and the event log — and the
-    report equals the JAX package's on the same seeds."""
+    report equals the JAX package's on the same seeds. An ops plane
+    attached to the same soak changes none of it, counts every executed
+    and skipped round, and dumps a bundle at each breaker opening."""
     kw = dict(profile="soak", rounds=35, seed=1, chaos_seed=0, max_consecutive_failures=3,
               breaker_cooldown_rounds=2, failure_budget_per_round=2)
     reg, logger = TRegistry(), TLogger(name="soak")
@@ -515,8 +518,14 @@ def test_chaos_soak_acceptance():
     assert events.count("round") == report["records"]
     assert "breaker" in events
     assert report == j_soak(retry=JRetry(max_attempts=1), registry=JRegistry(), **kw)
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 4\.2\b"):
-        t_soak(ops=object(), device="cpu")
+    reg2 = TRegistry()
+    plane = TOpsPlane.from_config(TConfig(), registry=reg2, bundle_dir=str(tmp_path))
+    assert t_soak(retry=TRetry(max_attempts=1), registry=reg2, ops=plane, device="cpu",
+                  **kw) == report
+    assert plane.health.rounds == report["records"]
+    assert plane.health.skipped_rounds == report["skipped_rounds"]
+    opens = [p for p in plane.recorder.dumps if "breaker_open" in p.name]
+    assert len(opens) == report["breaker_opens"]
 
 
 def test_cli_reschedule_chaos(capsys):

@@ -450,7 +450,8 @@ def test_config_refuses_planes_it_does_not_carry(kw, match):
 
 
 def test_cli_refuses_what_the_port_does_not_carry():
-    with pytest.raises(SystemExit, match=r"--place.*ROADMAP Queue 1 item 4\b"):
+    # --place needs the ops server in front of it, as in the JAX command
+    with pytest.raises(SystemExit, match=r"--place requires --serve"):
         t_cli.main(["reschedule", "--place", "--device", "cpu"])
     with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 4"):
         t_cli.main(["reschedule", "--backend", "k8s", "--device", "cpu"])

@@ -572,3 +572,36 @@ def test_acceptance_proactive_vs_reactive_diurnal(monkeypatch):
     expls = [e for r in records for e in r.explanations]
     assert expls and all(explanation_consistent(e) for e in expls)
     assert any(r.forecast["mode"] == "predictive" for r in records)
+
+
+def test_watchdog_forecast_skill_rule():
+    """tests/test_forecast.py:451 on the port's watchdog."""
+    from types import SimpleNamespace
+
+    from kubernetes_rescheduling_tpu_torch.telemetry import MetricsRegistry as TReg
+    from kubernetes_rescheduling_tpu_torch.telemetry.watchdog import (
+        RULE_FORECAST,
+        SLORules,
+        Watchdog,
+    )
+
+    def rec(forecast=None):
+        return SimpleNamespace(decision_latency_s=0.01, communication_cost=1.0,
+                               forecast=forecast)
+
+    reg = TReg()
+    wd = Watchdog(SLORules(max_retraces=0), registry=reg)
+    assert wd.observe_round(rec()) == []
+    wd.observe_round(rec({"trained": False, "skill": -1.0}))
+    assert RULE_FORECAST not in wd.active
+    raised = wd.observe_round(rec({"trained": True, "skill": -0.4, "mode": "degraded",
+                                   "mae_model": 0.2, "mae_persistence": 0.1}))
+    assert [r["rule"] for r in raised] == [RULE_FORECAST]
+    assert not wd.healthy
+    wd.observe_round(rec({"trained": True, "skill": 0.2, "mode": "predictive"}))
+    assert RULE_FORECAST not in wd.active and wd.healthy
+    wd.observe_round(rec({"trained": True, "skill": -0.4, "mode": "degraded"}))
+    assert RULE_FORECAST in wd.active
+    wd.rebase()
+    assert wd.check() == [] and RULE_FORECAST not in wd.active
+    assert reg.value("slo_violations_total", rule=RULE_FORECAST) == 2

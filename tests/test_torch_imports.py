@@ -81,6 +81,20 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import kubernetes_rescheduling_tpu_torch.serving.engine\n"
         "import kubernetes_rescheduling_tpu_torch.bench.loadgen\n"
         "import kubernetes_rescheduling_tpu_torch.bench.serve\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.registry\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.spans\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.attribution\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.manifest\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.flight_recorder\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.timeseries\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.watchdog\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.slo\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.mesh\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.server\n"
+        "import kubernetes_rescheduling_tpu_torch.objectives.metrics\n"
+        "from kubernetes_rescheduling_tpu_torch.telemetry import OpsPlane, run_manifest\n"
+        "OpsPlane.from_config(kubernetes_rescheduling_tpu_torch.config.RescheduleConfig())\n"
+        "run_manifest()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -132,6 +146,7 @@ def _entry_points():
     from kubernetes_rescheduling_tpu_torch.forecast import FleetForecastPlane, ForecastPlane
     from kubernetes_rescheduling_tpu_torch.serving import ServingEngine
     from kubernetes_rescheduling_tpu_torch.solver import run_rounds
+    from kubernetes_rescheduling_tpu_torch.telemetry import OpsPlane
     from kubernetes_rescheduling_tpu_torch.utils.checkpoint import load_state
 
     def cpu_mubench():
@@ -211,6 +226,10 @@ def _entry_points():
         "cli reschedule --fleet --pipeline": lambda: cli.main(
             ["reschedule", "--fleet", "2", "--pipeline", "--fleet-chaos-tenants", "1",
              "--chaos-profile", "soak"]),
+        "cli reschedule --serve --place": lambda: cli.main(
+            ["reschedule", "--serve", "0", "--place", "--metrics-out", "unused.jsonl"]),
+        "run_chaos_soak ops": lambda: run_chaos_soak(rounds=1, ops=OpsPlane.from_config(
+            RescheduleConfig(), bundle_dir=None)),
     }
 
 

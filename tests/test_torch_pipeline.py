@@ -241,3 +241,63 @@ def test_cli_pipeline_smoke(capsys):
     assert all(r["pipeline"]["depth"] == 2 for r in out["rounds"])
     with pytest.raises(SystemExit, match="depth must be 2"):
         t_cli.main(["reschedule", "--pipeline", "--pipeline-depth", "3", "--device", "cpu"])
+
+
+def test_watchdog_pipeline_overlap_rule():
+    """tests/test_pipeline.py:435 on the port's watchdog: sequential rounds
+    never feed the rule, a collapsed rolling mean enters it once, a healthy
+    window recovers it."""
+    from types import SimpleNamespace
+
+    from kubernetes_rescheduling_tpu_torch.telemetry.watchdog import (
+        RULE_PIPELINE,
+        SLORules,
+        Watchdog,
+    )
+
+    reg = TRegistry()
+    wd = Watchdog(SLORules(window=4, min_samples=3, pipeline_min_overlap=0.5), registry=reg)
+
+    def rec(ratio):
+        return SimpleNamespace(decision_latency_s=0.001, communication_cost=1.0,
+                               pipeline={"overlap_ratio": ratio} if ratio is not None else None)
+
+    for _ in range(5):
+        wd.observe_round(rec(None))
+    assert RULE_PIPELINE not in wd.active
+    for _ in range(3):
+        wd.observe_round(rec(0.9))
+    assert RULE_PIPELINE not in wd.active
+    for _ in range(4):
+        wd.observe_round(rec(0.0))
+    assert RULE_PIPELINE in wd.active
+    assert reg.value("slo_violations_total", rule=RULE_PIPELINE) == 1
+    for _ in range(4):
+        wd.observe_round(rec(0.95))
+    assert RULE_PIPELINE not in wd.active
+
+
+def test_pipelined_loop_feeds_the_ops_plane(tmp_path):
+    """A pipelined run with the ops plane: every round observed once (the
+    /healthz round count, the flight recorder's ring with a digest each),
+    each record carrying its pipeline block, and the records equal to the
+    sequential run with the same plane."""
+    from kubernetes_rescheduling_tpu_torch.telemetry.server import OpsPlane
+
+    def run(pipeline):
+        backend = sim_pair(5, seed=0)[1]
+        plane = OpsPlane.from_config(TConfig(), registry=TRegistry(),
+                                     bundle_dir=str(tmp_path / str(pipeline)))
+        res = t_run(backend, TConfig(algorithm="communication", max_rounds=6,
+                                     sleep_after_action_s=0.0, pipeline=pipeline),
+                    device="cpu", registry=TRegistry(), ops=plane)
+        return res, plane
+
+    seq, seq_plane = run(False)
+    pip, pip_plane = run(True)
+    assert [strip(r) for r in pip.rounds] == [strip(r) for r in seq.rounds]
+    assert pip_plane.health.rounds == seq_plane.health.rounds == 6
+    ring = pip_plane.recorder.rounds
+    assert [e["round"] for e in ring] == list(range(1, 7)) and all(e["digest"] for e in ring)
+    assert [e["digest"] for e in ring] == [e["digest"] for e in seq_plane.recorder.rounds]
+    assert all(e["record"]["pipeline"] for e in ring)

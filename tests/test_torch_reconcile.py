@@ -716,3 +716,48 @@ def test_reconcile_case_matches_jax(case, tmp_path):
         out = case(P, reg, **kw)
         seen.append((out, P.counters(reg)))
     assert seen[1] == seen[0]
+
+
+def _watchdog_record(reconcile):
+    return TRecord(round=1, moved=False, most_hazard=None, service=None, target=None,
+                   communication_cost=1.0, load_std=0.0, reconcile=reconcile)
+
+
+def test_watchdog_reconcile_divergence_rule():
+    """tests/test_reconcile.py:1199 on the port's watchdog and records."""
+    from kubernetes_rescheduling_tpu_torch.telemetry.watchdog import (
+        RULE_RECONCILE,
+        SLORules,
+        Watchdog,
+    )
+
+    reg = TRegistry()
+    wd = Watchdog(SLORules(reconcile_max_drift_pods=1), registry=reg)
+    assert wd.observe_round(_watchdog_record(None)) == []
+    raised = wd.observe_round(_watchdog_record({"drift_pods": 2}))
+    assert [v["rule"] for v in raised] == [RULE_RECONCILE]
+    assert not wd.healthy
+    assert reg.value("slo_violations_total", rule=RULE_RECONCILE) == 1
+    assert wd.observe_round(_watchdog_record({"drift_pods": 0})) == []
+    assert wd.healthy
+
+
+def test_watchdog_reconcile_rule_is_per_tenant():
+    """tests/test_reconcile.py:1224: a clean tenant's round never clears a
+    drifting tenant's violation; only that tenant's convergence does."""
+    from kubernetes_rescheduling_tpu_torch.telemetry.watchdog import (
+        RULE_RECONCILE,
+        SLORules,
+        Watchdog,
+    )
+
+    reg = TRegistry()
+    wd = Watchdog(SLORules(reconcile_max_drift_pods=1), registry=reg)
+    raised = wd.observe_round(_watchdog_record({"drift_pods": 3}), tenant="t-drift")
+    assert [v["rule"] for v in raised] == [RULE_RECONCILE]
+    assert raised[0]["tenant"] == "t-drift"
+    assert wd.observe_round(_watchdog_record({"drift_pods": 0}), tenant="t-clean") == []
+    assert not wd.healthy
+    assert reg.value("slo_violations_total", rule=RULE_RECONCILE) == 1
+    assert wd.observe_round(_watchdog_record({"drift_pods": 0}), tenant="t-drift") == []
+    assert wd.healthy

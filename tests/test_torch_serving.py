@@ -13,21 +13,15 @@ policies (``random`` through the ``gumbel_rows`` seam fed the JAX engine's
 program: the JAX package counts its traces, the port the distinct capture
 keys ``solver/compiled.py`` is asked for (one graph a key on the card).
 
-Waiting elsewhere: ``test_serving_config_from_toml`` (the port reads no
-TOML files yet, ROADMAP Queue 1 item 4.4), ``test_alibaba_fixture_served
-_parity`` (the replay backend, item 4.3), and the ops-server cases —
-``test_admission_shed_feeds_ops_after_releasing_cond``,
-``test_serving_exposition_micro_buckets_conformant``,
-``test_healthz_serving_p99_flip_and_recover``,
-``test_round_and_serving_watchdog_feeds_are_serialized``,
-``test_breaker_bundle_carries_serving_ring``,
-``test_post_place_endpoint_roundtrip``,
-``test_post_place_without_engine_is_503``,
-``test_http_request_cardinality_stays_bounded`` and
-``test_metrics_scrape_does_not_block_place`` (item 4.2).
+The ops-server cases (the engine's feeds, ``/healthz``, the
+``serving_p99`` rule and its bundle, ``POST /place``) run the same way, at
+the bottom. Waiting elsewhere: ``test_serving_config_from_toml`` (the port
+reads no TOML files yet, ROADMAP Queue 1 item 4.4) and
+``test_alibaba_fixture_served_parity`` (the replay backend, item 4.3).
 """
 
 import dataclasses
+import json
 import math
 import sys
 import threading
@@ -50,6 +44,9 @@ from kubernetes_rescheduling_tpu.policies import scoring as jscoring
 from kubernetes_rescheduling_tpu.serving import engine as jengine
 from kubernetes_rescheduling_tpu.solver import round_loop as jrl
 from kubernetes_rescheduling_tpu.telemetry import MetricsRegistry as JRegistry
+from kubernetes_rescheduling_tpu.telemetry import registry as jregistry
+from kubernetes_rescheduling_tpu.telemetry import server as jserver
+from kubernetes_rescheduling_tpu.telemetry import watchdog as jwatchdog
 from kubernetes_rescheduling_tpu_torch import config as tconfig
 from kubernetes_rescheduling_tpu_torch import serving as tserving
 from kubernetes_rescheduling_tpu_torch.bench import harness as tharness
@@ -61,6 +58,9 @@ from kubernetes_rescheduling_tpu_torch.serving import engine as tengine
 from kubernetes_rescheduling_tpu_torch.solver import compiled
 from kubernetes_rescheduling_tpu_torch.solver import round_loop as trl
 from kubernetes_rescheduling_tpu_torch.telemetry import MetricsRegistry as TRegistry
+from kubernetes_rescheduling_tpu_torch.telemetry import registry as tregistry
+from kubernetes_rescheduling_tpu_torch.telemetry import server as tserver
+from kubernetes_rescheduling_tpu_torch.telemetry import watchdog as twatchdog
 
 POLICIES = ["spread", "binpack", "random", "kubescheduling", "communication"]
 
@@ -75,6 +75,10 @@ def jax_row(seed: int, seq: int, n: int) -> torch.Tensor:
 class JaxPkg:
     name = "jax"
     config, serving, engine, serve, loadgen = jconfig, jserving, jengine, jserve, jloadgen
+    server, watchdog = jserver, jwatchdog
+
+    def obs(self, **kw):
+        return jconfig.ObsConfig(**kw).validate()
 
     def registry(self):
         return JRegistry()
@@ -128,6 +132,10 @@ class JaxPkg:
 class TorchPkg:
     name = "torch"
     config, serving, engine, serve, loadgen = tconfig, tserving, tengine, tserve, tloadgen
+    server, watchdog = tserver, twatchdog
+
+    def obs(self, **kw):
+        return tconfig.RescheduleConfig(**kw).validate()
 
     def __init__(self):
         self.keys = set()
@@ -526,10 +534,21 @@ def test_ring_is_bounded_and_carries_outcomes(pkg):
 
 
 def test_engine_refuses_ops_hooks():
-    """The ops feeds wait for the ops server (ROADMAP Queue 1 item 4.2)."""
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 4\.2\b"):
-        tserving.ServingEngine(tharness.make_backend("mubench", 0, device="cpu"),
-                               device="cpu", ops=object())
+    """The engine no longer refuses an ops plane: it feeds the plane its
+    summary and ring after every dispatched batch and admission shed,
+    never while holding its own condition lock."""
+    seen = []
+
+    class Plane:
+        def observe_serving(self, summary, requests=None):
+            assert not engine._cond._is_owned()
+            seen.append((summary["outcomes"], len(requests)))
+
+    engine = tserving.ServingEngine(tharness.make_backend("mubench", 0, device="cpu"),
+                                    device="cpu", ops=Plane())
+    with engine:
+        engine.place(engine.graph.names[0])
+    assert seen and seen[-1][0].get("placed", 0) + seen[-1][0].get("no_candidate", 0) == 1
 
 
 def test_engine_defaults_to_the_card():
@@ -580,3 +599,291 @@ def test_accounting_holds_under_thread_switching():
                   for o in ("placed", "no_candidate", "shed", "timeout"))
     assert counted == n
     assert sum(engine.shed_reasons.values()) == report["shed"] + report["timed_out"]
+
+
+# ---------------- the ops-server cases ----------------
+
+
+def _get(port, path):
+    """(status, body bytes, headers) without raising on non-200."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as resp:
+            return resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers
+
+
+def _post(port, path, payload=None, raw=None):
+    import json as json_mod
+    import urllib.error
+    import urllib.request
+
+    data = raw if raw is not None else json_mod.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            return resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers
+
+
+class _CondProbeOps:
+    """An ops stub that checks from ANOTHER thread whether the engine's
+    _cond is held while observe_serving runs."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self.cond_held_during_feed: list[bool] = []
+
+    def observe_serving(self, summary, requests=None):
+        got: list[bool] = []
+
+        def probe():
+            acquired = self._engine._cond.acquire(timeout=2)
+            if acquired:
+                self._engine._cond.release()
+            got.append(acquired)
+
+        t = threading.Thread(target=probe)
+        t.start()
+        t.join(timeout=10)
+        self.cond_held_during_feed.append(not got[0])
+
+
+def test_admission_shed_feeds_ops_after_releasing_cond(pkg):
+    reg = pkg.registry()
+    engine = pkg.engine_(reg, config=pkg.config.ServingConfig(max_batch=8, queue_depth=1))
+    probe = engine.ops = _CondProbeOps(engine)
+    svc = engine.graph.names[0]
+    assert engine.place(svc).shed_reason == pkg.engine.SHED_SHUTDOWN
+    engine._running = True
+    t = threading.Thread(target=engine.place, args=(svc,), daemon=True)
+    t.start()
+    deadline = time.time() + 10
+    while time.time() < deadline:
+        with engine._cond:
+            if len(engine._queue) == 1:
+                break
+        time.sleep(0.005)
+    else:
+        raise AssertionError("the queued request never landed")
+    assert engine.place(svc).shed_reason == pkg.engine.SHED_QUEUE_FULL
+    assert probe.cond_held_during_feed == [False, False]
+    engine.start()
+    t.join(timeout=30)
+    engine.stop()
+
+
+def test_serving_exposition_micro_buckets_conformant(pkg):
+    from test_torch_ops_plane import assert_exposition_conformant
+
+    reg = pkg.registry()
+    with pkg.engine_(reg) as engine:
+        engine.place(engine.graph.names[0])
+    text = reg.expose()
+    assert_exposition_conformant(text)
+    micro = (jregistry if pkg.name == "jax" else tregistry).MICRO_BUCKETS
+    assert text.count("serving_request_seconds_bucket{") == \
+        len(pkg.engine.STAGES) * (len(micro) + 1)
+    assert 'le="5e-05"' in text
+
+
+def _summary(count, p99_ms):
+    return {"submitted": count, "completed": count, "count": count, "rate_rps": 10.0,
+            "p50_ms": p99_ms / 2, "p95_ms": p99_ms, "p99_ms": p99_ms,
+            "batch_sizes": {"1": count}, "dispatches": count, "outcomes": {"placed": count},
+            "shed": {}, "inflight": 0}
+
+
+def test_healthz_serving_p99_flip_and_recover(pkg, tmp_path):
+    reg = pkg.registry()
+    ops = pkg.server.OpsPlane.from_config(pkg.obs(serve_port=0, slo_serving_p99_ms=50.0),
+                                          registry=reg, bundle_dir=str(tmp_path)).start()
+    try:
+        port = ops.server.port
+        assert _get(port, "/healthz")[0] == 200
+        ops.observe_serving(_summary(count=8, p99_ms=120.0),
+                            requests=[{"request_id": 7, "outcome": "placed"}])
+        status, body, _ = _get(port, "/healthz")
+        assert status == 503
+        doc = json.loads(body)
+        assert doc["status"] == "unhealthy" and doc["serving"]["p99_ms"] == 120.0
+        active = {v["rule"]: v for v in doc["slo"]["active"]}
+        assert active["serving_p99"]["threshold_ms"] == 50.0
+        bundles = list(tmp_path.glob("*serving_p99*"))
+        assert bundles
+        payload = json.loads(bundles[0].read_text())
+        assert payload["serving"]["p99_ms"] == 120.0
+        assert payload["requests"][0]["request_id"] == 7
+        ops.observe_serving(_summary(count=8, p99_ms=4.0))
+        status, body, _ = _get(port, "/healthz")
+        assert status == 200 and json.loads(body)["serving"]["p99_ms"] == 4.0
+        ops.watchdog.rebase()
+        ops.observe_serving(_summary(count=2, p99_ms=500.0))
+        assert _get(port, "/healthz")[0] == 200
+    finally:
+        ops.close()
+
+
+def test_round_and_serving_watchdog_feeds_are_serialized(pkg):
+    reg = pkg.registry()
+    wd = pkg.watchdog.Watchdog(pkg.watchdog.SLORules(
+        window=8, min_samples=2, latency_p95_s=10.0, max_retraces=0, serving_p99_ms=1000.0),
+        registry=reg)
+    ops = pkg.server.OpsPlane(registry=reg, watchdog=wd)
+    rounds_n = serve_n = 150
+    errors = []
+
+    def round_feeder():
+        import types
+
+        rec = types.SimpleNamespace(decision_latency_s=0.01, communication_cost=10.0,
+                                    degraded=False, round=1)
+        for _ in range(rounds_n):
+            try:
+                ops.observe_round(rec)
+            except Exception as e:  # noqa: BLE001 — the test's verdict
+                errors.append(e)
+
+    def serve_feeder():
+        for _ in range(serve_n):
+            try:
+                ops.observe_serving(_summary(count=8, p99_ms=5.0))
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+
+    threads = [threading.Thread(target=round_feeder), threading.Thread(target=serve_feeder),
+               threading.Thread(target=serve_feeder)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert errors == []
+    assert ops.health.rounds == rounds_n and ops.health.serving["p99_ms"] == 5.0
+    assert wd.healthy
+
+
+def test_breaker_bundle_carries_serving_ring(pkg, tmp_path):
+    reg = pkg.registry()
+    ops = pkg.server.OpsPlane.from_config(pkg.obs(), registry=reg, bundle_dir=str(tmp_path))
+    engine = pkg.engine_(reg)
+    with engine:
+        engine.place(engine.graph.names[0])
+    ops.bind_serving(engine)
+    assert engine.ops is ops
+    ops.on_breaker_transition({"to": "open", "from": "closed"})
+    bundles = list(tmp_path.glob("*breaker*"))
+    assert bundles
+    ring = json.loads(bundles[0].read_text()).get("serving_requests")
+    assert ring and ring[-1]["outcome"] in (pkg.engine.OUTCOME_PLACED,
+                                            pkg.engine.OUTCOME_NO_CANDIDATE)
+
+
+def _served_plane(pkg):
+    reg = pkg.registry()
+    ops = pkg.server.OpsPlane.from_config(pkg.obs(serve_port=0), registry=reg)
+    engine = pkg.engine_(reg).start()
+    ops.bind_serving(engine)
+    ops.start()
+    return reg, ops, engine
+
+
+def test_post_place_endpoint_roundtrip(pkg):
+    reg, ops, engine = _served_plane(pkg)
+    try:
+        port = ops.server.port
+        svc = engine.graph.names[0]
+        status, body, _ = _post(port, "/place", {"service": svc})
+        assert status == 200
+        doc = json.loads(body)
+        assert doc["service"] == svc
+        assert doc["outcome"] in (pkg.engine.OUTCOME_PLACED, pkg.engine.OUTCOME_NO_CANDIDATE)
+        assert set(doc["timings_ms"]) == set(pkg.engine.STAGES)
+        assert doc["explain"]["policy"] == "communication"
+        if doc["outcome"] == pkg.engine.OUTCOME_PLACED:
+            assert doc["node"] in engine._node_names
+            assert doc["explain"]["chosen"] == doc["node"]
+        status, body, _ = _get(port, "/healthz")
+        assert status == 200 and json.loads(body)["serving"]["submitted"] >= 1
+        status, body, _ = _post(port, "/place", {"service": "nope"})
+        assert status == 400 and "unknown service" in json.loads(body)["error"]
+        assert _post(port, "/place", {"deadline_ms": 5})[0] == 400
+        status, body, _ = _post(port, "/place", {"service": svc, "deadline_ms": [1]})
+        assert status == 400 and "deadline_ms" in json.loads(body)["error"]
+        assert _post(port, "/place", {"service": svc, "deadline_ms": "soon"})[0] == 400
+        assert _post(port, "/place", payload=[1, 2])[0] == 400
+        assert _post(port, "/place", raw=b"{not json")[0] == 400
+        assert _post(port, "/nope", {"service": svc})[0] == 404
+        status, _, headers = _get(port, "/place")
+        assert status == 405 and headers.get("Allow") == "POST"
+    finally:
+        ops.close()
+        engine.stop()
+
+
+def test_post_place_without_engine_is_503(pkg):
+    srv = pkg.server.OpsServer(port=0, registry=pkg.registry())
+    srv.start()
+    try:
+        status, body, _ = _post(srv.port, "/place", {"service": "s0"})
+        assert status == 503 and "no serving engine" in json.loads(body)["error"]
+    finally:
+        srv.stop()
+
+
+def test_http_request_cardinality_stays_bounded(pkg):
+    reg, ops, engine = _served_plane(pkg)
+    try:
+        port = ops.server.port
+        svc = engine.graph.names[0]
+        for path in ("/", "/metrics", "/healthz", "/events", "/tenants", "/tenants/acme",
+                     "/tenants/zebra", "/favicon.ico", "/admin/.env", "/place",
+                     "/wp-login.php"):
+            _get(port, path)
+        _post(port, "/place", {"service": svc})
+        _post(port, "/place", {"service": svc})
+        _post(port, "/evil", {"service": svc})
+        seen = {(rec.get("labels") or {}).get("endpoint") for rec in reg.snapshot()
+                if rec["metric"] == "ops_http_requests_total"}
+        assert seen == {"/", "/metrics", "/healthz", "/events", "/tenants", "/tenants/<name>",
+                        "/place", "<other>"}
+        assert pkg.metric(reg, "ops_http_requests_total", endpoint="/place") == 3
+    finally:
+        ops.close()
+        engine.stop()
+
+
+def test_metrics_scrape_does_not_block_place(pkg):
+    reg, ops, engine = _served_plane(pkg)
+    try:
+        port = ops.server.port
+        svc = engine.graph.names[0]
+        _post(port, "/place", {"service": svc})
+        with ops.server._read_lock:  # a scrape stuck mid-exposition
+            assert _post(port, "/place", {"service": svc})[0] == 200
+            assert _get(port, "/healthz")[0] == 200
+    finally:
+        ops.close()
+        engine.stop()
+
+
+def test_post_place_served_nodes_equal_jax(tmp_path):
+    """The same requests through both packages' ``POST /place``: the same
+    outcome and node a request (the deterministic policy)."""
+    out = {}
+    for p in (JaxPkg(), TorchPkg()):
+        reg, ops, engine = _served_plane(p)
+        try:
+            names = engine.graph.names
+            out[p.name] = [json.loads(_post(ops.server.port, "/place",
+                                            {"service": names[i % len(names)]})[1])
+                           for i in range(12)]
+        finally:
+            ops.close()
+            engine.stop()
+    for j, t in zip(out["jax"], out["torch"]):
+        assert (t["outcome"], t["node"]) == (j["outcome"], j["node"])

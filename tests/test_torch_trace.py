@@ -234,7 +234,16 @@ def test_trace_cli_on_the_cpu(capsys, tmp_path):
                      "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out)
     assert out["trace"] == str(path) and len(out["steps"]) == 1
-    for flags, item in ((["--restarts", "2"], "item 5"), (["--trace-out", "x.json"], "item 4"),
-                        (["--metrics-out", "m.jsonl"], "item 4")):
-        with pytest.raises(SystemExit, match=item):
-            cli.main(["trace", "--device", "cpu", *flags])
+    with pytest.raises(SystemExit, match="item 5"):
+        cli.main(["trace", "--device", "cpu", "--restarts", "2"])
+    # --trace-out / --metrics-out write the spans (one trace/step span a
+    # step), the registry and the run manifest
+    trace_out, metrics_out = tmp_path / "x.json", tmp_path / "m.jsonl"
+    assert cli.main(["trace", "--device", "cpu", "--steps", "3", "--trace-out", str(trace_out),
+                     "--metrics-out", str(metrics_out)]) == 0
+    capsys.readouterr()
+    names = [e["name"] for e in json.loads(trace_out.read_text())["traceEvents"]]
+    assert names.count("trace/step") >= 3
+    assert metrics_out.read_text() and metrics_out.with_suffix(".prom").read_text()
+    assert json.loads(metrics_out.with_suffix(".manifest.json").read_text())["config"][
+        "command"] == "trace"

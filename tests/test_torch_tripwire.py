@@ -1,7 +1,7 @@
 """The in-block tripwires (``telemetry/tripwire.py``) against the JAX
 package's, and in the port's scanned loop, after tests/test_tripwire.py's
-cases without the ops plane (the watchdog rule, /healthz and the flight
-recorder wait for ROADMAP Queue 1 item 4.2) and without the fleet.
+cases (the ops plane's: the watchdog rule, /healthz and the flight
+recorder at the bottom) without the fleet.
 
 The rule kernel is held to the JAX one on seeded (cost, load, most-hazard)
 sequences, bit for bit and carry for carry. In the loop: a trip-free block
@@ -12,6 +12,8 @@ scanned loop logs), the replay commits the rounds before it, the trip
 round drains under ``scan_drains_total{reason="tripwire"}``, and the whole
 record stream still equals the sequential loop's.
 """
+
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -294,3 +296,144 @@ def test_nonfinite_reading_trips_at_block_round_zero():
     assert all(e["block_round"] == 0 and e["rules"] == ["non_finite"]
                and e["mask"] == ttw.TRIP_NON_FINITE and e["round"] == e["block_start"]
                for e in logged)
+
+
+# ---------------- the ops plane: rule, /healthz, bundles ----------------
+
+
+def test_nonfinite_detection_latency_acceptance(tmp_path):
+    """tests/test_tripwire.py:354 with the ops plane: every block trips at
+    round 0 on a NaN reading; the /healthz scan stanza counts the blocks,
+    trips and drains, the scan_tripwire rule holds /healthz at 503, and
+    each trip dumps a bundle carrying the decoded trip."""
+    from kubernetes_rescheduling_tpu_torch.telemetry.server import OpsPlane
+    from kubernetes_rescheduling_tpu_torch.telemetry.watchdog import RULE_SCAN_TRIPWIRE
+
+    rounds, block = 4, 2
+    backend = _backend(27)
+    real = backend.monitor
+
+    def poisoned():
+        snap = real()
+        cpu = snap.pod_cpu.clone()
+        cpu[int(torch.nonzero(snap.pod_valid)[0])] = float("nan")
+        return snap.replace(pod_cpu=cpu)
+
+    backend.monitor = poisoned
+    reg = TRegistry()
+    ops = OpsPlane.from_config(TConfig(flight_recorder_rounds=8), registry=reg,
+                               bundle_dir=str(tmp_path))
+    res = t_run(backend, TConfig(algorithm="communication", max_rounds=rounds,
+                                 sleep_after_action_s=0.0, scan_block=block,
+                                 reconcile_admission=False),
+                device="cpu", registry=reg, logger=TLogger(), ops=ops)
+    trips_n = rounds - block + 1
+    assert len(res.rounds) == rounds
+    payload, healthy = ops.health.snapshot()
+    assert not healthy
+    scan = payload["scan"]
+    assert scan["blocks"] == trips_n and scan["tripped_blocks"] == trips_n
+    assert scan["drains"] == {"tripwire": trips_n, "tail": rounds - trips_n}
+    assert scan["last_trip"]["block_round"] == 0
+    assert RULE_SCAN_TRIPWIRE in ops.watchdog.active
+    assert payload["slo"]["healthy"] is False
+    bundles = sorted(tmp_path.glob("flight_*_scan_tripwire.json"))
+    assert len(bundles) == trips_n
+    dumped = json.loads(bundles[0].read_text())
+    assert dumped["trip"]["rules"] == ["non_finite"]
+    assert dumped["trip"]["mask"] == ttw.TRIP_NON_FINITE and dumped["trip"]["block_round"] == 0
+
+
+def test_clean_block_clears_watchdog_rule(tmp_path):
+    from kubernetes_rescheduling_tpu_torch.telemetry.server import OpsPlane
+    from kubernetes_rescheduling_tpu_torch.telemetry.watchdog import RULE_SCAN_TRIPWIRE
+
+    reg = TRegistry()
+    ops = OpsPlane.from_config(TConfig(), registry=reg, bundle_dir=str(tmp_path))
+    ops.bind(algorithm="communication")
+    ops.observe_scan_block(rounds=4, trip={"round": 7, "block_round": 3,
+                                           "rules": ["non_finite"]})
+    assert RULE_SCAN_TRIPWIRE in ops.watchdog.active and not ops.health.snapshot()[1]
+    ops.observe_scan_block(rounds=4, trip=None)
+    assert RULE_SCAN_TRIPWIRE not in ops.watchdog.active and ops.health.snapshot()[1]
+    ops2 = OpsPlane.from_config(TConfig(slo_scan_tripwire=False), registry=reg,
+                                bundle_dir=str(tmp_path))
+    ops2.bind(algorithm="communication")
+    ops2.observe_scan_block(rounds=4, trip={"round": 1, "block_round": 1,
+                                            "rules": ["non_finite"]})
+    assert RULE_SCAN_TRIPWIRE not in ops2.watchdog.active
+
+
+def test_healthz_staleness_scales_with_inflight_block(monkeypatch):
+    import time as time_mod
+
+    from kubernetes_rescheduling_tpu_torch.telemetry.server import HealthState
+
+    health = HealthState(max_round_age_s=60.0)
+    health.mark_round()
+    real_mono = time_mod.monotonic
+    monkeypatch.setattr(time_mod, "monotonic", lambda: real_mono() + 120.0)
+    payload, healthy = health.snapshot()
+    assert payload["stale"] and not healthy
+    health.mark_block_inflight(4)
+    payload, healthy = health.snapshot()
+    assert not payload["stale"] and healthy
+    monkeypatch.setattr(time_mod, "monotonic", lambda: real_mono() + 300.0)
+    payload, healthy = health.snapshot()
+    assert payload["stale"] and not healthy
+    monkeypatch.setattr(time_mod, "monotonic", lambda: real_mono() + 330.0)
+    health.mark_round()
+    payload, healthy = health.snapshot()
+    assert not payload["stale"] and healthy
+    monkeypatch.setattr(time_mod, "monotonic", lambda: real_mono() + 420.0)
+    assert not health.snapshot()[1]
+
+
+def test_watchdog_burst_flush_matches_paced():
+    """A scan block flushes K records back to back: the same verdicts as
+    the paced sequential loop (rules judge values and rounds, never
+    inter-arrival time)."""
+    import time as time_mod
+    import types
+
+    from kubernetes_rescheduling_tpu_torch.telemetry.watchdog import SLORules, Watchdog
+
+    def record(rnd, cost, drift=None):
+        rec = types.SimpleNamespace(round=rnd, decision_latency_s=0.01, communication_cost=cost)
+        if drift is not None:
+            rec.reconcile = {"drift_pods": drift}
+        return rec
+
+    stream = [record(1, 10.0), record(2, 9.0), record(3, 8.0), record(4, 20.0, drift=3),
+              record(5, 21.0, drift=3)]
+    rules = dict(window=8, min_samples=2, cost_regression_frac=0.5, max_retraces=0,
+                 reconcile_max_drift_pods=1)
+    reg_a, reg_b = TRegistry(), TRegistry()
+    paced = Watchdog(SLORules(**rules), registry=reg_a)
+    real_time = time_mod.time
+    for i, rec in enumerate(stream):
+        time_mod.time = lambda off=i: real_time() + 10.0 * off
+        try:
+            paced.observe_round(rec)
+        finally:
+            time_mod.time = real_time
+    burst = Watchdog(SLORules(**rules), registry=reg_b)
+    for rec in stream:
+        burst.observe_round(rec)
+    assert set(paced.active) == set(burst.active) == {"comm_cost_regression",
+                                                      "reconcile_divergence"}
+    for rule in ("comm_cost_regression", "reconcile_divergence"):
+        assert reg_a.value("slo_violations_total", rule=rule) == \
+            reg_b.value("slo_violations_total", rule=rule) == 1
+    assert paced.healthy == burst.healthy is False
+
+
+def test_scanned_records_equal_sequential_with_attribution():
+    """With a logger (attribution on) the scanned block's rounds carry the
+    per-round attribution from the block's bundle: equal to the sequential
+    loop's, attribution included, in one round_end read a block."""
+    seq, _, _ = run(scan_block=0, n_nodes=6, rounds=8)
+    sc, _, reg = run(scan_block=4, n_nodes=6, rounds=8)
+    assert all(r.attribution is not None for r in seq.rounds)
+    assert [strip(r) for r in sc.rounds] == [strip(r) for r in seq.rounds]
+    assert reg.value("device_transfers_total", site="round_end") == 2
