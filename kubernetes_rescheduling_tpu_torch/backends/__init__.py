@@ -1,5 +1,6 @@
-"""Cluster backends: the protocol, the hermetic simulator, and the
-fault-injecting chaos wrapper over any backend."""
+"""Cluster backends: the protocol, the hermetic simulator, the
+fault-injecting chaos wrapper over any backend, the replay backend that
+serves a recorded trace (shadow mode) and the live-Kubernetes adapter."""
 
 from kubernetes_rescheduling_tpu_torch.backends.base import (
     Backend,
@@ -17,6 +18,8 @@ from kubernetes_rescheduling_tpu_torch.backends.chaos import (
     ChaosTimeoutError,
     with_chaos,
 )
+from kubernetes_rescheduling_tpu_torch.backends.k8s import K8sBackend
+from kubernetes_rescheduling_tpu_torch.backends.replay import ReplayBackend
 from kubernetes_rescheduling_tpu_torch.backends.sim import LoadModel, SimBackend
 
 __all__ = [
@@ -26,9 +29,11 @@ __all__ = [
     "ChaosError",
     "ChaosProfile",
     "ChaosTimeoutError",
+    "K8sBackend",
     "LoadModel",
     "MoveRequest",
     "PlacementMechanism",
+    "ReplayBackend",
     "SimBackend",
     "device_kind",
     "with_chaos",

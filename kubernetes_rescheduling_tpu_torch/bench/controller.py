@@ -18,8 +18,11 @@ Around the rounds: every monitor snapshot passes the admission guard
 (``bench/admission.py``), the intent ledger (``bench/reconcile.py``) diffs
 it against the controller's own moves and repairs drift, rounds carry
 decision explanations when a logger listens, a checkpoint directory makes
-a run resumable, and a churn engine (``elastic/``) deploys, tears down,
-scales and drains between rounds.
+a run resumable, a churn engine (``elastic/``) deploys, tears down,
+scales and drains between rounds, and in shadow mode (``config.shadow``,
+a replayed trace behind ``backends/replay.py``) the shadow plane
+(``bench/shadow.py``) scores a counterfactual twin of our placement against
+the recorded one, riding the round-end read.
 
 Three schedules run the rounds, with the same records:
 
@@ -175,10 +178,16 @@ class RoundRecord:
     # proactive rounds: the forecast plane's block (skill, MAEs, cold /
     # predictive / degraded path) — None on reactive rounds
     forecast: dict | None = None
+    # shadow mode (bench/shadow.py): the round's head-to-head against the
+    # replayed trace's scheduler (costs, delta, running win rate, the twin's
+    # attribution with attribution on) — None outside shadow runs and on
+    # unscored (degraded) rounds
+    shadow: dict | None = None
     # timing fields: execute start to record finalize, and wall seconds of
     # the round's phases ("decide" or "solve", "select" on capped or
     # explained global rounds, "forecast" on proactive rounds, "apply",
-    # "monitor", "admission", "reconcile", "round_end")
+    # "monitor", "admission", "reconcile", "round_end"; "shadow" in shadow
+    # mode: the twin's host realign and re-homing)
     wall_s: float = 0.0
     phase_s: dict[str, float] = field(default_factory=dict)
     # the pipelined schedule's telemetry (timing field): depth, the share of
@@ -370,8 +379,19 @@ class _Runtime:
                            logger=logger, on_reject=self.boundary.admission_reject)
             if config.reconcile_admission else None
         )
-        self.ledger = (IntentLedger(registry=registry, logger=logger)
+        # an advisory-only backend (shadow replay) makes the snapshot stream
+        # ground truth: the ledger's diffs adopt, never charge
+        self.ledger = (IntentLedger(registry=registry, logger=logger,
+                                    adopt_observed=self.advisory_only)
                        if config.reconcile_enabled else None)
+        self.shadow = None
+        if config.shadow.enabled:
+            # recommendations land in the replay backend's shadow ledger, and
+            # a counterfactual twin scores our cumulative placement against
+            # the trace's, riding the round-end read
+            from kubernetes_rescheduling_tpu_torch.bench.shadow import ShadowPlane
+
+            self.shadow = ShadowPlane(config.shadow, registry=registry, logger=logger)
         if churn is None and config.elastic != "none":
             from kubernetes_rescheduling_tpu_torch.elastic.engine import ChurnEngine
 
@@ -483,6 +503,19 @@ class _Runtime:
                                    host_arrays=arrays)
             # the intent as of the last closed round, what a checkpoint saves
             self._ledger_snap = self.ledger.snapshot()
+        if self.shadow is not None:
+            # twin := the first admitted snapshot's recorded placement, from
+            # the guard's host arrays (shadow mode requires admission)
+            self.shadow.bind(self.state, self.metric_graph, self._host_arrays(self.state))
+
+    @property
+    def advisory_only(self) -> bool:
+        """The backend only records moves (the shadow plane's replay
+        backend): every intent is advisory."""
+        return getattr(self.boundary.raw_backend, "advisory_only", False)
+
+    def _host_arrays(self, state):
+        return self.guard.host_arrays(state) if self.guard is not None else None
 
     def monitor_admitted(self):
         """A boundary monitor on the controller's device, through the
@@ -520,8 +553,10 @@ class _Runtime:
         """The round-end cost's edge list (``comm_edge_list``), built once
         per metric-graph object: churn's graph changes rebuild it. None with
         attribution on: the round end then takes the dense form, whose S×S
-        work the attribution bundle needs anyway."""
-        if self.attr_k > 0:
+        work the attribution bundle needs anyway. None in shadow mode too:
+        the twin's round end is the dense form, and the head-to-head's two
+        sides must sum in one order."""
+        if self.attr_k > 0 or self.shadow is not None:
             return None
         graph = self.metric_graph
         if self._edge_cache is None or self._edge_cache[0] is not graph:
@@ -608,6 +643,15 @@ class _Runtime:
         record.breaker_state = self.breaker.state
         record.boundary_failures = self.boundary.round_failures
         self._attach_metrics(record.round, record, closer)
+        if self.shadow is not None:
+            # AFTER the metrics piece: decode order inside the single flush
+            # puts the actual cost on the record before the shadow decode
+            # scores against it, and the twin's piece rides the SAME read
+            self.shadow.observe_round(
+                record.round, record, self.state, self.metric_graph, closer,
+                arrays=self._host_arrays(self.state), fresh=new_state is not None,
+                top_k=self.attr_k,
+            )
 
     def _reconcile_round(self, record: RoundRecord, *, fresh: bool) -> None:
         """The reconcile plane's step: the admission counts, the round's
@@ -783,9 +827,20 @@ class _Runtime:
                 closer.defer_host(finish_forecast)
         if intents:
             t0 = time.perf_counter()
-            self.ledger.record_moves(intents)
+            self.record_intents(intents)
             record.phase_s["reconcile"] = time.perf_counter() - t0
         return record
+
+    def record_intents(self, intents) -> None:
+        """The ledger's capture of a round's applied moves. An advisory-only
+        backend (the shadow plane's replay backend) makes every intent
+        advisory whatever its mechanism: a recommendation is advisory by
+        definition, and the ledger adopts the recorded placement at the next
+        diff instead of charging the recorded scheduler's choices as lost
+        moves or drift."""
+        if self.advisory_only:
+            intents = [(*i[:4], True) for i in intents]
+        self.ledger.record_moves(intents)
 
     def emit(self, record: RoundRecord, mode: str = "sequential") -> None:
         """The record's host tail: the result, the round's metrics, the
@@ -1300,7 +1355,12 @@ def run_controller(
     provenance (``record.attribution``), the bundle riding the round-end
     transfer, and the round end takes the dense cost form.
 
-    Not carried yet (refused by ``config.validate()``): shadow.
+    ``config.shadow`` (with a ``backends.replay.ReplayBackend``) runs shadow
+    mode: the recommendations land in the backend's shadow ledger, every
+    intent is advisory (the ledger adopts the recorded placement), and each
+    fresh round's record carries the shadow plane's head-to-head block
+    (``record.shadow``), its twin's round end riding the round-end transfer
+    in the dense cost form.
     """
     config = config.validate()
     dev = resolve_device(device)
@@ -1663,10 +1723,9 @@ def _solver_config(config: RescheduleConfig) -> GlobalSolverConfig:
 def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, registry,
                logger=None, explain=False, intents=None, pre_fence_hook=None) -> RoundRecord:
     """Per-replica global round: one solve on the pod-level graph, then the
-    moved pods in one ``apply_pod_moves`` wave (the simulator's; the JAX
-    package's per-pod ``apply_move`` for a backend without it waits with
-    the k8s backend, ROADMAP Queue 1 item 4.3). The pod graph is cached per
-    (declared graph, pod set)."""
+    moved pods in one ``apply_pod_moves`` wave (the simulator's), or one
+    ``apply_move`` each through the boundary for a backend without it. The
+    pod graph is cached per (declared graph, pod set)."""
     from kubernetes_rescheduling_tpu_torch.solver.pod_mode import (
         global_assign_pods,
         pod_level_graph,
@@ -1705,9 +1764,18 @@ def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, 
         )
         for i in np.flatnonzero(valid & (old_nodes != new_nodes))
     ]
-    # one reconcile wave for the whole round's replica moves, past the
-    # retry wrapper (the simulator's wave cannot transiently fail)
-    landed_of = dict(boundary.apply_pod_moves(moves)) if moves else {}
+    batch = getattr(boundary, "apply_pod_moves", None)
+    if batch is not None:
+        # one reconcile wave for the whole round's replica moves, past the
+        # retry wrapper (the simulator's wave cannot transiently fail)
+        landed_of = dict(batch(moves)) if moves else {}
+    else:
+        # a backend without the wave: one retried boundary move a replica
+        landed_of = {}
+        for mv in moves:
+            landed = boundary.apply_move(mv)
+            if landed is not None:
+                landed_of[mv.pod] = landed
     landed_moves = [mv for mv in moves if mv.pod in landed_of]
     applied_moves = [(mv.service, landed_of[mv.pod]) for mv in landed_moves]  # LANDED node
     if intents is not None:

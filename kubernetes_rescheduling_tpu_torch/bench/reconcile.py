@@ -37,12 +37,15 @@ boundary's ``landed`` return is only what the cluster claimed. The
   the cluster is consumed as a node event, never charged.
 
 - queues **rate-limited corrective moves** (:meth:`IntentLedger.issue_repairs`:
-  pod-granular ``MoveRequest``s; the JAX package's Deployment-scoped ones,
-  for a backend that cannot pin one replica, wait with the k8s backend,
-  ROADMAP Queue 1 item 4.3) through the
-  boundary's retry, breaker and budget, at most ``repair_budget_per_round``
-  a round, until observed state converges back to intent. The pending
-  repairs are the ``reconcile_drift_pods`` gauge.
+  pod-granular ``MoveRequest``s, or Deployment-scoped ones for a backend
+  that cannot pin one replica, ``supports_pod_moves = False``: the k8s
+  backend) through the boundary's retry, breaker and budget, at most
+  ``repair_budget_per_round`` a round, until observed state converges back
+  to intent. The pending repairs are the ``reconcile_drift_pods`` gauge.
+
+An advisory-only backend (the shadow plane's replay backend) builds the
+ledger with ``adopt_observed``: the snapshot stream is ground truth, every
+diff adopts it, and nothing is charged or repaired.
 
 The ledger is host-side; a diff reuses the admission guard's host arrays
 or, with the guard off, reads the snapshot's fields in one counted
@@ -99,16 +102,16 @@ def move_intent(
     pod: str | None = None,
 ) -> tuple:
     """THE intent-capture rule for an applied move, ``(service, pod,
-    intended, landed)``: under the advisory mechanism (``affinityOnly``)
-    the scheduler's choice IS legitimate placement — intent adopts where
-    the move landed; pinning mechanisms keep the requested target so an
-    override reads as a ``wrong_node`` divergence. (The JAX package's
-    fifth element, the advisory flag that adopts the node observed at the
-    next diff, serves a backend that can only echo the advisory target —
-    the k8s backend, ROADMAP Queue 1 item 4.3; the simulator reports where
-    the move landed.)"""
-    intended = landed if mechanism == "affinityOnly" and landed is not None else requested
-    return (service, pod, intended, landed)
+    intended, landed, advisory)``: under the advisory mechanism
+    (``affinityOnly``) the scheduler's choice IS legitimate placement —
+    intent adopts where the move landed, and the advisory flag makes the
+    ledger adopt the node OBSERVED at the next diff too (a backend such as
+    k8s can only echo the advisory target at apply time); pinning
+    mechanisms keep the requested target so an override reads as a
+    ``wrong_node`` divergence."""
+    advisory = mechanism == "affinityOnly"
+    intended = landed if advisory and landed is not None else requested
+    return (service, pod, intended, landed, advisory)
 
 
 class IntentLedger:
@@ -118,15 +121,23 @@ class IntentLedger:
     (``tenant=<name>``: the drift gauge is then the tenant-labeled
     ``fleet_reconcile_drift_pods``, published through ``tenant_series``,
     the fleet's cardinality gate, and the ledger's events carry the
-    tenant). The JAX package's adopt-observed mode (its shadow plane's
-    replay backend) waits with that plane (ROADMAP Queue 1 item 4.3).
+    tenant).
+
+    ``adopt_observed`` (an advisory-only backend: the shadow plane's replay
+    backend) makes the snapshot stream ground truth: the recorded cluster's
+    own scheduler moving pods is the baseline under study, not another
+    actor drifting state. Every diff adopts the observed placement, and no
+    divergence is charged or repaired: "corrective" moves would land in the
+    shadow ledger as recommendations.
     """
 
-    def __init__(self, *, registry=None, logger=None, tenant=None, tenant_series=None):
+    def __init__(self, *, registry=None, logger=None, tenant=None, tenant_series=None,
+                 adopt_observed: bool = False):
         self.registry = registry
         self.logger = logger
         self.tenant = tenant
         self.tenant_series = tenant_series
+        self.adopt_observed = adopt_observed
         self.intent: dict[str, str | None] = {}  # pod name -> node name
         self.pod_service: dict[str, str] = {}
         # each service's pods in pod_service's order (record_moves' index),
@@ -285,13 +296,17 @@ class IntentLedger:
 
     def record_moves(self, intents) -> None:
         """One entry per boundary move this round:
-        ``(service, pod | None, requested_node, landed_node)`` (as
-        :func:`move_intent` builds it) — ``pod=None`` means the whole
+        ``(service, pod | None, requested_node, landed_node[, advisory])``
+        (as :func:`move_intent` builds it) — ``pod=None`` means the whole
         Deployment moved (the service-unit mechanisms), a name means one
         replica (pod mode / repairs). A failed move (``landed is None``)
-        changes no intent."""
+        changes no intent. ``advisory`` marks a move whose true landing the
+        backend could not report at apply time (k8s echoes the advisory
+        target): the next :meth:`observe` adopts wherever the pod sits
+        instead of charging a scheduler override as drift."""
         for entry in intents:
-            service, pod, requested, landed = entry
+            service, pod, requested, landed = entry[:4]
+            advisory = bool(entry[4]) if len(entry) > 4 else False
             if landed is None:
                 continue
             pods = [pod] if pod is not None else self._service_pods().get(service, [])
@@ -301,6 +316,7 @@ class IntentLedger:
                     "requested": requested,
                     "landed": landed,
                     "old": self.intent.get(p),
+                    "advisory": advisory,
                 }
                 self.intent[p] = requested
                 # an explicit move supersedes any queued repair
@@ -334,6 +350,11 @@ class IntentLedger:
             # DATA in a fresh object is undetectable here by
             # construction — that is what the debounce and the repair
             # loop's convergence absorb.)
+            return {"divergences": []}
+        if self.adopt_observed:
+            # advisory backend: observed IS intent — one wholesale rebase,
+            # no classification, no repairs
+            self.rebase(state, service_names=service_names, host_arrays=host_arrays)
             return {"divergences": []}
 
         host = self._host(state, host_arrays)
@@ -391,9 +412,10 @@ class IntentLedger:
                     self._missing_streak[pod] = streak
                     if pod in moves:
                         # the deferred diff still needs this move's meta
-                        # (the true old node): without it a debounced
-                        # pod's lost move would read as drift instead of
-                        # lost_move
+                        # (advisory flag, true old node): without it a
+                        # debounced pod's scheduler override would read as
+                        # external_drift, and a lost pinning move as drift
+                        # instead of lost_move
                         self.moves[pod] = moves[pod]
                     continue
                 diverge(KIND_MISSING_POD, pod, expected, None)
@@ -405,6 +427,14 @@ class IntentLedger:
                 self.repairs.pop(pod, None)  # converged (repair landed)
                 continue
             meta = moves.get(pod)
+            if meta is not None and meta.get("advisory"):
+                # advisory mechanism: this monitor is the FIRST time the
+                # scheduler's pick is observable (the backend could only
+                # echo the advisory target) — adopted, never charged or
+                # repaired
+                self.intent[pod] = observed
+                self.repairs.pop(pod, None)
+                continue
             if observed is None:
                 if expected is None or expected not in alive:
                     # evicted by a node death the snapshot itself shows —
@@ -520,24 +550,35 @@ class IntentLedger:
 
     def issue_repairs(self, boundary, budget: int) -> list[dict]:
         """Issue up to ``budget`` corrective moves through the boundary
-        (retry/breaker/failure budget all apply — a repair is a move
-        like any other), each pinning one pod. Issued repairs leave the
-        queue and are re-recorded as intent, so the next :meth:`observe` either sees
+        (retry/breaker/failure budget all apply — a repair is a move like
+        any other): each pins one pod where the backend supports it, the
+        pod's whole Deployment where it cannot pin one replica
+        (``supports_pod_moves = False``). Issued repairs leave the queue and
+        are re-recorded as intent, so the next :meth:`observe` either sees
         convergence or re-detects and re-queues; a boundary-failed repair
         re-queues immediately. ``budget == 0`` disables repairs (detect
         and count only). Returns the issued repair dicts (with their
         ``landed`` outcome) for the round record."""
         if budget <= 0 or not self.repairs:
             return []
+        # the k8s Deployment mechanism cannot pin ONE replica (a deleted
+        # replica is re-created unpinned by its ReplicaSet); such backends
+        # run service-unit placement, so every pod of a service shares the
+        # intended node and a Deployment-wide pin IS the corrective move
+        pod_scoped = getattr(getattr(boundary, "raw_backend", None), "supports_pod_moves",
+                             True)
         issued: list[dict] = []
         for pod in list(self.repairs):
             if len(issued) >= budget:
                 break
-            rep = self.repairs.pop(pod)
+            # a service-scoped repair's record_moves pops sibling repairs
+            rep = self.repairs.pop(pod, None)
+            if rep is None:
+                continue
             landed = boundary.apply_move(
                 MoveRequest(
                     service=rep["service"] or "",
-                    pod=pod,
+                    pod=pod if pod_scoped else None,
                     target_node=rep["target"],
                     # a corrective move PINS: the whole point is landing
                     # exactly where the intent says
@@ -557,7 +598,8 @@ class IntentLedger:
                     "intent, by the divergence kind they repair",
                     labelnames=("kind",),
                 ).labels(kind=rep["kind"]).inc()
-                self.record_moves([(rep["service"], pod, rep["target"], landed)])
+                self.record_moves([(rep["service"], pod if pod_scoped else None,
+                                    rep["target"], landed)])
                 if rep.get("from") is not None and pod in self.moves:
                     # record_moves captured old=intent (== the repair
                     # target); the classifying diff needs the node the

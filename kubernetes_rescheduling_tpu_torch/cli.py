@@ -15,6 +15,8 @@ package's commands for what the port computes.
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm proactive --churn-profile diurnal-autoscale
     python -m kubernetes_rescheduling_tpu_torch reschedule --serve 0 --metrics-out m.jsonl --trace-out t.json
     python -m kubernetes_rescheduling_tpu_torch reschedule --serve 0 --place --imbalance
+    python -m kubernetes_rescheduling_tpu_torch reschedule --shadow tests/fixtures/shadow --algorithm global
+    python -m kubernetes_rescheduling_tpu_torch reschedule --backend k8s --namespace default
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --sparse
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --placement-unit pod
@@ -38,7 +40,12 @@ loop (``/metrics``, ``/healthz``, ``/events``, ``/tenants``, ``/slo``,
 ``--place`` adds the serving engine behind ``POST /place``), and
 ``--metrics-out`` / ``--trace-out`` write the metrics registry (JSONL and a
 ``.prom`` exposition) and the host-side spans (Chrome trace JSON), each with
-a run manifest. Best-of-N restarts and node sharding (``--restarts``,
+a run manifest. ``reschedule --shadow TRACE`` replays a recorded cluster
+trace (a native ``.jsonl`` file, or a directory of Alibaba- or Borg-style
+CSVs) in shadow mode: recommendations are recorded, never applied, and
+scored against the trace's scheduler (the output's ``shadow`` block).
+``--backend k8s`` drives a live cluster through the ``kubernetes`` client
+(``--namespace``, ``--workmodel``), pacing 15 s between rounds. Best-of-N restarts and node sharding (``--restarts``,
 ``--tp`` above 1) are refused, naming the ROADMAP item that brings them.
 """
 
@@ -66,6 +73,7 @@ from kubernetes_rescheduling_tpu_torch.config import (
     ForecastConfig,
     RescheduleConfig,
     ServingConfig,
+    ShadowConfig,
     SloConfig,
 )
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
@@ -115,8 +123,11 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--algorithm", default="communication",
                    help="spread|binpack|random|kubescheduling|communication|car|global|"
                         "proactive")
-    r.add_argument("--backend", default="sim",
-                   help="sim (the only backend the port drives so far)")
+    r.add_argument("--backend", default="sim", choices=["sim", "k8s"],
+                   help="sim (the simulator) or k8s (a live cluster through the kubernetes "
+                        "client)")
+    r.add_argument("--namespace", default="default",
+                   help="the k8s backend's namespace")
     r.add_argument("--scenario", default="mubench", choices=SCENARIOS)
     r.add_argument("--workmodel", default=None, help=WORKMODEL_HELP)
     r.add_argument("--rounds", type=int, default=10)
@@ -193,6 +204,21 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--fleet-chaos-tenants", default="", metavar="I,J,...",
                    help="tenant indices the --chaos-profile wraps (empty = every tenant; "
                         "tenant t's faults seeded --chaos-seed + t)")
+    r.add_argument("--shadow", default=None, metavar="TRACE",
+                   help="shadow mode: replay a recorded cluster trace (a native ClusterTrace "
+                        ".jsonl file, or a directory of Alibaba-style machines/containers CSVs "
+                        "or Borg-style machine_events/task_usage CSVs), recommend moves WITHOUT "
+                        "applying any, and score our counterfactual placement against what the "
+                        "trace's scheduler actually did")
+    r.add_argument("--shadow-format", default="auto",
+                   choices=["auto", "native", "alibaba", "borg"],
+                   help="force the --shadow trace layout (auto detects from the path's "
+                        "contents)")
+    r.add_argument("--shadow-win-margin", type=float, default=0.0,
+                   help="undercut a shadow round must achieve to count as a win: "
+                        "counterfactual cost <= actual * (1 - margin); 0 = ties count as wins")
+    r.add_argument("--no-admission", action="store_true",
+                   help="turn off the snapshot admission guard")
     r.add_argument("--tenant-label-budget", type=int, default=64, metavar="N",
                    help="fleet cardinality budget: fleets of more than N tenants suppress "
                         "the per-tenant labeled series (counted) and observe through the "
@@ -455,9 +481,78 @@ def _parse_tenant_list(raw: str) -> tuple[int, ...]:
             f"--fleet-chaos-tenants must be comma-separated ints, got {raw!r}") from None
 
 
+def _refuse_shadow_compositions(args) -> None:
+    """The JAX command's clean exits for what ``--shadow`` and ``--backend
+    k8s`` cannot compose with (``config.validate()`` refuses the same),
+    before any trace parsing or cluster work."""
+    if args.shadow:
+        for flag, why in (
+            (args.fleet, "--fleet (no per-tenant counterfactual twin)"),
+            (args.backend == "k8s", "--backend k8s (the trace IS the cluster)"),
+            (args.churn_profile != "none", "--churn-profile (the trace replays recorded churn)"),
+            (args.chaos_profile != "none",
+             "--chaos-profile (corrupting the replayed trace poisons the head-to-head scores)"),
+            (args.imbalance, "--imbalance (recorded state cannot be mutated)"),
+            (args.placement_unit == "pod",
+             "--placement-unit pod (shadow scoring is service-granular)"),
+            (args.no_admission, "--no-admission (replayed snapshots must ride the guard)"),
+        ):
+            if flag:
+                raise SystemExit(f"--shadow is incompatible with {why}")
+        if args.place:
+            raise SystemExit("--place is incompatible with --shadow: the replay backend's "
+                             "fresh-snapshot contract cannot feed a second consumer")
+    if args.fleet:
+        return
+    if args.backend == "k8s" and args.churn_profile != "none":
+        raise SystemExit("--churn-profile requires the sim backend: a live cluster churns itself")
+    if args.backend == "k8s" and args.placement_unit == "pod":
+        # K8sBackend refuses per-pod moves: fail before solving the pod graph
+        raise SystemExit("--placement-unit pod requires the sim backend: the k8s Deployment "
+                         "mechanism cannot pin a single replica")
+
+
+def _make_backend(args):
+    """The run's backend: a replayed trace (``--shadow``), a live cluster
+    (``--backend k8s``) or the scenario's simulator."""
+    if args.shadow:
+        from kubernetes_rescheduling_tpu_torch.backends.replay import ReplayBackend
+        from kubernetes_rescheduling_tpu_torch.traces.adapters import load_shadow_trace
+
+        return ReplayBackend(load_shadow_trace(args.shadow, fmt=args.shadow_format),
+                             device=args.device)
+    if args.backend == "k8s":
+        from kubernetes_rescheduling_tpu_torch.backends.k8s import K8sBackend
+        from kubernetes_rescheduling_tpu_torch.core.workmodel import mubench_workmodel_c
+
+        wm = Workmodel.from_file(args.workmodel) if args.workmodel else mubench_workmodel_c()
+        return K8sBackend(workmodel=wm, namespace=args.namespace, device=args.device)
+    backend = make_backend(args.scenario, args.seed, device=args.device,
+                           workmodel_path=args.workmodel)
+    if args.imbalance:
+        backend.inject_imbalance(backend.node_names[0])
+    return backend
+
+
+def _shadow_summary(args, backend, result) -> dict:
+    """The output's ``shadow`` block: recommendations, scored rounds, wins,
+    the final running win rate and the mean cost delta."""
+    blocks = [r.shadow for r in result.rounds if r.shadow]
+    deltas = [b["cost_delta"] for b in blocks]
+    return {
+        "trace": args.shadow,
+        "recommendations": len(backend.recommendations),
+        "scored_rounds": len(blocks),
+        "wins": sum(1 for b in blocks if b.get("win")),
+        "win_rate": blocks[-1]["win_rate"] if blocks else None,
+        "mean_cost_delta": sum(deltas) / len(deltas) if deltas else None,
+    }
+
+
 def cmd_reschedule(args) -> dict:
     _refuse_unported("reschedule", args)
     algo = _norm_algo(args.algorithm)
+    _refuse_shadow_compositions(args)
     if args.place and args.fleet:
         raise SystemExit("--place is a solo-loop plane: serving scores against ONE backend's "
                          "snapshot (per-tenant serving is future work)")
@@ -476,7 +571,8 @@ def cmd_reschedule(args) -> dict:
         algorithm=algo,
         max_rounds=args.rounds,
         hazard_threshold_pct=args.threshold,
-        sleep_after_action_s=0.0,
+        # pacing: none on the simulator, the reference's 15 s otherwise
+        sleep_after_action_s=0.0 if args.backend == "sim" else 15.0,
         moves_per_round=args.moves_per_round,
         balance_weight=args.balance_weight,
         move_cost=args.move_cost,
@@ -486,7 +582,9 @@ def cmd_reschedule(args) -> dict:
         enforce_capacity=args.capacity_frac is not None,
         capacity_frac=args.capacity_frac if args.capacity_frac is not None else 1.0,
         seed=args.seed,
-        backend=args.backend,
+        backend="replay" if args.shadow else args.backend,
+        reconcile_admission=not args.no_admission,
+        shadow=ShadowConfig(enabled=bool(args.shadow), win_margin=args.shadow_win_margin),
         chaos=args.chaos_profile,
         chaos_seed=args.chaos_seed,
         pipeline=args.pipeline,
@@ -513,10 +611,7 @@ def cmd_reschedule(args) -> dict:
         raise SystemExit(f"{'--fleet' if args.fleet else 'reschedule'}: {e}") from None
     if args.fleet:
         return _run_fleet(args, cfg)
-    backend = make_backend(args.scenario, args.seed, device=args.device,
-                           workmodel_path=args.workmodel)
-    if args.imbalance:
-        backend.inject_imbalance(backend.node_names[0])
+    backend = _make_backend(args)
     ops, logger = _build_ops_plane(args, cfg)
     engine = None
     try:
@@ -535,7 +630,7 @@ def cmd_reschedule(args) -> dict:
             engine.stop()
         if ops is not None:
             ops.close()
-    return {
+    out = {
         "algorithm": algo,
         "rounds": [rec.as_dict() for rec in result.rounds],
         "moves": result.moves,
@@ -545,6 +640,9 @@ def cmd_reschedule(args) -> dict:
         "boundary_failures": result.boundary_failures,
         "breaker_transitions": result.breaker_transitions,
     }
+    if args.shadow:
+        out["shadow"] = _shadow_summary(args, backend, result)
+    return out
 
 
 def _run_fleet(args, cfg: RescheduleConfig) -> dict:

@@ -10,8 +10,9 @@ their block (``reconcile_admission`` is ``reconcile.admission``,
 fields are ``obs.*`` under the same names), with the JAX package's
 defaults, and :meth:`RescheduleConfig.validate` refuses what the JAX
 package refuses, for the same reasons. Fleet mode, the forecast plane, the
-serving plane and SLO v2 keep their blocks (:class:`FleetConfig`,
-:class:`ForecastConfig`, :class:`ServingConfig`, :class:`SloConfig`). The config also carries
+serving plane, SLO v2 and shadow mode keep their blocks (:class:`FleetConfig`,
+:class:`ForecastConfig`, :class:`ServingConfig`, :class:`SloConfig`,
+:class:`ShadowConfig`). The config also carries
 planes this port does not have yet: each keeps a field whose default is
 off, and ``validate`` refuses it, naming the ROADMAP item that brings it —
 a run never quietly does something else.
@@ -253,6 +254,30 @@ class SloConfig:
 
 
 @dataclass(frozen=True)
+class ShadowConfig:
+    """Shadow mode (the JAX package's ``[shadow]`` block): replay a recorded
+    cluster trace, recommend moves without applying any, and score our
+    counterfactual placement against what the trace's scheduler did
+    (``backends/replay.py``, ``bench/shadow.py``).
+
+    ``enabled`` turns the plane on; the run must use the replay backend
+    (``reschedule --shadow TRACE`` builds both together). ``win_margin`` is
+    the undercut a round must achieve to count as a win: our counterfactual
+    cost at or below ``actual · (1 − win_margin)`` (0 = ties count)."""
+
+    enabled: bool = False
+    win_margin: float = 0.0
+
+    def validate(self) -> "ShadowConfig":
+        if not (0.0 <= self.win_margin < 1.0):
+            raise ValueError(
+                f"shadow win_margin must be in [0, 1) (a fraction of the actual cost to "
+                f"undercut), got {self.win_margin}"
+            )
+        return self
+
+
+@dataclass(frozen=True)
 class RescheduleConfig:
     """One config object for a rescheduling run."""
 
@@ -269,6 +294,8 @@ class RescheduleConfig:
     # the wave cap: at most k strictly improving moves a round
     global_moves_cap: int | str = "all"
 
+    # "sim" (the simulator), "replay" (a recorded trace, shadow mode) or
+    # "k8s" (a live cluster through backends/k8s.py)
     backend: str = "sim"
     # global solver
     enforce_capacity: bool = False         # reference never checks capacity
@@ -331,6 +358,10 @@ class RescheduleConfig:
     slo_forecast_min_skill: float = 0.0
     slo_pipeline_min_overlap: float = 0.0
     slo_reconcile_drift_pods: int = 0
+    # the shadow_win_rate rule: a shadow run whose running win rate against
+    # the trace's scheduler sits below this is in violation (0 = off; only
+    # rounds carrying shadow data are judged)
+    slo_shadow_min_win_rate: float = 0.0
     slo_fleet_tail_frac: float = 0.0
     slo_scan_tripwire: bool = True
     slo_serving_p99_ms: float = 0.0
@@ -382,8 +413,9 @@ class RescheduleConfig:
     chaos: str = "none"          # chaos.profile
     chaos_seed: int = 0          # chaos.seed
 
-    # planes of the JAX package that this port does not carry yet
-    shadow: bool = False         # shadow.enabled
+    # shadow mode (shadow.*): replayed trace windows, recommendations in a
+    # shadow ledger, the counterfactual twin scored every round
+    shadow: ShadowConfig = field(default_factory=ShadowConfig)
 
     def validate(self) -> "RescheduleConfig":
         if self.algorithm not in ALGORITHMS:
@@ -424,11 +456,6 @@ class RescheduleConfig:
             )
         if self.solver_restarts < 1 or self.solver_tp < 1:
             raise ValueError("solver_restarts and solver_tp must be >= 1")
-        if self.backend != "sim":
-            raise ValueError(
-                f"backend {self.backend!r}: the port drives only the simulator so far "
-                "(the k8s backend is ROADMAP Queue 1 item 4.3)"
-            )
         self.retry.validate()
         self.forecast.validate()
         if self.algorithm == "proactive":
@@ -452,10 +479,6 @@ class RescheduleConfig:
                 f"unknown chaos profile {self.chaos!r}; expected one of "
                 f"{sorted(CHAOS_PROFILES)}"
             )
-        if self.shadow:
-            raise ValueError(
-                "shadow mode (bench/shadow.py) is not ported yet (ROADMAP Queue 1 item 4.3)"
-            )
         if self.max_consecutive_failures < 0:
             raise ValueError("max_consecutive_failures must be >= 0")
         if self.breaker_cooldown_rounds < 1:
@@ -477,8 +500,44 @@ class RescheduleConfig:
         self.slo.validate()
         self._validate_schedules()
         self._validate_elastic()
+        self._validate_shadow()
         self._validate_fleet()
         return self
+
+    def _validate_shadow(self) -> None:
+        """What the JAX package refuses of shadow mode: it is the solo greedy
+        or global loop over replayed snapshots, and the planes it cannot
+        compose with are refused rather than scored as nonsense."""
+        self.shadow.validate()
+        if not self.shadow.enabled:
+            return
+        if self.fleet.tenants > 0:
+            raise ValueError(
+                "shadow mode is a solo-loop plane: fleet multiplexing has no per-tenant "
+                "counterfactual twin yet"
+            )
+        if self.elastic != "none":
+            raise ValueError(
+                "shadow mode replays RECORDED churn: the synthetic churn engine cannot "
+                "compose with a trace-driven cluster"
+            )
+        if self.chaos != "none":
+            raise ValueError(
+                "shadow mode cannot compose with chaos injection: corrupting the replayed "
+                "trace poisons the very head-to-head scores the plane exists to produce "
+                "(and stale re-serves break the replay backend's fresh-snapshot contract)"
+            )
+        if self.placement_unit != "service":
+            raise ValueError(
+                "shadow scoring re-homes whole services (applied_moves is "
+                "service-granular); placement_unit='pod' is not supported in shadow mode"
+            )
+        if not self.reconcile_admission:
+            raise ValueError(
+                "shadow mode requires the admission guard: replayed real-world snapshots "
+                "are exactly the untrusted input it quarantines (and the shadow plane "
+                "reuses its pulled host arrays)"
+            )
 
     def _validate_obs(self) -> None:
         """The JAX package's ``ObsConfig.validate`` over the fields the port
@@ -516,6 +575,10 @@ class RescheduleConfig:
             raise ValueError(
                 "slo_reconcile_drift_pods must be >= 0 (0 disables the reconcile_divergence "
                 "rule)")
+        if not (0.0 <= self.slo_shadow_min_win_rate <= 1.0):
+            raise ValueError(
+                "slo_shadow_min_win_rate must be in [0, 1] (a win-rate fraction; 0 disables "
+                "the shadow_win_rate rule)")
         if self.slo_serving_p99_ms < 0:
             raise ValueError(
                 "slo_serving_p99_ms must be >= 0 (0 disables the serving_p99 rule)")
@@ -601,6 +664,18 @@ class RescheduleConfig:
                     "controller scan_block requires moves_per_round=1 (the scan body is "
                     "the reference-faithful one-decision round)"
                 )
+            if self.backend != "sim":
+                raise ValueError(
+                    "controller scan_block requires the hermetic sim backend: the device "
+                    "twin IS the simulator's steady-state update, and a live cluster has "
+                    "no twin"
+                )
+            if self.shadow.enabled:
+                raise ValueError(
+                    "controller scan_block cannot compose with shadow mode: replayed trace "
+                    "windows drive every round, so there is no steady state for the twin "
+                    "to scan"
+                )
         for name, rule in (("tripwire_cost_frac", "cost_regression"),
                            ("tripwire_load_factor", "load_std_spike"),
                            ("tripwire_hazard_streak", "hazard_streak")):
@@ -612,6 +687,11 @@ class RescheduleConfig:
         if self.elastic not in valid:
             raise ValueError(
                 f"unknown churn profile {self.elastic!r}; expected one of {sorted(valid)}"
+            )
+        if self.elastic != "none" and self.backend == "k8s":
+            raise ValueError(
+                "churn injection requires the hermetic sim backend: a live cluster churns "
+                "itself"
             )
         if self.bucket_floor < 1:
             raise ValueError(f"bucket_floor must be >= 1, got {self.bucket_floor}")

@@ -11,8 +11,9 @@ snapshots — the port of ``kubernetes_rescheduling_tpu.forecast``.
 
 The numpy twin is :mod:`oracle.forecast`; the ``proactive`` algorithm that
 consumes the predictions is :mod:`policies.proactive` and the controller.
-``forecast/dataset.py`` (the ``telemetry dataset`` mode) is not ported yet
-(ROADMAP Queue 1 item 4.4).
+Of ``forecast/dataset.py`` the port carries :func:`dataset.load_rounds`
+(the trace adapters read recorded rounds with it); its datasets and the
+``telemetry dataset`` mode are not ported yet (ROADMAP Queue 1 item 4.4).
 """
 
 from kubernetes_rescheduling_tpu_torch.forecast.fleet import FleetForecastPlane

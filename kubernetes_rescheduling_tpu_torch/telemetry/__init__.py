@@ -19,9 +19,10 @@
   ``/slo``, ``/query``, ``POST /profile``, and the :class:`OpsPlane` the
   loops consume.
 
-The compiled-cost book and the perf ledger (``costmodel.py``,
-``perf_ledger.py``, ``report.py``) are ROADMAP Queue 1 item 4.4; the mesh
-plane (``MeshPlane``, ``DeviceSeries``) is item 5.
+Of ``report.py`` the port carries :func:`report.report_shadow` (the shadow
+run's head-to-head table); the other reports, the compiled-cost book and
+the perf ledger (``costmodel.py``, ``perf_ledger.py``) are ROADMAP Queue 1
+item 4.4; the mesh plane (``MeshPlane``, ``DeviceSeries``) is item 5.
 """
 
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import (

@@ -685,9 +685,7 @@ class OpsPlane:
                 reconcile_max_drift_pods=getattr(
                     obs, "slo_reconcile_drift_pods", 0
                 ),
-                shadow_min_win_rate=getattr(
-                    obs, "slo_shadow_min_win_rate", 0.0
-                ),
+                shadow_min_win_rate=obs.slo_shadow_min_win_rate,
                 fleet_tail_frac=getattr(obs, "slo_fleet_tail_frac", 0.0),
                 scan_tripwire=getattr(obs, "slo_scan_tripwire", True),
                 serving_p99_ms=getattr(obs, "slo_serving_p99_ms", 0.0),

@@ -50,6 +50,7 @@ from kubernetes_rescheduling_tpu_torch.bench.harness import make_backend as t_ma
 from kubernetes_rescheduling_tpu_torch.config import FleetConfig as TFleetConfig
 from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig as TConfig
 from kubernetes_rescheduling_tpu_torch.config import ServingConfig as TServingConfig
+from kubernetes_rescheduling_tpu_torch.config import ShadowConfig as TShadowConfig
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
 from kubernetes_rescheduling_tpu_torch.objectives import communication_cost
 from kubernetes_rescheduling_tpu_torch.solver import sparse_solver as tss
@@ -414,13 +415,17 @@ REFUSED = [
     (dict(algorithm="proactive", scan_block=4), "pinning greedy algorithm"),
     (dict(solver_restarts=2), r"ROADMAP Queue 1 item 5\b"),
     (dict(solver_tp=2), r"ROADMAP Queue 1 item 5\b"),
-    (dict(backend="k8s"), r"ROADMAP Queue 1 item 4\b"),
+    # the k8s backend is carried: churn on a live cluster is refused, as in
+    # the JAX package
+    (dict(backend="k8s", elastic="steady"), "churn injection requires the hermetic sim"),
     # chaos is carried: an unknown profile is refused with with_chaos's message
     (dict(chaos="tsunami"), "unknown chaos profile 'tsunami'"),
     # the port carries churn and both schedules now; what the JAX package
     # refuses of them, it refuses too
     (dict(elastic="tsunami"), "unknown churn profile"),
-    (dict(shadow=True), r"ROADMAP Queue 1 item 4\b"),
+    # shadow mode is carried: chaos on the replayed trace is refused
+    (dict(shadow=TShadowConfig(enabled=True), chaos="soak"),
+     "shadow mode cannot compose with chaos"),
     # fleet mode is carried; its dp plane is multi-device
     (dict(fleet=TFleetConfig(tenants=4, plane="dp")), r"ROADMAP Queue 1 item 5\b"),
     # the serving plane is carried: it scores with the greedy machinery only
@@ -453,8 +458,10 @@ def test_cli_refuses_what_the_port_does_not_carry():
     # --place needs the ops server in front of it, as in the JAX command
     with pytest.raises(SystemExit, match=r"--place requires --serve"):
         t_cli.main(["reschedule", "--place", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 4"):
-        t_cli.main(["reschedule", "--backend", "k8s", "--device", "cpu"])
+    # the k8s backend cannot pin one replica: the JAX command's clean exit
+    with pytest.raises(SystemExit, match="--placement-unit pod requires the sim backend"):
+        t_cli.main(["reschedule", "--backend", "k8s", "--placement-unit", "pod",
+                    "--algorithm", "global", "--device", "cpu"])
 
 
 def test_run_controller_raises_without_a_card():

@@ -92,6 +92,15 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import kubernetes_rescheduling_tpu_torch.telemetry.mesh\n"
         "import kubernetes_rescheduling_tpu_torch.telemetry.server\n"
         "import kubernetes_rescheduling_tpu_torch.objectives.metrics\n"
+        "import kubernetes_rescheduling_tpu_torch.traces\n"
+        "import kubernetes_rescheduling_tpu_torch.traces.corpus\n"
+        "import kubernetes_rescheduling_tpu_torch.traces.adapters\n"
+        "import kubernetes_rescheduling_tpu_torch.forecast.dataset\n"
+        "import kubernetes_rescheduling_tpu_torch.backends.replay\n"
+        "import kubernetes_rescheduling_tpu_torch.backends.k8s\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.shadow\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.reconcile\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.report\n"
         "from kubernetes_rescheduling_tpu_torch.telemetry import OpsPlane, run_manifest\n"
         "OpsPlane.from_config(kubernetes_rescheduling_tpu_torch.config.RescheduleConfig())\n"
         "run_manifest()\n"
@@ -131,6 +140,8 @@ def test_chip_smoke_alone_fails_without_the_package(tmp_path):
 def _entry_points():
     from kubernetes_rescheduling_tpu_torch import cli, convert
     from kubernetes_rescheduling_tpu_torch.backends.fleet import make_fleet
+    from kubernetes_rescheduling_tpu_torch.backends.k8s import K8sBackend
+    from kubernetes_rescheduling_tpu_torch.backends.replay import ReplayBackend
     from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller
     from kubernetes_rescheduling_tpu_torch.bench.fleet import run_fleet_controller
     from kubernetes_rescheduling_tpu_torch.bench.harness import (
@@ -147,7 +158,10 @@ def _entry_points():
     from kubernetes_rescheduling_tpu_torch.serving import ServingEngine
     from kubernetes_rescheduling_tpu_torch.solver import run_rounds
     from kubernetes_rescheduling_tpu_torch.telemetry import OpsPlane
+    from kubernetes_rescheduling_tpu_torch.traces import load_shadow_trace, window_state
     from kubernetes_rescheduling_tpu_torch.utils.checkpoint import load_state
+
+    shadow = REPO / "tests" / "fixtures" / "shadow"
 
     def cpu_mubench():
         return topology.mubench_scenario(device="cpu")
@@ -230,6 +244,13 @@ def _entry_points():
             ["reschedule", "--serve", "0", "--place", "--metrics-out", "unused.jsonl"]),
         "run_chaos_soak ops": lambda: run_chaos_soak(rounds=1, ops=OpsPlane.from_config(
             RescheduleConfig(), bundle_dir=None)),
+        "window_state": lambda: window_state(load_shadow_trace(shadow), 0),
+        "ClusterTrace.comm_graph": lambda: load_shadow_trace(shadow).comm_graph(),
+        "ReplayBackend": lambda: ReplayBackend(load_shadow_trace(shadow)),
+        "K8sBackend": lambda: K8sBackend(workmodel=Workmodel(services=(ServiceSpec("a"),)),
+                                         core_api=object(), apps_api=object(),
+                                         custom_api=object()),
+        "cli reschedule --shadow": lambda: cli.main(["reschedule", "--shadow", str(shadow)]),
     }
 
 

@@ -15,9 +15,10 @@ keys ``solver/compiled.py`` is asked for (one graph a key on the card).
 
 The ops-server cases (the engine's feeds, ``/healthz``, the
 ``serving_p99`` rule and its bundle, ``POST /place``) run the same way, at
-the bottom. Waiting elsewhere: ``test_serving_config_from_toml`` (the port
-reads no TOML files yet, ROADMAP Queue 1 item 4.4) and
-``test_alibaba_fixture_served_parity`` (the replay backend, item 4.3).
+the bottom. ``test_alibaba_fixture_served_parity`` runs in
+tests/test_torch_shadow.py with the replay backend; waiting:
+``test_serving_config_from_toml`` (the port reads no TOML files yet, ROADMAP
+Queue 1 item 4.4).
 """
 
 import dataclasses
