@@ -34,3 +34,12 @@ def tenant_seed(seed: int, tenant: int) -> int:
     draws as a solo run of this seed would."""
     words = np.random.SeedSequence([seed % 2**63, tenant % 2**63, 1]).generate_state(2, np.uint32)
     return (int(words[0]) << 31) | (int(words[1]) >> 1)
+
+
+def derive_seed(seed: int, *words: int) -> int:
+    """A 62-bit seed that depends only on ``(seed, *words)`` — the port's
+    counterpart of ``fold_in`` for seeds handed to a ``torch.Generator``
+    (phase keys, segments, chunks)."""
+    state = np.random.SeedSequence([seed % 2**63, *(w % 2**63 for w in words), 2])
+    hi, lo = state.generate_state(2, np.uint32)
+    return (int(hi) << 31) | (int(lo) >> 1)

@@ -122,6 +122,7 @@ from kubernetes_rescheduling_tpu_torch.solver.round_loop import (
     decide_with_forecast,
 )
 from kubernetes_rescheduling_tpu_torch.telemetry import attribution as attribution_mod
+from kubernetes_rescheduling_tpu_torch.telemetry import costmodel
 from kubernetes_rescheduling_tpu_torch.telemetry import tripwire as tripwire_mod
 from kubernetes_rescheduling_tpu_torch.telemetry.accounting import pull_arrays
 from kubernetes_rescheduling_tpu_torch.telemetry.explain import (
@@ -234,6 +235,17 @@ class ControllerResult:
     @property
     def moves(self) -> int:
         return sum(1 for r in self.rounds if r.moved)
+
+    def latency_summary(self) -> dict[str, float]:
+        """The per-decision latency distribution, from every decision's
+        own sample (a capture-heavy first solve shows in max and p99)."""
+        from kubernetes_rescheduling_tpu_torch.utils.profiling import LatencyHistogram
+
+        hist = LatencyHistogram()
+        for r in self.rounds:
+            for s in r.decision_latencies_s:
+                hist.add(s)
+        return hist.summary()
 
 
 def _emit_round_metrics(registry: MetricsRegistry, algorithm: str, record: RoundRecord) -> None:
@@ -413,6 +425,20 @@ class _Runtime:
         # round-end transfer the loop pays anyway
         self.attr_k = config.attribution_top_k if config.attribution and listening else 0
         self.timeline = attribution_mod.PlacementTimeline() if self.attr_k > 0 else None
+        # the captured graph whose recorded cost the round's roofline reads
+        # (costmodel.observe_round_device): the solve of a global round
+        # (sparse and pod rounds go through the sparse solve, which routes a
+        # one-block graph through the dense one), the forecast step of a
+        # proactive round; a greedy decide is not captured
+        if config.algorithm == "global" or config.moves_per_round == "all":
+            self.roofline_fns = (
+                ("global_assign_sparse", "global_assign")
+                if config.solver_backend == "sparse" or config.placement_unit == "pod"
+                else ("global_assign",))
+        elif self.forecast_plane is not None:
+            self.roofline_fns = ("controller_forecast",)
+        else:
+            self.roofline_fns = ()
         # in-block tripwires of the scanned schedule; the latest tripped
         # block's report waits in scan_trip until _scanned_loop drains it
         self.scan_tripwire = bool(config.scan_block and config.scan_tripwires)
@@ -848,6 +874,10 @@ class _Runtime:
         self.result.rounds.append(record)
         _emit_round_metrics(self.registry, self.config.algorithm, record)
         observe_wall_round(self.registry, mode, record.wall_s)
+        # device memory gauges and the round's roofline against the
+        # captured graph's recorded cost
+        costmodel.observe_round_device(self.registry, fn_labels=self.roofline_fns,
+                                       seconds=record.decision_latency_s)
         if record.degraded:
             self.registry.counter(
                 "degraded_rounds_total",

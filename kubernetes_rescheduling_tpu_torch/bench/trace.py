@@ -14,9 +14,9 @@ then the solve on the previous step's state — is one replay of the graph
 captured for the step, its inputs (the step's multipliers, plans and
 seeds) copied into the graph's buffers first.
 
-Not ported: ``observed_step`` (it needs ``bench/loadgen.py``, ROADMAP
-Queue 1 item 4.4) and ``replay(restarts > 1)`` (``parallel/sharded.py``,
-item 5); both raise naming their item.
+:func:`observed_step` turns the load generator's observed traffic into a
+step. Not ported: ``replay(restarts > 1)`` (``parallel/sharded.py``, ROADMAP
+Queue 1 item 5); it raises naming its item.
 """
 
 from __future__ import annotations
@@ -173,11 +173,11 @@ def load_trace(path: str | Path) -> list[TraceStep]:
 
 
 def observed_step(t: float, loadgen, samples) -> TraceStep:
-    """Not ported: the observed-traffic step needs the load generator
-    (``bench/loadgen.py``)."""
-    raise NotImplementedError(
-        "observed_step needs bench/loadgen.py, not ported yet (ROADMAP Queue 1 item 4.4)"
-    )
+    """A :class:`TraceStep` whose weights are the load generator's OBSERVED
+    per-pair traffic (``LoadGenerator.observed_weights``): measured traffic
+    streamed into :func:`replay` instead of a hand-written weight schedule
+    (reference README.md:47)."""
+    return TraceStep(t=t, weights=loadgen.observed_weights(samples.edge_counts, samples.sent))
 
 
 @dataclass

@@ -1,7 +1,8 @@
 """Command line of the port: ``reschedule`` (the control loop on the
-simulator), ``solve`` (one global rescheduling round) and ``trace`` (online
-rescheduling over a streaming trace), printing the JSON keys of the JAX
-package's commands for what the port computes.
+simulator), ``bench`` (the experiment matrix), ``solve`` (one global
+rescheduling round), ``trace`` (online rescheduling over a streaming trace)
+and ``telemetry`` (a run's artifacts rendered), printing the JSON keys (or
+the report text) of the JAX package's commands.
 
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm car --imbalance
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm global --scenario large
@@ -22,6 +23,8 @@ package's commands for what the port computes.
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --placement-unit pod
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --latency-budget 100
     python -m kubernetes_rescheduling_tpu_torch trace --steps 12
+    python -m kubernetes_rescheduling_tpu_torch bench --scenario mubench --repeats 1 --session s
+    python -m kubernetes_rescheduling_tpu_torch telemetry perf result/session_s/perf_ledger.jsonl
 
 All run on the card unless ``--device cpu`` is given. ``--sparse`` (and
 ``reschedule --solver-backend sparse``) solves on the block-local sparse
@@ -71,6 +74,7 @@ from kubernetes_rescheduling_tpu_torch.config import (
     POLICY_NAMES,
     FleetConfig,
     ForecastConfig,
+    PerfConfig,
     RescheduleConfig,
     ServingConfig,
     ShadowConfig,
@@ -153,47 +157,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "global round ('all' = uncapped)")
     r.add_argument("--placement-unit", default="service", choices=["service", "pod"],
                    help="pod = every replica places independently (global algorithm)")
-    r.add_argument("--chaos-profile", default="none", metavar="NAME",
-                   help="wrap the loop's backend in the fault-injecting ChaosBackend under "
-                        "this named profile (none|flaky-monitor|flaky-moves|node-flap|soak|"
-                        "reconcile); faults are seeded and counted as chaos_faults_total{kind}")
-    r.add_argument("--chaos-seed", type=int, default=0,
-                   help="seed for the injected fault stream (reproducible chaos)")
-    r.add_argument("--churn-profile", default="none", metavar="NAME",
-                   help="elastic topology churn between rounds under this seeded profile "
-                        "(none|steady|diurnal-autoscale|deploy-waves|node-flap): services "
-                        "deploy and tear down, replicas autoscale, nodes drain and join")
-    r.add_argument("--churn-seed", type=int, default=0,
-                   help="seed of the churn event stream")
-    r.add_argument("--pipeline", action="store_true",
-                   help="the software-pipelined loop: the previous round's round-end "
-                        "transfer and record overlap this round's device work, and the "
-                        "post-move monitor runs on a background thread; the records equal "
-                        "the sequential loop's. Rounds it cannot honor (open breaker, "
-                        "churn) drain to the sequential path. With --fleet N: the tenants' "
-                        "boundary phases run on a worker pool, each tenant's records equal "
-                        "to the serial fleet's")
-    r.add_argument("--pipeline-depth", type=int, default=2,
-                   help="depth of the pipelined loop; only 2 is implemented")
-    r.add_argument("--scan-block", type=int, default=0,
-                   help="the scanned schedule: K steady-state rounds a device block (decide, "
-                        "the simulator's twin and the round-end metrics, one counted "
-                        "round_end transfer a block); rounds it cannot honor drain to the "
-                        "per-round path. A pinning greedy algorithm with one move a round; "
-                        "exclusive with --pipeline. 0 = off")
-    r.add_argument("--no-scan-tripwires", action="store_true",
-                   help="turn off the in-block tripwires (device-side health rules in the "
-                        "scan body; a trip latches the rest of the block to no-move rounds "
-                        "and drains the trip round)")
-    r.add_argument("--tripwire-cost-frac", type=float, default=0.0,
-                   help="tripwire cost_regression rule: cost rising more than this fraction "
-                        "above the block-start baseline trips (0 = off)")
-    r.add_argument("--tripwire-load-factor", type=float, default=0.0,
-                   help="tripwire load_std_spike rule: load std above this factor of the "
-                        "block-start baseline trips (0 = off)")
-    r.add_argument("--tripwire-hazard-streak", type=int, default=0,
-                   help="tripwire hazard_streak rule: the same most-hazardous node this many "
-                        "rounds in a row trips (0 = off)")
     r.add_argument("--fleet", type=int, default=0, metavar="N",
                    help="fleet mode: N tenants of the scenario (tenant t seeded seed*1000+t) "
                         "under the multiplexed loop, one boundary and breaker a tenant and "
@@ -217,16 +180,66 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--shadow-win-margin", type=float, default=0.0,
                    help="undercut a shadow round must achieve to count as a win: "
                         "counterfactual cost <= actual * (1 - margin); 0 = ties count as wins")
-    r.add_argument("--no-admission", action="store_true",
-                   help="turn off the snapshot admission guard")
+    r.add_argument("--perf-ledger", default=None, metavar="PATH",
+                   help="append this run's decisions/sec to the perf ledger at PATH and "
+                        "judge it with the [perf] block's rolling-window detector; a "
+                        "regression arms the ops plane's perf_regression rule when --serve "
+                        "is active (render trends with `telemetry perf PATH`)")
     r.add_argument("--tenant-label-budget", type=int, default=64, metavar="N",
                    help="fleet cardinality budget: fleets of more than N tenants suppress "
                         "the per-tenant labeled series (counted) and observe through the "
                         "device-side rollups")
+    _add_resilience_flags(r)
     _add_forecast_flags(r)
+    _add_pipeline_flags(r)
     _add_telemetry_flags(r)
     _add_serve_flags(r)
     r.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+
+    b = sub.add_parser("bench", help="run the experiment matrix")
+    b.add_argument("--backend", default="sim", choices=["sim", "k8s"],
+                   help="k8s runs the matrix against the live cluster, like the reference's "
+                        "auto_full_pipeline_repeat.sh")
+    b.add_argument("--namespace", default="default")
+    b.add_argument("--scenario", default="mubench", choices=SCENARIOS)
+    b.add_argument("--workmodel", default=None, help=WORKMODEL_HELP)
+    b.add_argument("--algorithms",
+                   default="spread,binpack,random,kubescheduling,communication,global")
+    b.add_argument("--repeats", type=int, default=5)
+    b.add_argument("--rounds", type=int, default=10)
+    b.add_argument("--out", default="result")
+    b.add_argument("--session", default=None,
+                   help="named session: re-running with the same name resumes a crashed "
+                        "matrix instead of restarting")
+    b.add_argument("--moves-per-round", type=_moves_per_round, default=1)
+    b.add_argument("--move-cost", type=float, default=0.0,
+                   help="disruption pricing in the global solve (see reschedule --move-cost)")
+    b.add_argument("--solver-backend", default="dense", choices=["dense", "sparse"],
+                   help="pair-weight storage for global rounds")
+    b.add_argument("--global-moves-cap", type=_moves_per_round, default="all",
+                   help="wave cap for global rounds: apply only the k highest-gain moves "
+                        "per round ('all' = uncapped)")
+    b.add_argument("--restarts", type=int, default=1,
+                   help="best-of-N global solves per round (only 1 is ported)")
+    b.add_argument("--tp", type=int, default=1,
+                   help="node-axis devices per solve (only 1 is ported)")
+    b.add_argument("--capacity-frac", type=float, default=None,
+                   help="enable capacity enforcement with this packing budget (fraction of "
+                        "node capacity; global algorithm only)")
+    b.add_argument("--observe-weights", action="store_true",
+                   help="estimate edge weights from the request stream's traversal counts "
+                        "and solve on those instead of the declared workmodel topology")
+    b.add_argument("--placement-unit", default="service", choices=["service", "pod"],
+                   help="pod = every replica places independently (global algorithm, sim "
+                        "backend)")
+    b.add_argument("--seed", type=int, default=0)
+    _add_resilience_flags(b)
+    _add_forecast_flags(b)
+    _add_pipeline_flags(b)
+    _add_telemetry_flags(b)
+    _add_serve_flags(b)
+    b.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
 
     s = sub.add_parser("solve", help="one-shot global solve")
@@ -284,7 +297,111 @@ def build_parser() -> argparse.ArgumentParser:
     _add_telemetry_flags(t)
     t.add_argument("--device", default="cuda",
                    help="torch device to replay on (default: cuda)")
+
+    m = sub.add_parser(
+        "telemetry",
+        help="summarize telemetry artifacts (metrics JSONL, structured event logs, "
+             "manifests, Chrome traces, flight-recorder bundles, rounds.jsonl, perf "
+             "ledgers) as a readable report",
+    )
+    m.add_argument("paths", nargs="+",
+                   help="artifact files (kind detected from record shape); an optional "
+                        "leading mode word selects the rendering: 'report' (default), "
+                        "'explain' (decision explanations), 'bundle' (a flight-recorder "
+                        "bundle with its explain-consistency verdict), 'perf' (perf-ledger "
+                        "JSONL and/or BENCH_r*.json / MULTICHIP_r*.json snapshots: the "
+                        "trend table with improved/flat/regressed verdicts), 'topo' (cost "
+                        "attribution, node-pair heatmap, move provenance), 'dataset' "
+                        "(forecast training windows from rounds.jsonl, the oracle fit "
+                        "against persistence), 'shadow' (a --shadow run's head-to-head), "
+                        "'fleet' (tenant-rollup quantiles and worst offenders) or 'slo' "
+                        "(error budgets and burn sparklines)")
+    m.add_argument("--perf-window", type=int, default=5,
+                   help="perf mode: prior readings each series is judged against")
+    m.add_argument("--perf-threshold", type=float, default=0.2,
+                   help="perf mode: fraction above baseline that counts as a regression")
+    m.add_argument("--perf-baseline", default="median", choices=["median", "best"],
+                   help="perf mode: judge against the window's median or its best reading")
+    m.add_argument("--dataset-lags", type=int, default=4,
+                   help="dataset mode: lag-feature window length of the training windows")
+    m.add_argument("--dataset-ridge", type=float, default=1e-3,
+                   help="dataset mode: L2 term of the offline oracle fit scored against "
+                        "the persistence baseline")
     return p
+
+
+def _add_resilience_flags(parser: argparse.ArgumentParser) -> None:
+    """Fault injection, churn and the degraded-mode and reconciliation
+    knobs, shared by ``reschedule`` and ``bench``; the defaults are the
+    config's."""
+    d = RescheduleConfig()
+    parser.add_argument("--chaos-profile", default="none", metavar="NAME",
+                        help="wrap the loop's backend in the fault-injecting ChaosBackend under "
+                             "this named profile (none|flaky-monitor|flaky-moves|node-flap|"
+                             "soak|reconcile); faults are seeded and counted as "
+                             "chaos_faults_total{kind}")
+    parser.add_argument("--chaos-seed", type=int, default=0,
+                        help="seed for the injected fault stream (reproducible chaos)")
+    parser.add_argument("--max-consecutive-failures", type=int,
+                        default=d.max_consecutive_failures,
+                        help="circuit breaker threshold: consecutive boundary failures before "
+                             "the loop opens into safe mode (0 disables the breaker; retries "
+                             "still apply)")
+    parser.add_argument("--churn-profile", default="none", metavar="NAME",
+                        help="elastic topology churn between rounds under this seeded profile "
+                             "(none|steady|diurnal-autoscale|deploy-waves|node-flap): services "
+                             "deploy and tear down, replicas autoscale, nodes drain and join")
+    parser.add_argument("--churn-seed", type=int, default=0,
+                        help="seed of the churn event stream")
+    parser.add_argument("--no-admission", action="store_true",
+                        help="turn off the snapshot admission guard")
+    parser.add_argument("--no-reconcile", action="store_true",
+                        help="turn off the intent ledger: divergences between intended and "
+                             "observed placement go undetected and unrepaired")
+    parser.add_argument("--repair-budget", type=int, default=d.repair_budget_per_round,
+                        help="corrective moves the reconciliation plane may issue per round "
+                             "(0 = detect and count only)")
+
+
+def _add_pipeline_flags(parser: argparse.ArgumentParser) -> None:
+    """The loop's schedules and the scanned schedule's tripwires, shared by
+    ``reschedule`` and ``bench``."""
+    parser.add_argument("--pipeline", action="store_true",
+                        help="the software-pipelined loop: the previous round's round-end "
+                             "transfer and record overlap this round's device work, and the "
+                             "post-move monitor runs on a background thread; the records equal "
+                             "the sequential loop's. Rounds it cannot honor (open breaker, "
+                             "churn) drain to the sequential path. With --fleet N: the tenants' "
+                             "boundary phases run on a worker pool, each tenant's records equal "
+                             "to the serial fleet's")
+    parser.add_argument("--pipeline-depth", type=int, default=2,
+                        help="depth of the pipelined loop; only 2 is implemented")
+    parser.add_argument("--scan-block", type=int, default=0,
+                        help="the scanned schedule: K steady-state rounds a device block (decide, "
+                             "the simulator's twin and the round-end metrics, one counted "
+                             "round_end transfer a block); rounds it cannot honor drain to the "
+                             "per-round path. A pinning greedy algorithm with one move a round; "
+                             "exclusive with --pipeline. 0 = off")
+    parser.add_argument("--no-scan-tripwires", action="store_true",
+                        help="turn off the in-block tripwires (device-side health rules in the "
+                             "scan body; a trip latches the rest of the block to no-move rounds "
+                             "and drains the trip round)")
+    parser.add_argument("--tripwire-cost-frac", type=float, default=0.0,
+                        help="tripwire cost_regression rule: cost rising more than this fraction "
+                             "above the block-start baseline trips (0 = off)")
+    parser.add_argument("--tripwire-load-factor", type=float, default=0.0,
+                        help="tripwire load_std_spike rule: load std above this factor of the "
+                             "block-start baseline trips (0 = off)")
+    parser.add_argument("--tripwire-hazard-streak", type=int, default=0,
+                        help="tripwire hazard_streak rule: the same most-hazardous node this many "
+                             "rounds in a row trips (0 = off)")
+
+
+def _reconcile_config(args):
+    from kubernetes_rescheduling_tpu_torch.config import ReconcileConfig
+
+    return ReconcileConfig(admission=not args.no_admission, enabled=not args.no_reconcile,
+                           repair_budget_per_round=args.repair_budget)
 
 
 def _add_telemetry_flags(parser: argparse.ArgumentParser) -> None:
@@ -565,6 +682,9 @@ def cmd_reschedule(args) -> dict:
     if args.fleet and args.backend != "sim":
         raise SystemExit("--fleet requires the sim backend (one live cluster is one tenant; "
                          "fleet mode multiplexes hermetic tenants)")
+    if args.fleet and args.perf_ledger:
+        raise SystemExit("--perf-ledger is not supported with --fleet yet (the solo path's "
+                         "decisions/sec series has no fleet consumer)")
     # every solver-shaping flag reaches the config, so the fleet validation
     # refuses what fleet mode cannot batch instead of running something else
     cfg = RescheduleConfig(
@@ -583,7 +703,9 @@ def cmd_reschedule(args) -> dict:
         capacity_frac=args.capacity_frac if args.capacity_frac is not None else 1.0,
         seed=args.seed,
         backend="replay" if args.shadow else args.backend,
-        reconcile_admission=not args.no_admission,
+        **_reconcile_config(args).flat(),
+        max_consecutive_failures=args.max_consecutive_failures,
+        perf=PerfConfig(ledger_path=args.perf_ledger),
         shadow=ShadowConfig(enabled=bool(args.shadow), win_margin=args.shadow_win_margin),
         chaos=args.chaos_profile,
         chaos_seed=args.chaos_seed,
@@ -625,6 +747,7 @@ def cmd_reschedule(args) -> dict:
             sys.stderr.write(f"serving: POST http://127.0.0.1:{ops.server.port}/place "
                              '{"service": <name>}\n')
         result = run_controller(backend, cfg, device=args.device, logger=logger, ops=ops)
+        perf = _reschedule_perf(args, cfg, result, ops, algo)
     finally:
         if engine is not None:
             engine.stop()
@@ -640,9 +763,106 @@ def cmd_reschedule(args) -> dict:
         "boundary_failures": result.boundary_failures,
         "breaker_transitions": result.breaker_transitions,
     }
+    if perf is not None:
+        out["perf"] = perf
     if args.shadow:
         out["shadow"] = _shadow_summary(args, backend, result)
     return out
+
+
+def _reschedule_perf(args, cfg: RescheduleConfig, result, ops, algo: str) -> dict | None:
+    """``reschedule --perf-ledger``: append the run's decisions/sec, judge
+    every series with the ``[perf]`` block's knobs, feed the verdicts to the
+    ops plane's ``perf_regression`` rule, and return their statuses."""
+    if not (cfg.perf.enabled and cfg.perf.ledger_path):
+        return None
+    from kubernetes_rescheduling_tpu_torch.telemetry import perf_ledger as pl
+
+    ledger = pl.PerfLedger(cfg.perf.ledger_path)
+    # seed excluded: repeated runs of one setup form one series
+    digest_src = {k: v for k, v in dataclasses.asdict(cfg).items() if k not in ("seed", "perf")}
+    ledger.append(
+        metric="decisions_per_sec", value=result.decisions_per_sec, unit="1/s",
+        scenario=f"{getattr(args, 'scenario', 'k8s')}/{algo}",
+        device_kind=pl.device_kind(args.device), config=digest_src, better="higher",
+        seed=cfg.seed,
+    )
+    verdicts = pl.detect(ledger.entries(), window=cfg.perf.window,
+                         threshold_frac=cfg.perf.regression_frac, baseline=cfg.perf.baseline,
+                         min_history=cfg.perf.min_history)
+    if ops is not None:
+        ops.observe_perf(verdicts)
+    return {k: v["status"] for k, v in sorted(verdicts.items())}
+
+
+def cmd_bench(args) -> dict:
+    """The experiment matrix (``bench/harness.py``) on ``--device``."""
+    from kubernetes_rescheduling_tpu_torch.bench.harness import ExperimentConfig, run_experiment
+
+    _refuse_unported("bench", args)
+    if args.backend == "k8s" and args.placement_unit == "pod":
+        raise SystemExit("--placement-unit pod requires the sim backend: the k8s Deployment "
+                         "mechanism cannot pin a single replica")
+    cfg = ExperimentConfig(
+        algorithms=tuple(_norm_algo(a) for a in args.algorithms.split(",") if a),
+        repeats=args.repeats,
+        rounds=args.rounds,
+        scenario=args.scenario,
+        backend=args.backend,
+        namespace=args.namespace,
+        workmodel=args.workmodel,
+        out_dir=args.out,
+        session_name=args.session,
+        moves_per_round=args.moves_per_round,
+        global_moves_cap=args.global_moves_cap,
+        move_cost=args.move_cost,
+        solver_backend=args.solver_backend,
+        placement_unit=args.placement_unit,
+        solver_restarts=args.restarts,
+        solver_tp=args.tp,
+        observe_weights=args.observe_weights,
+        enforce_capacity=args.capacity_frac is not None,
+        capacity_frac=args.capacity_frac if args.capacity_frac is not None else 1.0,
+        seed=args.seed,
+        chaos_profile=args.chaos_profile,
+        chaos_seed=args.chaos_seed,
+        max_consecutive_failures=args.max_consecutive_failures,
+        churn_profile=args.churn_profile,
+        churn_seed=args.churn_seed,
+        forecast=_forecast_config(args),
+        pipeline=args.pipeline,
+        pipeline_depth=args.pipeline_depth,
+        scan_block=args.scan_block,
+        reconcile=_reconcile_config(args),
+        serve_port=args.serve,
+        bundle_dir=args.bundle_dir,
+    )
+    return run_experiment(cfg, device=args.device)
+
+
+TELEMETRY_MODES = ("report", "explain", "bundle", "perf", "topo", "dataset", "shadow",
+                   "fleet", "slo")
+
+
+def cmd_telemetry(args) -> str:
+    """Render a run's artifacts; the leading path may name the mode."""
+    from kubernetes_rescheduling_tpu_torch.telemetry import report as rep
+
+    mode, paths = "report", list(args.paths)
+    if paths and paths[0] in TELEMETRY_MODES:
+        mode, paths = paths[0], paths[1:]
+    if not paths:
+        raise SystemExit(f"telemetry {mode}: no artifact paths given")
+    if mode == "dataset":
+        from kubernetes_rescheduling_tpu_torch.forecast.dataset import report_dataset
+
+        return report_dataset(paths, lags=args.dataset_lags, ridge=args.dataset_ridge)
+    if mode == "perf":
+        return rep.report_perf(paths, window=args.perf_window,
+                               threshold_frac=args.perf_threshold, baseline=args.perf_baseline)
+    return {"report": rep.report, "explain": rep.report_explain, "bundle": rep.report_bundle,
+            "topo": rep.report_topo, "shadow": rep.report_shadow, "fleet": rep.report_fleet,
+            "slo": rep.report_slo}[mode](paths)
 
 
 def _run_fleet(args, cfg: RescheduleConfig) -> dict:
@@ -773,18 +993,22 @@ def cmd_solve(args) -> dict:
     return out
 
 
-def run_command(argv: list[str] | None = None) -> dict:
+def run_command(argv: list[str] | None = None) -> dict | str:
     """Parse ``argv``, run the command and write its telemetry artifacts;
-    returns the command's JSON object (what :func:`main` prints)."""
+    returns the command's JSON object, or the ``telemetry`` report's text
+    (what :func:`main` prints)."""
     args = build_parser().parse_args(argv)
-    out = {"reschedule": cmd_reschedule, "solve": cmd_solve,
-           "trace": cmd_trace}[args.command](args)
+    out = {"reschedule": cmd_reschedule, "bench": cmd_bench, "solve": cmd_solve,
+           "trace": cmd_trace, "telemetry": cmd_telemetry}[args.command](args)
     write_telemetry_artifacts(args)
     return out
 
 
 def main(argv: list[str] | None = None) -> int:
     out = run_command(argv)
+    if isinstance(out, str):  # the telemetry report is human text already
+        print(out)
+        return 0
     json.dump(out, sys.stdout, indent=2, default=float)
     print()
     return 0

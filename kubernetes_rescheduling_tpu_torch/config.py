@@ -1,6 +1,5 @@
 """The rescheduling run's configuration — the port of
-``kubernetes_rescheduling_tpu.config.RescheduleConfig`` as far as the
-sequential control loop on the simulator reads it.
+``kubernetes_rescheduling_tpu.config.RescheduleConfig``.
 
 Fields of the JAX package's nested blocks are flat here, named after
 their block (``reconcile_admission`` is ``reconcile.admission``,
@@ -10,17 +9,22 @@ their block (``reconcile_admission`` is ``reconcile.admission``,
 fields are ``obs.*`` under the same names), with the JAX package's
 defaults, and :meth:`RescheduleConfig.validate` refuses what the JAX
 package refuses, for the same reasons. Fleet mode, the forecast plane, the
-serving plane, SLO v2 and shadow mode keep their blocks (:class:`FleetConfig`,
-:class:`ForecastConfig`, :class:`ServingConfig`, :class:`SloConfig`,
-:class:`ShadowConfig`). The config also carries
-planes this port does not have yet: each keeps a field whose default is
-off, and ``validate`` refuses it, naming the ROADMAP item that brings it —
-a run never quietly does something else.
+serving plane, SLO v2, shadow mode and the perf ledger keep their blocks
+(:class:`FleetConfig`, :class:`ForecastConfig`, :class:`ServingConfig`,
+:class:`SloConfig`, :class:`ShadowConfig`, :class:`PerfConfig`).
+:meth:`RescheduleConfig.from_toml` reads the JAX package's TOML files:
+each nested table lands on the flat fields by the table :data:`TOML_TABLES`.
+The config also carries fields of planes this port does not have yet
+(multi-device, ROADMAP Queue 1 item 5): each keeps its JAX default, and
+``validate`` refuses a value that asks for the plane, naming the item — a
+run never quietly does something else.
 """
 
 from __future__ import annotations
 
+import tomllib
 from dataclasses import dataclass, field
+from pathlib import Path
 
 from kubernetes_rescheduling_tpu_torch.policies.scoring import POLICY_NAMES
 from kubernetes_rescheduling_tpu_torch.utils.retry import RetryPolicy
@@ -97,6 +101,64 @@ class ForecastConfig:
                 f"forecast base_policy must be a greedy policy {sorted(POLICY_NAMES)}, "
                 f"got {self.base_policy!r}"
             )
+        return self
+
+
+
+@dataclass(frozen=True)
+class ReconcileConfig:
+    """The JAX package's ``[reconcile]`` block as one value, for the
+    callers that carry it whole (the bench harness's ``ExperimentConfig``);
+    a run's :class:`RescheduleConfig` holds its fields flat
+    (:meth:`flat`)."""
+
+    admission: bool = True
+    enabled: bool = True
+    repair_budget_per_round: int = 2
+    max_quarantine_frac: float = 0.5
+
+    def validate(self) -> "ReconcileConfig":
+        if self.repair_budget_per_round < 0:
+            raise ValueError(
+                f"reconcile repair_budget_per_round must be >= 0 (0 = detect only), got "
+                f"{self.repair_budget_per_round}")
+        if not 0.0 < self.max_quarantine_frac <= 1.0:
+            raise ValueError(
+                f"reconcile max_quarantine_frac must be in (0, 1], got "
+                f"{self.max_quarantine_frac}")
+        return self
+
+    def flat(self) -> dict:
+        """The :class:`RescheduleConfig` fields of this block."""
+        return {"reconcile_admission": self.admission, "reconcile_enabled": self.enabled,
+                "repair_budget_per_round": self.repair_budget_per_round,
+                "max_quarantine_frac": self.max_quarantine_frac}
+
+
+@dataclass(frozen=True)
+class PerfConfig:
+    """The perf ledger (the JAX package's ``[perf]`` block): where the
+    append-only ledger lives and how its rolling-window regression detector
+    judges (``telemetry/perf_ledger.py``). ``ledger_path = None`` lets the
+    consumer pick (the bench harness writes ``<session>/perf_ledger.jsonl``);
+    ``enabled = False`` turns ledger writes and detection off."""
+
+    enabled: bool = True
+    ledger_path: str | None = None
+    window: int = 5                  # prior readings judged against
+    regression_frac: float = 0.2     # threshold above baseline = regressed
+    baseline: str = "median"         # "median" | "best" of the window
+    min_history: int = 2             # readings before a series is judged
+
+    def validate(self) -> "PerfConfig":
+        if self.window < 1:
+            raise ValueError("perf window must be >= 1")
+        if self.regression_frac < 0:
+            raise ValueError("perf regression_frac must be >= 0")
+        if self.baseline not in ("median", "best"):
+            raise ValueError(f"perf baseline must be 'median' or 'best', got {self.baseline!r}")
+        if self.min_history < 1:
+            raise ValueError("perf min_history must be >= 1")
         return self
 
 
@@ -309,6 +371,17 @@ class RescheduleConfig:
     placement_unit: str = "service"        # "service" | "pod" (global only)
     seed: int = 0
 
+    # array capacities (0 = size to the scenario); read by nothing yet, in
+    # the JAX package as here
+    node_capacity: int = 0
+    pod_capacity: int = 0
+
+    # the live adapter (backends/k8s.py): namespace and the delete poll of
+    # each Deployment move (reference main.py:68, delete_replaced_pod.py:8)
+    namespace: str = "default"
+    delete_timeout_s: float = 180.0
+    delete_poll_interval_s: float = 1.5
+
     # resilience: every controller→backend call goes through the retry
     # boundary; the breaker opens after this many CONSECUTIVE failures
     # (0 disables it), stays open `breaker_cooldown_rounds` counted skips,
@@ -365,6 +438,13 @@ class RescheduleConfig:
     slo_fleet_tail_frac: float = 0.0
     slo_scan_tripwire: bool = True
     slo_serving_p99_ms: float = 0.0
+    # the mesh plane (obs.device_rollup, obs.device_label_budget,
+    # obs.slo_mesh_imbalance_ratio): per-device rollups over a multi-device
+    # mesh, ROADMAP Queue 1 item 5. One device has nothing to roll up, so
+    # the defaults run; the mesh_imbalance rule is refused
+    device_rollup: bool = True
+    device_label_budget: int = 64
+    slo_mesh_imbalance_ratio: float = 0.0
     profile_rounds: int = 0
     profile_max_captures: int = 4
     profile_max_mb: float = 256.0
@@ -376,6 +456,10 @@ class RescheduleConfig:
     pipeline: bool = False
     pipeline_depth: int = 2
     scan_block: int = 0
+    # controller.donate_carry: the JAX package's buffer donation of the
+    # solver's carry. A captured solve writes into its graph's own buffers,
+    # so the port has nothing to donate and reads nothing from this field
+    donate_carry: bool = True
 
     # in-block tripwires of the scanned schedule (obs.*): the plane (its
     # non_finite rule always armed) and the threshold rules (0 = rule off)
@@ -416,6 +500,10 @@ class RescheduleConfig:
     # shadow mode (shadow.*): replayed trace windows, recommendations in a
     # shadow ledger, the counterfactual twin scored every round
     shadow: ShadowConfig = field(default_factory=ShadowConfig)
+
+    # the perf ledger (perf.*): append-only perf history and its
+    # rolling-window regression detector
+    perf: PerfConfig = field(default_factory=PerfConfig)
 
     def validate(self) -> "RescheduleConfig":
         if self.algorithm not in ALGORITHMS:
@@ -497,12 +585,19 @@ class RescheduleConfig:
         if self.explain_top_k < 1:
             raise ValueError("explain_top_k must be >= 1")
         self._validate_obs()
+        self.perf.validate()
         self.slo.validate()
         self._validate_schedules()
         self._validate_elastic()
         self._validate_shadow()
         self._validate_fleet()
         return self
+
+    @classmethod
+    def from_toml(cls, path: str | Path) -> "RescheduleConfig":
+        """The config of a TOML file in the JAX package's layout
+        (:func:`config_from_toml`)."""
+        return config_from_toml(path)
 
     def _validate_shadow(self) -> None:
         """What the JAX package refuses of shadow mode: it is the solo greedy
@@ -582,6 +677,18 @@ class RescheduleConfig:
         if self.slo_serving_p99_ms < 0:
             raise ValueError(
                 "slo_serving_p99_ms must be >= 0 (0 disables the serving_p99 rule)")
+        if self.device_label_budget < 0:
+            raise ValueError(
+                "device_label_budget must be >= 0 (0 = per-device series always "
+                "suppressed; the bounded mesh rollups still emit)")
+        if self.slo_mesh_imbalance_ratio != 0.0:
+            if self.slo_mesh_imbalance_ratio < 1.0:
+                raise ValueError(
+                    "slo_mesh_imbalance_ratio must be 0 (rule off) or >= 1 (a worst/median "
+                    "step-time ratio)")
+            raise ValueError(
+                "slo_mesh_imbalance_ratio judges the per-device rollups of a multi-device "
+                "mesh, which the port does not have yet (ROADMAP Queue 1 item 5)")
         if self.profile_rounds < 0:
             raise ValueError("profile_rounds must be >= 0 (0 = no capture armed at run start)")
         if self.profile_max_captures < 1:
@@ -698,3 +805,72 @@ class RescheduleConfig:
         for t in self.elastic_tenants:
             if not (isinstance(t, int) and t >= 0):
                 raise ValueError(f"elastic tenants must be non-negative ints, got {t!r}")
+
+
+# The JAX package's TOML layout: its top-level keys, and for each nested
+# table the port's flat field of each key (a table absent here is a block
+# dataclass the port keeps whole)
+TOML_TOP_LEVEL: tuple[str, ...] = (
+    "algorithm", "hazard_threshold_pct", "max_rounds", "sleep_after_action_s",
+    "moves_per_round", "global_moves_cap", "backend", "enforce_capacity", "capacity_frac",
+    "global_solver_iters", "balance_weight", "move_cost", "solver_restarts", "solver_tp",
+    "solver_backend", "placement_unit", "seed", "node_capacity", "pod_capacity", "namespace",
+    "delete_timeout_s", "delete_poll_interval_s", "max_consecutive_failures",
+    "breaker_cooldown_rounds", "failure_budget_per_round",
+)
+TOML_TABLES: dict[str, dict[str, str]] = {
+    "chaos": {"profile": "chaos", "seed": "chaos_seed"},
+    "reconcile": {"admission": "reconcile_admission", "enabled": "reconcile_enabled",
+                  "repair_budget_per_round": "repair_budget_per_round",
+                  "max_quarantine_frac": "max_quarantine_frac"},
+    "elastic": {"profile": "elastic", "seed": "elastic_seed", "bucket_floor": "bucket_floor",
+                "tenants": "elastic_tenants"},
+    "controller": {"pipeline": "pipeline", "depth": "pipeline_depth",
+                   "donate_carry": "donate_carry", "scan_block": "scan_block"},
+    "obs": {name: name for name in (
+        "serve_port", "explain", "explain_top_k", "attribution", "attribution_top_k",
+        "attribution_drift_frac", "tenant_label_budget", "fleet_rollup", "fleet_rollup_top_k",
+        "slo_fleet_tail_frac", "flight_recorder_rounds", "bundle_dir", "max_round_age_s",
+        "slo_window", "slo_min_samples", "slo_latency_p95_s", "slo_cost_regression_frac",
+        "slo_max_retraces", "slo_forecast_min_skill", "slo_pipeline_min_overlap",
+        "slo_reconcile_drift_pods", "slo_shadow_min_win_rate", "scan_tripwires",
+        "tripwire_cost_frac", "tripwire_load_factor", "tripwire_hazard_streak",
+        "slo_scan_tripwire", "slo_serving_p99_ms", "device_rollup", "device_label_budget",
+        "slo_mesh_imbalance_ratio", "profile_rounds", "profile_max_captures",
+        "profile_max_mb")},
+}
+TOML_BLOCKS = {"retry": RetryPolicy, "shadow": ShadowConfig, "fleet": FleetConfig,
+               "forecast": ForecastConfig, "perf": PerfConfig, "serving": ServingConfig,
+               "slo": SloConfig}
+
+
+def _toml_value(v):
+    """TOML arrays are lists; the config's sequences are tuples."""
+    return tuple(v) if isinstance(v, list) else v
+
+
+def config_from_toml(path: str | Path) -> RescheduleConfig:
+    """A :class:`RescheduleConfig` from a TOML file in the JAX package's
+    layout (``RescheduleConfig.from_toml`` there): top-level keys, the
+    nested tables mapped onto the flat fields (:data:`TOML_TABLES`) or into
+    their block dataclass (:data:`TOML_BLOCKS`). Unknown keys are refused
+    as the JAX package refuses them: a ``ValueError`` at the top level, a
+    ``TypeError`` inside a table. The result is validated."""
+    data = tomllib.loads(Path(path).read_text())
+    unknown = set(data) - set(TOML_TOP_LEVEL) - set(TOML_TABLES) - set(TOML_BLOCKS)
+    if unknown:
+        raise ValueError(f"unknown config keys: {sorted(unknown)}")
+    kwargs = {}
+    for key, value in data.items():
+        if key in TOML_TABLES and isinstance(value, dict):
+            names = TOML_TABLES[key]
+            bad = set(value) - set(names)
+            if bad:
+                raise TypeError(f"[{key}] got unexpected keys {sorted(bad)}")
+            kwargs.update({names[k]: _toml_value(v) for k, v in value.items()})
+        elif key in TOML_BLOCKS and isinstance(value, dict):
+            kwargs[key] = TOML_BLOCKS[key](**{k: _toml_value(v) for k, v in value.items()})
+        else:
+            kwargs[key] = _toml_value(value)
+    return RescheduleConfig(**kwargs).validate()
+

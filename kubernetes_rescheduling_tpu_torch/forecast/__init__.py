@@ -11,9 +11,8 @@ snapshots — the port of ``kubernetes_rescheduling_tpu.forecast``.
 
 The numpy twin is :mod:`oracle.forecast`; the ``proactive`` algorithm that
 consumes the predictions is :mod:`policies.proactive` and the controller.
-Of ``forecast/dataset.py`` the port carries :func:`dataset.load_rounds`
-(the trace adapters read recorded rounds with it); its datasets and the
-``telemetry dataset`` mode are not ported yet (ROADMAP Queue 1 item 4.4).
+:mod:`dataset` turns recorded rounds into supervised lag-feature
+datasets (the ``telemetry dataset`` mode).
 """
 
 from kubernetes_rescheduling_tpu_torch.forecast.fleet import FleetForecastPlane

@@ -44,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from kubernetes_rescheduling_tpu_torch.ops import _build
+from kubernetes_rescheduling_tpu_torch.ops import work as op_work
 
 _NEG_INF = float("-inf")
 _M32 = 0xFFFFFFFF
@@ -398,10 +399,12 @@ def fused_neighbor_mass(
     )
     _build.check(lib, code, "fused_neighbor_mass")
     fused_neighbor_mass.launches += 1
+    op_work.count(fused_neighbor_mass, *op_work.mass(C, SP, N, W.element_size()))
     return M
 
 
 fused_neighbor_mass.launches = 0
+fused_neighbor_mass.work_ops = fused_neighbor_mass.work_bytes = 0.0
 
 
 def score_stage_plain(
@@ -468,10 +471,12 @@ def score_stage(
     )
     _build.check(lib, code, "score_stage")
     score_stage.launches += 1
+    op_work.count(score_stage, *op_work.score(C, N, use_noise))
     return prop, gain, wants, slack_cpu, slack_mem
 
 
 score_stage.launches = 0
+score_stage.work_ops = score_stage.work_bytes = 0.0
 
 
 def fused_score_admission(
@@ -610,6 +615,8 @@ def admission_stage(
         )
         _build.check(lib, code, "admission_stage")
         admission_stage.launches += 1
+        op_work.count(admission_stage, *op_work.admission(
+            C, N, 0 if x_rows is None else x_rows.element_size()))
     else:
         new_node, admitted, x_rows, d_cpu, d_mem = admission_plain(
             prop, gain, wants, slack_cpu, slack_mem, cur, valid_c, c_cpu, c_mem,
@@ -622,3 +629,4 @@ def admission_stage(
 
 
 admission_stage.launches = 0
+admission_stage.work_ops = admission_stage.work_bytes = 0.0

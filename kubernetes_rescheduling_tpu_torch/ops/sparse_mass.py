@@ -36,6 +36,7 @@ import torch
 
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import BLOCK_R
 from kubernetes_rescheduling_tpu_torch.ops import _build
+from kubernetes_rescheduling_tpu_torch.ops import work as op_work
 from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
     _SHARED_BYTES,
     _check_lengths,
@@ -276,10 +277,13 @@ def sparse_neighbor_mass(
     )
     _build.check(lib, code, "sparse_neighbor_mass")
     sparse_neighbor_mass.launches += 1
+    op_work.count(sparse_neighbor_mass, *op_work.strips(
+        KB * BLOCK_R, reg_tiles * bu, KB * BLOCK_R, N, w_mm.element_size(), KB * reg_tiles * bu))
     return M
 
 
 sparse_neighbor_mass.launches = 0
+sparse_neighbor_mass.work_ops = sparse_neighbor_mass.work_bytes = 0.0
 
 
 def hub_neighbor_mass(
@@ -326,10 +330,13 @@ def hub_neighbor_mass(
     )
     _build.check(lib, code, "hub_neighbor_mass")
     hub_neighbor_mass.launches += 1
+    op_work.count(hub_neighbor_mass, *op_work.strips(
+        T * BLOCK_R, bu, num_hub_blocks * BLOCK_R, N, w_mm.element_size(), tgt_l.numel()))
     return M
 
 
 hub_neighbor_mass.launches = 0
+hub_neighbor_mass.work_ops = hub_neighbor_mass.work_bytes = 0.0
 
 
 def sparse_mass_score(
@@ -402,7 +409,10 @@ def sparse_mass_score(
     )
     _build.check(lib, code, "sparse_mass_score")
     sparse_mass_score.launches += 1
+    op_work.count(sparse_mass_score, *op_work.mass_score(
+        C, reg_tiles * bu, N, w_mm.element_size(), KB * reg_tiles * bu, use_noise))
     return prop, gain, wants, slack_cpu, slack_mem
 
 
 sparse_mass_score.launches = 0
+sparse_mass_score.work_ops = sparse_mass_score.work_bytes = 0.0

@@ -25,7 +25,9 @@ the captures (a second capture of one steady shape means the key is
 unstable, as a second ``jax_traces_total`` means a retrace). The kernel
 wrappers count their launches on the host, which a replay skips: a capture
 records what its body launched, takes it back off the counts (nothing ran)
-and each replay adds it again.
+and each replay adds it again. The first capture of each ``fn`` also
+records its cost (tensor sizes, pool, the kernels' work) in
+``telemetry/costmodel.py``'s book.
 
 :func:`eager` — the counterpart of ``jax.disable_jit()`` — runs every solve
 op by op; tests and ``chip_smoke.py`` compare the two. On the CPU the body
@@ -46,6 +48,7 @@ from typing import Callable
 import torch
 
 from kubernetes_rescheduling_tpu_torch.ops import KERNEL_WRAPPERS
+from kubernetes_rescheduling_tpu_torch.telemetry import costmodel
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import get_registry
 
 Body = Callable[[dict], dict]
@@ -79,6 +82,12 @@ def _identity(t: torch.Tensor) -> tuple:
 
 def _launch_counts() -> list[int]:
     return [fn.launches for fn in KERNEL_WRAPPERS]
+
+
+def _work() -> tuple[float, float]:
+    """The kernel wrappers' total work so far (ops/work.py)."""
+    return (sum(fn.work_ops for fn in KERNEL_WRAPPERS),
+            sum(fn.work_bytes for fn in KERNEL_WRAPPERS))
 
 
 def _add_launches(counts) -> None:
@@ -145,6 +154,7 @@ class GraphCache:
             buf.copy_(inputs[name])
         entry.graph.replay()
         _add_launches(entry.launches)
+        costmodel.republish(fn)
         # the graph overwrites its outputs on the next replay
         return {k: v.clone() for k, v in entry.outputs.items()}
 
@@ -165,15 +175,16 @@ class GraphCache:
         gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
-        before = _launch_counts()
+        before, work0 = _launch_counts(), _work()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with torch.cuda.graph(graph):
             outputs = body(static)
         capture_s = time.perf_counter() - t0
-        after = _launch_counts()
+        after, work1 = _launch_counts(), _work()
         launches = tuple(a - b for a, b in zip(after, before))
         _add_launches([-n for n in launches])  # the capture ran nothing
+        pool_bytes = torch.cuda.memory_reserved() - reserved
         get_registry().counter(
             "cuda_graph_captures_total",
             "solves captured as a CUDA graph (one per solve key; a second "
@@ -181,7 +192,11 @@ class GraphCache:
             labelnames=("fn",),
         ).labels(fn=fn).inc()
         self._entries[full] = _Entry(graph, static, outputs, body, operands, launches,
-                                     capture_s, torch.cuda.memory_reserved() - reserved)
+                                     capture_s, pool_bytes)
+        # the compiled-cost book: the first capture of each fn
+        costmodel.record_capture(fn, costmodel.graph_cost(
+            static, operands, outputs, ops=work1[0] - work0[0], nbytes=work1[1] - work0[1],
+            temp_bytes=pool_bytes))
         while len(self._entries) > MAX_ENTRIES:
             self._entries.popitem(last=False)
         return warm

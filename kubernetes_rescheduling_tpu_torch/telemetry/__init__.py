@@ -19,10 +19,14 @@
   ``/slo``, ``/query``, ``POST /profile``, and the :class:`OpsPlane` the
   loops consume.
 
-Of ``report.py`` the port carries :func:`report.report_shadow` (the shadow
-run's head-to-head table); the other reports, the compiled-cost book and
-the perf ledger (``costmodel.py``, ``perf_ledger.py``) are ROADMAP Queue 1
-item 4.4; the mesh plane (``MeshPlane``, ``DeviceSeries``) is item 5.
+- :mod:`costmodel` — the compiled-cost book of the captured graphs, the
+  roofline and device-memory gauges;
+- :mod:`perf_ledger` — the append-only perf ledger and its rolling-window
+  regression detector;
+- :mod:`report` — the ``telemetry`` command's renderings of a run's
+  artifacts.
+
+The mesh plane (``MeshPlane``, ``DeviceSeries``) is ROADMAP Queue 1 item 5.
 """
 
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import (
@@ -45,6 +49,7 @@ from kubernetes_rescheduling_tpu_torch.telemetry.accounting import (
     pull,
     timed_call,
 )
+from kubernetes_rescheduling_tpu_torch.telemetry.costmodel import get_costbook
 from kubernetes_rescheduling_tpu_torch.telemetry.manifest import (
     run_manifest,
     write_manifest,
@@ -86,6 +91,7 @@ __all__ = [
     "count_reconcile",
     "pull",
     "timed_call",
+    "get_costbook",
     "run_manifest",
     "write_manifest",
     "ProfilerGate",

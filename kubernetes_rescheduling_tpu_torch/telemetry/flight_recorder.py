@@ -13,8 +13,8 @@ the explain-consistency verdict over every recorded decision.
 Dumping is deliberately best-effort: a recorder failure must never take
 down the loop it is there to diagnose (failures are logged and counted,
 never raised). The port of ``kubernetes_rescheduling_tpu.telemetry.
-flight_recorder``: the bundle's ``device_costs`` is ``{}`` until the
-compiled-cost book (``costmodel.py``, ROADMAP Queue 1 item 4.4) is ported.
+flight_recorder``; the bundle's ``device_costs`` is the port's compiled-cost
+book (``costmodel.py``).
 """
 
 from __future__ import annotations
@@ -115,12 +115,13 @@ class FlightRecorder:
 
     def snapshot(self, reason: str, **fields: Any) -> dict[str, Any]:
         """The bundle object — self-contained: ring + metrics + manifest
-        + the attribution book (where the cost sat, even if the process
-        dies before anyone scrapes /metrics). ``device_costs`` stays ``{}``
-        until ``costmodel.py`` (ROADMAP Queue 1 item 4.4)."""
+        + the compiled-cost book (what the captured graphs in these rounds
+        cost) + the attribution book (where the cost sat), even if the
+        process dies before anyone scrapes /metrics."""
         from kubernetes_rescheduling_tpu_torch.telemetry.attribution import (
             get_attribution_book,
         )
+        from kubernetes_rescheduling_tpu_torch.telemetry.costmodel import get_costbook
         from kubernetes_rescheduling_tpu_torch.telemetry.manifest import run_manifest
 
         return {
@@ -130,7 +131,7 @@ class FlightRecorder:
             **fields,
             "rounds": self.rounds,
             "metrics": self._reg().snapshot(),
-            "device_costs": {},
+            "device_costs": get_costbook().as_dict(),
             "attribution": get_attribution_book().as_dict(),
             "manifest": run_manifest(),
         }

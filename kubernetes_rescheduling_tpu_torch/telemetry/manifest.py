@@ -5,10 +5,10 @@ A metrics dump without the run that produced it is noise; the manifest
 makes every ``--metrics-out``/``--trace-out`` artifact and every
 flight-recorder bundle self-describing — what command ran, on which card,
 with which torch and CUDA, from which commit. Where the JAX package
-records jax's devices and its compiled-cost book, the port records
-torch's and the CUDA devices' facts; the compiled-cost book
-(``costmodel.py``) is ROADMAP Queue 1 item 4.4, so ``device_costs`` holds
-only the live memory sample until then.
+records jax's devices, the port records torch's and the CUDA devices'
+facts; ``device_costs`` holds the port's compiled-cost book
+(``costmodel.py``: one snapshot a captured graph) and the allocator's live
+memory sample.
 """
 
 from __future__ import annotations
@@ -70,25 +70,21 @@ def _torch_info() -> dict[str, Any]:
 
 
 def _device_costs() -> dict[str, Any]:
-    """The live device-memory sample of each CUDA device (allocated,
-    reserved and peak MB, host-side counters of the caching allocator: no
-    device work). The compiled-cost book joins with ``costmodel.py``
-    (ROADMAP Queue 1 item 4.4), so ``kernels`` stays empty."""
-    import torch
+    """The compiled-cost book (``costmodel.CostBook``: one snapshot a
+    captured fn) and a live sample of each CUDA device's allocator counters
+    (no device work), into a scratch registry so that writing a manifest
+    leaves the process registry's gauges alone."""
+    from kubernetes_rescheduling_tpu_torch.telemetry.costmodel import (
+        get_costbook,
+        sample_device_memory,
+    )
+    from kubernetes_rescheduling_tpu_torch.telemetry.registry import MetricsRegistry
 
-    mem = []
     try:
-        if torch.cuda.is_available():
-            for i in range(torch.cuda.device_count()):
-                mem.append({
-                    "device": i,
-                    "allocated_mb": torch.cuda.memory_allocated(i) / 2**20,
-                    "reserved_mb": torch.cuda.memory_reserved(i) / 2**20,
-                    "peak_allocated_mb": torch.cuda.max_memory_allocated(i) / 2**20,
-                })
+        return {"kernels": get_costbook().as_dict(),
+                "device_memory": sample_device_memory(MetricsRegistry())}
     except Exception:  # noqa: BLE001 — provenance must not fail the run
-        mem = []
-    return {"kernels": {}, "device_memory": mem}
+        return {"kernels": {}, "device_memory": []}
 
 
 def _attribution_book() -> dict[str, Any]:

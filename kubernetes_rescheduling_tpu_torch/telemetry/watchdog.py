@@ -49,8 +49,10 @@ threshold rules and burn-rate rules identically.
 The port's copy of ``kubernetes_rescheduling_tpu.telemetry.watchdog``
 (stdlib only): fed the same record dicts, the two give the same verdicts.
 The ``perf_regression`` verdicts come through :meth:`Watchdog.observe_perf`
-(their feed from ``perf_ledger.py`` is ROADMAP Queue 1 item 4.4), and the
-``shadow_win_rate`` and ``mesh_imbalance`` feeds come with items 4.3 and 5.
+from ``perf_ledger.detect`` (the bench harness after each cell, ``reschedule
+--perf-ledger`` after its run); the ``shadow_win_rate`` rule reads the
+rounds' shadow blocks, and the ``mesh_imbalance`` feed comes with ROADMAP
+Queue 1 item 5.
 """
 
 from __future__ import annotations

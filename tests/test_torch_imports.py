@@ -101,14 +101,42 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import kubernetes_rescheduling_tpu_torch.bench.shadow\n"
         "import kubernetes_rescheduling_tpu_torch.bench.reconcile\n"
         "import kubernetes_rescheduling_tpu_torch.telemetry.report\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.perf_ledger\n"
+        "import kubernetes_rescheduling_tpu_torch.telemetry.costmodel\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.sinks\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.plots\n"
+        "import kubernetes_rescheduling_tpu_torch.utils.profiling\n"
+        "import kubernetes_rescheduling_tpu_torch.ops.work\n"
         "from kubernetes_rescheduling_tpu_torch.telemetry import OpsPlane, run_manifest\n"
         "OpsPlane.from_config(kubernetes_rescheduling_tpu_torch.config.RescheduleConfig())\n"
         "run_manifest()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_bench_help_leaves_matplotlib_out():
+    """The card's machine has no matplotlib: the CLI and ``bench --help``
+    import it nowhere (``bench/plots.py`` imports it inside each chart)."""
+    code = (
+        "import sys, contextlib, io\n"
+        "from kubernetes_rescheduling_tpu_torch import cli\n"
+        "import kubernetes_rescheduling_tpu_torch.bench.plots\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    try:\n"
+        "        cli.main(['bench', '--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0\n"
+        "assert '--observe-weights' in buf.getvalue()\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported'\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
@@ -145,11 +173,15 @@ def _entry_points():
     from kubernetes_rescheduling_tpu_torch.bench.controller import run_controller
     from kubernetes_rescheduling_tpu_torch.bench.fleet import run_fleet_controller
     from kubernetes_rescheduling_tpu_torch.bench.harness import (
+        ExperimentConfig,
         make_backend,
         make_fleet_problem,
+        mubench_reference_placements,
         run_chaos_soak,
+        run_experiment,
         sparse_problem,
     )
+    from kubernetes_rescheduling_tpu_torch.bench.loadgen import LoadGenerator
     from kubernetes_rescheduling_tpu_torch.config import ForecastConfig, RescheduleConfig
     from kubernetes_rescheduling_tpu_torch.core import sparsegraph, topology
     from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
@@ -251,6 +283,12 @@ def _entry_points():
                                          core_api=object(), apps_api=object(),
                                          custom_api=object()),
         "cli reschedule --shadow": lambda: cli.main(["reschedule", "--shadow", str(shadow)]),
+        "LoadGenerator": lambda: LoadGenerator(Workmodel(services=(ServiceSpec("s0"),))),
+        "run_experiment": lambda: run_experiment(ExperimentConfig(repeats=1, rounds=1)),
+        "mubench_reference_placements": lambda: mubench_reference_placements(),
+        "cli bench": lambda: cli.main(["bench", "--repeats", "1", "--rounds", "1"]),
+        "cli reschedule --perf-ledger": lambda: cli.main(
+            ["reschedule", "--perf-ledger", "unused.jsonl"]),
     }
 
 

@@ -2,8 +2,8 @@
 
 Every case of tests/test_k8s_wire.py, tests/test_backends.py's
 ``TestK8sBackend`` and its module-level k8s cases (the three
-``test_harness_k8s_*`` ones need ``run_experiment``, ROADMAP Queue 1 item
-4.4), the four k8s cases of tests/test_resilience.py and the reconcile
+``test_harness_k8s_*`` ones run in tests/test_torch_experiment.py, beside
+the experiment matrix), the four k8s cases of tests/test_resilience.py and the reconcile
 cases of the k8s contract (tests/test_reconcile.py's Deployment-scoped
 repairs and advisory adoption) run on both packages over the same fake
 clients (the JAX tests' own: dict-world clusters and the recorded wire

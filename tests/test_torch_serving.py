@@ -16,9 +16,9 @@ keys ``solver/compiled.py`` is asked for (one graph a key on the card).
 The ops-server cases (the engine's feeds, ``/healthz``, the
 ``serving_p99`` rule and its bundle, ``POST /place``) run the same way, at
 the bottom. ``test_alibaba_fixture_served_parity`` runs in
-tests/test_torch_shadow.py with the replay backend; waiting:
-``test_serving_config_from_toml`` (the port reads no TOML files yet, ROADMAP
-Queue 1 item 4.4).
+tests/test_torch_shadow.py with the replay backend, and
+``test_serving_config_from_toml`` in tests/test_torch_report.py with the
+other TOML files of the JAX tests.
 """
 
 import dataclasses

@@ -7,9 +7,9 @@ module's globals in which every name the case reads from the JAX package
 names the port's counterpart (``ObsConfig`` names the port's flat
 ``RescheduleConfig``, which carries the ``obs`` block under the same field
 names; the serving engine and ``make_backend`` run on the CPU). The
-assertions are the JAX test's, unchanged. Left out: the TOML loader
-(``test_slo_config_from_toml``) and the reports and the ``telemetry`` CLI
-mode (``report.py``), ROADMAP Queue 1 item 4.4; and the two ``slow``
+assertions are the JAX test's, unchanged; a case that imports the JAX
+package's ``telemetry.report`` or ``cli`` inside its body gets the port's
+(:func:`port_modules`; the CLI runs on the CPU). Left out: the two ``slow``
 variants, whose invariants the fast soaks below pin.
 
 Besides the cases: the port's and the JAX package's engines fed the same
@@ -83,12 +83,44 @@ def run_case(cases: dict, name: str, fixtures: dict) -> None:
     fn(**{p: fixtures[p] for p in inspect.signature(fn).parameters})
 
 
+def cpu_cli(argv):
+    """The port's CLI on the CPU (``--device cpu`` after a run command)."""
+    from kubernetes_rescheduling_tpu_torch import cli as tcli
+
+    argv = list(argv)
+    if argv and argv[0] in ("bench", "reschedule", "solve", "trace"):
+        argv += ["--device", "cpu"]
+    return tcli.main(argv)
+
+
+def port_modules(monkeypatch) -> None:
+    """A JAX case's imports inside its body of the JAX package's CLI,
+    harness, load generator, logger, ops server and reports resolve to the
+    port's (the CLI and the harness on the CPU) for the case's duration."""
+    import sys
+
+    from kubernetes_rescheduling_tpu_torch.bench import harness as th
+    from kubernetes_rescheduling_tpu_torch.bench import loadgen as tl
+    from kubernetes_rescheduling_tpu_torch.telemetry import report as treport
+    from kubernetes_rescheduling_tpu_torch.utils import logging as tlogging
+
+    swaps = {
+        "telemetry.report": treport,
+        "telemetry.server": tserver,
+        "utils.logging": tlogging,
+        "bench.loadgen": tl,
+        "bench.harness": types.SimpleNamespace(
+            ExperimentConfig=th.ExperimentConfig,
+            run_experiment=functools.partial(th.run_experiment, device="cpu"),
+            make_backend=lambda scenario, seed=0, **kw: th.make_backend(scenario, seed,
+                                                                        device="cpu", **kw)),
+        "cli": types.SimpleNamespace(main=cpu_cli),
+    }
+    for name, module in swaps.items():
+        monkeypatch.setitem(sys.modules, f"kubernetes_rescheduling_tpu.{name}", module)
+
+
 LEFT_OUT = {
-    "test_slo_config_from_toml",             # the TOML loader (item 4.4)
-    "test_report_slo_budget_table_and_sparklines",   # report.py (item 4.4)
-    "test_report_slo_events_and_empty_shapes",       # report.py (item 4.4)
-    "test_cli_telemetry_slo_mode",           # the telemetry CLI (item 4.4)
-    "test_telemetry_report_serving_stanza",  # report.py (item 4.4)
     "test_burn_soak_long",                   # slow variant
     "test_clean_soak_long_zero_burn",        # slow variant
 }
@@ -108,6 +140,7 @@ def registry():
 
 @pytest.mark.parametrize("case", CASES)
 def test_slo_case_on_port(case, registry, tmp_path, monkeypatch, capsys):
+    port_modules(monkeypatch)
     run_case(PORT_CASES, case, {"registry": registry, "tmp_path": tmp_path,
                                 "monkeypatch": monkeypatch, "capsys": capsys})
 

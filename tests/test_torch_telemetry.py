@@ -11,9 +11,9 @@ carry the JAX package's names.
 
 Left out of the JAX files: ``instrument_jit``, ``publish_round_telemetry``
 and ``pull`` of jax arrays (the port's capture counter and ``pull`` are
-covered by tests/test_torch_compiled.py), ``LatencyHistogram`` and the
-report (``report.py``, ROADMAP Queue 1 item 4.4), the jax manifest keys,
-and the mesh plane (``MeshPlane``, ``DeviceSeries``: item 5).
+covered by tests/test_torch_compiled.py), the jax manifest keys, and the
+mesh plane (``MeshPlane``, ``DeviceSeries``: item 5). ``LatencyHistogram``,
+the report and the CLI cases are tests/test_torch_report.py's.
 """
 
 import json
@@ -166,7 +166,8 @@ def test_manifest_reports_torch(tmp_path):
     assert m["torch"]["cuda_available"] == torch.cuda.is_available()
     assert len(m["torch"]["devices"]) == (torch.cuda.device_count()
                                           if torch.cuda.is_available() else 0)
-    assert m["device_costs"]["kernels"] == {}
+    # the compiled-cost book (empty on the CPU, where nothing is captured)
+    assert m["device_costs"]["kernels"] == ttel.get_costbook().as_dict()
     assert "jax" not in m
 
 

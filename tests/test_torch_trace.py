@@ -216,8 +216,17 @@ def test_replay_warns_and_refuses_what_is_not_ported():
     assert len(recs) == 1
     with pytest.raises(ValueError, match="Queue 1 item 5"):
         ttr.replay(t_state, graph, trace, generator=torch.Generator(), restarts=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ttr.observed_step(0.0, None, None)
+    # observed_step is ported (ROADMAP item 4.4): the load generator's
+    # observed pair weights as a trace step
+    from kubernetes_rescheduling_tpu_torch.bench.loadgen import LoadGenConfig, LoadGenerator
+
+    gen = LoadGenerator(t_wm, LoadGenConfig(entry_service="productpage",
+                                            requests_per_phase=64, chunk=64), device="cpu")
+    samples = gen.run(t_state, 0)
+    step = ttr.observed_step(2.0, gen, samples)
+    assert step.t == 2.0
+    assert step.weights == gen.observed_weights(samples.edge_counts, samples.sent)
+    assert step.weights[("details", "productpage")] == 1.0
 
 
 def test_trace_cli_on_the_cpu(capsys, tmp_path):
