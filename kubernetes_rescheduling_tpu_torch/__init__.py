@@ -22,8 +22,24 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig  # noqa: E402
+from kubernetes_rescheduling_tpu_torch.core.quantities import (  # noqa: E402
+    cpu_to_millicores,
+    format_bytes_as_mi,
+    format_millicores,
+    mem_to_bytes,
+)
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = ["ClusterState", "CommGraph", "__version__"]
+__all__ = [
+    "ClusterState",
+    "CommGraph",
+    "RescheduleConfig",
+    "cpu_to_millicores",
+    "mem_to_bytes",
+    "format_millicores",
+    "format_bytes_as_mi",
+    "__version__",
+]

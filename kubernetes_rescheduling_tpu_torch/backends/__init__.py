@@ -18,6 +18,7 @@ from kubernetes_rescheduling_tpu_torch.backends.chaos import (
     ChaosTimeoutError,
     with_chaos,
 )
+from kubernetes_rescheduling_tpu_torch.backends.fleet import FleetBackend, make_fleet
 from kubernetes_rescheduling_tpu_torch.backends.k8s import K8sBackend
 from kubernetes_rescheduling_tpu_torch.backends.replay import ReplayBackend
 from kubernetes_rescheduling_tpu_torch.backends.sim import LoadModel, SimBackend
@@ -29,6 +30,7 @@ __all__ = [
     "ChaosError",
     "ChaosProfile",
     "ChaosTimeoutError",
+    "FleetBackend",
     "K8sBackend",
     "LoadModel",
     "MoveRequest",
@@ -36,5 +38,6 @@ __all__ = [
     "ReplayBackend",
     "SimBackend",
     "device_kind",
+    "make_fleet",
     "with_chaos",
 ]

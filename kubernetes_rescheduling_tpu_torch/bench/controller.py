@@ -109,9 +109,9 @@ from kubernetes_rescheduling_tpu_torch.config import RescheduleConfig
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import comm_edge_list
 from kubernetes_rescheduling_tpu_torch.policies.proactive import scoring_policy
 from kubernetes_rescheduling_tpu_torch.policies.scoring import POLICY_IDS
+from kubernetes_rescheduling_tpu_torch.parallel.sharded import solve_with_restarts
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     GlobalSolverConfig,
-    global_assign,
     pct_balance_terms,
 )
 from kubernetes_rescheduling_tpu_torch.solver.compiled import to_device
@@ -1487,6 +1487,11 @@ def _greedy_round(boundary, state, graph, config, rnd, *, noise, registry, close
                         state, graph, pid, thr, g, forecast_delta)
                 else:
                     most, hazard_mask, victim, svc, target = decide(state, graph, pid, thr, g)
+            if pre_fence_hook is not None:
+                # the pipelined overlap window: the previous round's close
+                # runs while this decide executes on the device
+                pre_fence_hook()
+                pre_fence_hook = None
             # the apply boundary: ONE batched host read of the decision
             scalars, hazard = fence([torch.stack([most, victim, svc.long(), target]), hazard_mask],
                                     registry)
@@ -1731,13 +1736,19 @@ def _top_gain_moves(changed: list[tuple[int, int]], state=None, graph=None, solv
 
 def _defer_solver_objectives(closer: RoundCloser, info: dict, apply_cb) -> None:
     """Defer the solver's before/after accounting onto the round closer, so
-    it rides the round's single transfer. ``apply_cb(before, after,
-    improved)`` runs at flush."""
-    def decode(flat) -> None:
-        apply_cb(float(flat[0]), float(flat[1]), bool(flat[2]))
+    it rides the round's single transfer. The restart paths report no
+    ``objective_before`` / ``improved`` (as in the JAX package): an absent
+    key decodes to None. ``apply_cb(before, after, improved)`` runs at
+    flush."""
+    keys = [k for k in ("objective_before", "objective_after", "improved") if k in info]
 
-    closer.defer(torch.stack([info[k].float() for k in
-                              ("objective_before", "objective_after", "improved")]), decode)
+    def decode(flat) -> None:
+        d = dict(zip(keys, flat))
+        apply_cb(float(d["objective_before"]) if "objective_before" in d else None,
+                 float(d["objective_after"]) if "objective_after" in d else None,
+                 bool(d["improved"]) if "improved" in d else None)
+
+    closer.defer(torch.stack([info[k].float() for k in keys]), decode)
 
 
 def _solver_config(config: RescheduleConfig) -> GlobalSolverConfig:
@@ -1750,12 +1761,22 @@ def _solver_config(config: RescheduleConfig) -> GlobalSolverConfig:
     )
 
 
+def _restart_plans(config: RescheduleConfig, plan) -> list | None:
+    """The solver-plan seam's value as ``solve_with_restarts``'s ``plans``:
+    one plan list a restart (the seam gives that list itself with
+    ``solver_restarts > 1``, the single solve's plan list otherwise)."""
+    if plan is None:
+        return None
+    return plan if config.solver_restarts > 1 else [plan]
+
+
 def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, registry,
                logger=None, explain=False, intents=None, pre_fence_hook=None) -> RoundRecord:
-    """Per-replica global round: one solve on the pod-level graph, then the
-    moved pods in one ``apply_pod_moves`` wave (the simulator's), or one
-    ``apply_move`` each through the boundary for a backend without it. The
-    pod graph is cached per (declared graph, pod set)."""
+    """Per-replica global round: one solve on the pod-level graph (best-of-N
+    restarts and node sharding as configured), then the moved pods in one
+    ``apply_pod_moves`` wave (the simulator's), or one ``apply_move`` each
+    through the boundary for a backend without it. The pod graph is cached
+    per (declared graph, pod set)."""
     from kubernetes_rescheduling_tpu_torch.solver.pod_mode import (
         global_assign_pods,
         pod_level_graph,
@@ -1775,7 +1796,10 @@ def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, 
     pod_graph = cache["value"]
     with span("controller/pod_solve", round=rnd):
         new_state, info = global_assign_pods(state, graph, generator, _solver_config(config),
-                                             pod_graph=pod_graph, plan=plan)
+                                             pod_graph=pod_graph,
+                                             n_restarts=config.solver_restarts,
+                                             tp=config.solver_tp,
+                                             plans=_restart_plans(config, plan))
         if pre_fence_hook is not None:
             # the pipelined overlap window, while the solve executes
             pre_fence_hook()
@@ -1859,12 +1883,14 @@ def _pod_round(boundary, state, graph, config, rnd, *, generator, plan, closer, 
 def _global_round(boundary, state, graph, config, rnd, *, generator, plan, closer,
                   registry, logger=None, explain=False, intents=None,
                   pre_fence_hook=None) -> RoundRecord:
-    """One batched solve (one restart, tp 1), then every service whose node
-    changed is moved — or, with a numeric ``global_moves_cap``, the wave
-    cap's selection. ``placement_unit="pod"`` takes :func:`_pod_round`. The
-    JAX package can donate the snapshot's buffers to the solve and
-    resurrect them afterwards; torch has nothing to donate, so that path
-    does not exist here."""
+    """One batched solve through ``parallel.solve_with_restarts`` (best-of-N
+    over ``solver_restarts``, each solve's node axis over ``solver_tp``
+    ranks), then every service whose node changed is moved — or, with a
+    numeric ``global_moves_cap``, the wave cap's selection.
+    ``placement_unit="pod"`` takes :func:`_pod_round`. The JAX package can
+    donate the snapshot's buffers to the solve and resurrect them
+    afterwards; torch has nothing to donate, so that path does not exist
+    here."""
     if config.placement_unit == "pod":
         return _pod_round(boundary, state, graph, config, rnd, generator=generator, plan=plan,
                           closer=closer, registry=registry, logger=logger, explain=explain,
@@ -1872,18 +1898,19 @@ def _global_round(boundary, state, graph, config, rnd, *, generator, plan, close
     cfg = _solver_config(config)
     t0 = time.perf_counter()
     with span("controller/global_solve", round=rnd):
+        sparse_graph = None
         if config.solver_backend == "sparse":
             from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
-            from kubernetes_rescheduling_tpu_torch.solver.sparse_solver import global_assign_sparse
 
             # the block-local form is built once per graph: the controller
             # re-solves the same declared graph every round
             cache = boundary.solver_cache("sparse_graph")
             if cache.get("graph") is not graph:
                 cache["graph"], cache["value"] = graph, from_comm_graph(graph)
-            new_state, info = global_assign_sparse(state, cache["value"], generator, cfg, plan=plan)
-        else:
-            new_state, info = global_assign(state, graph, generator, cfg, plan=plan)
+            sparse_graph = cache["value"]
+        new_state, info = solve_with_restarts(
+            state, graph, generator, n_restarts=config.solver_restarts, config=cfg,
+            tp=config.solver_tp, sparse_graph=sparse_graph, plans=_restart_plans(config, plan))
         if pre_fence_hook is not None:
             # the pipelined overlap window, while the solve executes
             pre_fence_hook()

@@ -68,8 +68,8 @@ the pipelined fleet fire on its workers; the plane's hooks they reach take
 no lock the main thread holds while it waits for them.
 
 Left out (refused by ``config.validate()``, each naming its ROADMAP item):
-the dp plane and its device rollups behind ``/devices``, and restarts
-(item 5). Checkpoint/resume is solo-only, as in the JAX package.
+the dp plane and its device rollups behind ``/devices``, and fleet
+restarts (item 5). Checkpoint/resume is solo-only, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -326,8 +326,8 @@ class ExperimentConfig:
     # λ of the global solver: comm-cost edges traded per load-std point (0
     # would let it keep the "Before" pile-up: cost 0, load std terrible)
     balance_weight: float = 0.5
-    solver_restarts: int = 1           # best-of-N solves a round (item 5)
-    solver_tp: int = 1                 # node-axis devices a solve (item 5)
+    solver_restarts: int = 1           # best-of-N global solves a round
+    solver_tp: int = 1                 # node-axis devices a solve (tp ranks)
     move_cost: float = 0.0             # disruption pricing in the global solve
     solver_backend: str = "dense"      # "dense" | "sparse" pair weights
     placement_unit: str = "service"    # "service" | "pod"

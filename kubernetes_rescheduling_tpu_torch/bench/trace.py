@@ -12,11 +12,13 @@ and a canary trace that shifts traffic v1 → v2 → v3.
 on the card with no host read between steps: each step — the weight update,
 then the solve on the previous step's state — is one replay of the graph
 captured for the step, its inputs (the step's multipliers, plans and
-seeds) copied into the graph's buffers first.
+seeds) copied into the graph's buffers first. With ``restarts`` R > 1 a
+step is a best-of-R: R replays of that graph with R plans, the best picked
+on the device.
 
-:func:`observed_step` turns the load generator's observed traffic into a
-step. Not ported: ``replay(restarts > 1)`` (``parallel/sharded.py``, ROADMAP
-Queue 1 item 5); it raises naming its item.
+:func:`replay` runs each step as ``parallel.solve_with_restarts``, so
+``restarts > 1`` is a best-of-N solve there too. :func:`observed_step`
+turns the load generator's observed traffic into a step.
 """
 
 from __future__ import annotations
@@ -49,7 +51,6 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     dense_plan_inputs,
     dense_solve,
     draw_plans,
-    global_assign,
     state_from_inputs,
     state_inputs,
 )
@@ -205,13 +206,12 @@ def replay(
 
     Every step's solve reuses one captured graph: the weights are written
     into one adjacency buffer that the graph reads, so a new weight set is
-    data, not a new shape. ``generator`` draws each step's plans unless
-    ``plans`` (one per step) gives them."""
-    if restarts > 1:
-        raise ValueError(
-            f"restarts={restarts}: best-of-N solves over the device mesh need "
-            "parallel/sharded.py, not ported yet (ROADMAP Queue 1 item 5); use restarts=1"
-        )
+    data, not a new shape. Each step is ``parallel.solve_with_restarts``:
+    ``restarts > 1`` makes it a best-of-N solve (in sequence on one
+    device). ``generator`` draws each step's plans unless ``plans`` (one
+    per step; with restarts, one list of plan lists a step) gives them."""
+    from kubernetes_rescheduling_tpu_torch.parallel.sharded import solve_with_restarts
+
     known = set(graph.names)
     unknown = sorted({n for step in trace for pair in step.weights for n in pair} - known)
     if unknown:
@@ -226,9 +226,12 @@ def replay(
         adj.copy_(with_weights(graph, step.weights).adj)
         graph = dataclasses.replace(graph, adj=adj)
         before = float(communication_cost(state, graph))
+        step_plans = None
+        if plans is not None:
+            step_plans = plans[k] if restarts > 1 else [plans[k]]
         with span("trace/step", t=step.t):
-            new_state, _ = global_assign(state, graph, generator, config,
-                                         plan=None if plans is None else plans[k])
+            new_state, _ = solve_with_restarts(state, graph, generator, n_restarts=restarts,
+                                               config=config, plans=step_plans)
         moves = int((state.pod_valid & (state.pod_node != new_state.pod_node)).sum())
         records.append(ReplayRecord(
             t=step.t,
@@ -272,14 +275,32 @@ def drift_multipliers_sparse(sgraph: SparseCommGraph, steps: int, *, sigma: floa
 
 def _replay_steps(fn, key, state, step_inputs, make_body, operands):
     """Run the steps: each one replay (or, eagerly, one body) on the
-    previous step's state. Returns ``(final_state, objs, befores)``."""
+    previous step's state, or with several restarts (a list of inputs a
+    step) one replay each and the best ``objective_after + move_penalty``
+    (the first on ties) picked on the device. Returns ``(final_state,
+    objs, befores)``."""
     objs, befores = [], []
     for t in step_inputs:
-        out = CACHE.run(fn, key, {**state_inputs(state), **t}, make_body, operands)
-        state = state.replace(pod_node=out["pod_node"])
-        objs.append(out["objective_after"])
-        befores.append(out["objective_before"])
+        outs = [CACHE.run(fn, key, {**state_inputs(state), **r}, make_body, operands)
+                for r in (t if isinstance(t, list) else [t])]
+        pick = outs[0]
+        if len(outs) > 1:
+            best = torch.argmin(torch.stack([o["objective_after"] + o["move_penalty"]
+                                             for o in outs])).reshape(1)
+            pick = {k: torch.stack([o[k] for o in outs]).index_select(0, best)[0]
+                    for k in ("pod_node", "objective_after", "objective_before")}
+        state = state.replace(pod_node=pick["pod_node"])
+        objs.append(pick["objective_after"])
+        befores.append(pick["objective_before"])
     return state, torch.stack(objs), torch.stack(befores)
+
+
+def _restart_plans(plans, steps: int, restarts: int, draw):
+    """Per step, one plan list a restart: ``plans`` as given (a plan list a
+    step, or with restarts a list of them), else drawn by ``draw()``."""
+    if plans is None:
+        return [[draw() for _ in range(restarts)] for _ in range(steps)]
+    return [p if restarts > 1 else [p] for p in plans]
 
 
 def _mults_on(mults, dev) -> torch.Tensor:
@@ -296,27 +317,29 @@ def replay_on_device(
     config: GlobalSolverConfig = GlobalSolverConfig(),
     *,
     plans: list | None = None,
+    restarts: int = 1,
 ):
     """The streaming-trace path: per step, the edge weights are updated by
     that step's multipliers (a scatter into the base adjacency) and the
     same captured solve consumes the previous step's placement; no host
-    read between steps. ``plans`` (one list of sweep plans per step) or
-    ``generator`` gives each step's random decisions. Returns
-    ``(final_state, objs[steps], costs_before[steps])``: each step's
-    objective under its new weights after and before its solve."""
+    read between steps. ``restarts`` R > 1 makes each step a best-of-R over
+    the same captured graph. ``plans`` (one list of sweep plans per step;
+    with restarts, R of them a step) or ``generator`` gives each step's
+    random decisions. Returns ``(final_state, objs[steps],
+    costs_before[steps])``: each step's objective under its new weights
+    after and before its solve."""
     dev = state.device
     lay = dense_layout(graph.num_services, state.num_nodes, config, dev)
     check_weight_budget(lay.sp, config)
     m = _mults_on(mults, dev)
-    if plans is None:
-        block = COMPOSITION_BLOCK if lay.inline_mass else 1
-        plans = [draw_plans(generator, config.sweeps, lay.sp, lay.chunk, lay.n_chunks, block)
-                 for _ in range(m.shape[0])]
+    block = COMPOSITION_BLOCK if lay.inline_mass else 1
+    plans = _restart_plans(plans, m.shape[0], restarts, lambda: draw_plans(
+        generator, config.sweeps, lay.sp, lay.chunk, lay.n_chunks, block))
     base = {"service_valid": graph.service_valid,
             "ii": to_device(torch.as_tensor(np.asarray(ii, dtype=np.int64)), dev),
             "jj": to_device(torch.as_tensor(np.asarray(jj, dtype=np.int64)), dev)}
-    step_inputs = [dict(base, mult=m[k], **dense_plan_inputs(p, lay, config, dev, generator))
-                   for k, p in enumerate(plans)]
+    step_inputs = [[dict(base, mult=m[k], **dense_plan_inputs(p, lay, config, dev, generator))
+                    for p in step] for k, step in enumerate(plans)]
     base_adj = graph.adj
 
     def make_body():
@@ -340,14 +363,16 @@ def replay_on_device_sparse(
     config: GlobalSolverConfig = GlobalSolverConfig(),
     *,
     plans: list | None = None,
+    restarts: int = 1,
 ):
     """Sparse-solver streaming replay: per step the undirected-edge weights
     are scattered into the block-local strips and the COO list through the
     static :class:`TraceLocator` (:func:`with_edge_weights`), and the same
     captured sparse solve consumes the previous step's placement; no host
-    read between steps. Requires a multi-block graph (the single-block case
-    belongs to the dense replay). Returns ``(final_state, objs[steps],
-    costs_before[steps])``."""
+    read between steps (``restarts`` and ``plans`` as in
+    :func:`replay_on_device`). Requires a multi-block graph (the
+    single-block case belongs to the dense replay). Returns
+    ``(final_state, objs[steps], costs_before[steps])``."""
     if sgraph.num_blocks <= 1:
         raise ValueError(
             "single-block sparse graphs delegate to the dense solver — "
@@ -356,11 +381,11 @@ def replay_on_device_sparse(
     dev = state.device
     lay = sparse_layout(sgraph, config)
     m = _mults_on(mults, dev)
-    if plans is None:
-        plans = [draw_sparse_plans(generator, config.sweeps, lay) for _ in range(m.shape[0])]
-    step_inputs = [dict(mult=m[k], **sparse_plan_inputs(p, lay, config, state.num_nodes, dev,
-                                                        generator))
-                   for k, p in enumerate(plans)]
+    plans = _restart_plans(plans, m.shape[0], restarts,
+                           lambda: draw_sparse_plans(generator, config.sweeps, lay))
+    step_inputs = [[dict(mult=m[k], **sparse_plan_inputs(p, lay, config, state.num_nodes, dev,
+                                                         generator))
+                    for p in step] for k, step in enumerate(plans)]
 
     def make_body():
         tables = sparse_tables(sgraph, lay, dev)

@@ -22,6 +22,8 @@ the report text) of the JAX package's commands.
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --sparse
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --placement-unit pod
     python -m kubernetes_rescheduling_tpu_torch solve --scenario large --latency-budget 100
+    python -m kubernetes_rescheduling_tpu_torch solve --scenario large --restarts 4
+    torchrun --nproc-per-node 2 -m kubernetes_rescheduling_tpu_torch solve --scenario large --tp 2
     python -m kubernetes_rescheduling_tpu_torch trace --steps 12
     python -m kubernetes_rescheduling_tpu_torch bench --scenario mubench --repeats 1 --session s
     python -m kubernetes_rescheduling_tpu_torch telemetry perf result/session_s/perf_ledger.jsonl
@@ -48,8 +50,13 @@ trace (a native ``.jsonl`` file, or a directory of Alibaba- or Borg-style
 CSVs) in shadow mode: recommendations are recorded, never applied, and
 scored against the trace's scheduler (the output's ``shadow`` block).
 ``--backend k8s`` drives a live cluster through the ``kubernetes`` client
-(``--namespace``, ``--workmodel``), pacing 15 s between rounds. Best-of-N restarts and node sharding (``--restarts``,
-``--tp`` above 1) are refused, naming the ROADMAP item that brings them.
+(``--namespace``, ``--workmodel``), pacing 15 s between rounds.
+``--restarts N`` makes every global solve a best-of-N (in sequence on one
+device, over the dp ranks of a process group); ``--tp T`` shards each
+solve's node axis over T ranks of the process group ``torchrun`` starts
+(the CLI joins it when ``WORLD_SIZE`` is set), and on one device fails with
+the JAX package's message. Fleet restarts are refused, naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -84,11 +92,11 @@ from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph
 from kubernetes_rescheduling_tpu_torch.core.topology import state_from_workmodel
 from kubernetes_rescheduling_tpu_torch.core.workmodel import Workmodel
 from kubernetes_rescheduling_tpu_torch.objectives import communication_cost, load_std
+from kubernetes_rescheduling_tpu_torch.parallel.mesh import collective_backend, rank_device
+from kubernetes_rescheduling_tpu_torch.parallel.sharded import solve_with_restarts
 from kubernetes_rescheduling_tpu_torch.solver import (
     GlobalSolverConfig,
-    global_assign,
     global_assign_pods,
-    global_assign_sparse,
     pod_level_graph,
 )
 from kubernetes_rescheduling_tpu_torch.solver.autotune import tune_sweeps
@@ -147,6 +155,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--capacity-frac", type=float, default=None,
                    help="enable capacity enforcement with this packing budget "
                         "(fraction of node capacity)")
+    r.add_argument("--restarts", type=int, default=1,
+                   help="best-of-N global solves per round over the mesh")
+    r.add_argument("--tp", type=int, default=1,
+                   help="node-axis devices per solve (the node-sharded solver over tp ranks)")
     r.add_argument("--move-cost", type=float, default=0.0,
                    help="disruption pricing: comm-weight units per restarted pod "
                         "inside the global solve (0 = moves are free)")
@@ -185,10 +197,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "judge it with the [perf] block's rolling-window detector; a "
                         "regression arms the ops plane's perf_regression rule when --serve "
                         "is active (render trends with `telemetry perf PATH`)")
-    r.add_argument("--tenant-label-budget", type=int, default=64, metavar="N",
+    r.add_argument("--tenant-label-budget", type=int, default=None, metavar="N",
                    help="fleet cardinality budget: fleets of more than N tenants suppress "
                         "the per-tenant labeled series (counted) and observe through the "
-                        "device-side rollups")
+                        "device-side rollups (default: the config's tenant_label_budget, 64)")
     _add_resilience_flags(r)
     _add_forecast_flags(r)
     _add_pipeline_flags(r)
@@ -221,9 +233,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="wave cap for global rounds: apply only the k highest-gain moves "
                         "per round ('all' = uncapped)")
     b.add_argument("--restarts", type=int, default=1,
-                   help="best-of-N global solves per round (only 1 is ported)")
+                   help="best-of-N global solves per round (global algorithm)")
     b.add_argument("--tp", type=int, default=1,
-                   help="node-axis devices per solve (only 1 is ported)")
+                   help="node-axis devices per solve: each global solve runs as the "
+                        "node-sharded solver over tp ranks (composes with --restarts as a "
+                        "dp×tp mesh)")
     b.add_argument("--capacity-frac", type=float, default=None,
                    help="enable capacity enforcement with this packing budget (fraction of "
                         "node capacity; global algorithm only)")
@@ -243,7 +257,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to run on (default: cuda)")
 
     s = sub.add_parser("solve", help="one-shot global solve")
-    s.add_argument("--scenario", default="large", choices=SCENARIOS)
+    s.add_argument("--scenario", default="mubench", choices=SCENARIOS)
     s.add_argument("--workmodel", default=None, help=WORKMODEL_HELP)
     s.add_argument("--sweeps", type=int, default=9)
     s.add_argument("--balance-weight", type=float, default=0.0)
@@ -259,9 +273,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pod: re-place every pod independently on the pod-level graph")
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--restarts", type=int, default=1,
-                   help="best-of-N independent solves (only 1 is ported)")
+                   help="best-of-N independent solves over the device mesh (1 = single "
+                        "solve)")
     s.add_argument("--tp", type=int, default=1,
-                   help="node-axis devices per solve (only 1 is ported)")
+                   help="node-axis devices per solve (the node-sharded solver; composes "
+                        "with --restarts as a dp×tp mesh)")
     s.add_argument("--latency-budget", type=float, default=None,
                    help="auto-tune the sweep count to fill this many ms of "
                         "device time per round (overrides --sweeps)")
@@ -292,7 +308,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="enable capacity enforcement with this packing "
                         "budget (fraction of node capacity)")
     t.add_argument("--restarts", type=int, default=1,
-                   help="best-of-N solves per trace step (only 1 is ported)")
+                   help="best-of-N solves per trace step over the mesh")
     t.add_argument("--seed", type=int, default=0)
     _add_telemetry_flags(t)
     t.add_argument("--device", default="cuda",
@@ -584,10 +600,14 @@ def _forecast_config(args) -> ForecastConfig:
 
 
 def _refuse_unported(command: str, args) -> None:
-    """Exit naming the ROADMAP item of a flag the port does not carry yet."""
-    if getattr(args, "restarts", 1) > 1 or getattr(args, "tp", 1) > 1:
-        raise SystemExit(f"{command}: --restarts and --tp above 1 need parallel/sharded.py, "
-                         "not ported yet (ROADMAP Queue 1 item 5)")
+    """Exit naming the ROADMAP item of what the port does not carry yet:
+    fleet restarts (``--fleet`` with ``--restarts`` above 1) fan the
+    tenants' restarts out over the fleet's device mesh. Restarts and tp of
+    a solo run are carried (``parallel/``)."""
+    if getattr(args, "fleet", 0) and args.restarts > 1:
+        raise SystemExit(f"{command}: --fleet with --restarts above 1 needs the fleet's "
+                         "device mesh (parallel/fleet.py), not ported yet (ROADMAP Queue 1 "
+                         "item 5)")
 
 
 def _parse_tenant_list(raw: str) -> tuple[int, ...]:
@@ -696,6 +716,8 @@ def cmd_reschedule(args) -> dict:
         moves_per_round=args.moves_per_round,
         balance_weight=args.balance_weight,
         move_cost=args.move_cost,
+        solver_restarts=args.restarts,
+        solver_tp=args.tp,
         solver_backend=args.solver_backend,
         global_moves_cap=args.global_moves_cap,
         placement_unit=args.placement_unit,
@@ -720,7 +742,8 @@ def cmd_reschedule(args) -> dict:
         elastic_seed=args.churn_seed,
         fleet=FleetConfig(tenants=args.fleet, plane=args.fleet_plane,
                           chaos_tenants=_parse_tenant_list(args.fleet_chaos_tenants)),
-        tenant_label_budget=args.tenant_label_budget,
+        **({} if args.tenant_label_budget is None
+           else {"tenant_label_budget": args.tenant_label_budget}),
         forecast=_forecast_config(args),
         serving=_serving_config(args),
         slo=_slo_config(args),
@@ -799,7 +822,6 @@ def cmd_bench(args) -> dict:
     """The experiment matrix (``bench/harness.py``) on ``--device``."""
     from kubernetes_rescheduling_tpu_torch.bench.harness import ExperimentConfig, run_experiment
 
-    _refuse_unported("bench", args)
     if args.backend == "k8s" and args.placement_unit == "pod":
         raise SystemExit("--placement-unit pod requires the sim backend: the k8s Deployment "
                          "mechanism cannot pin a single replica")
@@ -905,7 +927,6 @@ def _run_fleet(args, cfg: RescheduleConfig) -> dict:
 
 
 def cmd_trace(args) -> dict:
-    _refuse_unported("trace", args)
     wm = (
         Workmodel.from_file(args.workmodel)
         if args.workmodel
@@ -944,7 +965,9 @@ def cmd_trace(args) -> dict:
 
 
 def cmd_solve(args) -> dict:
-    _refuse_unported("solve", args)
+    """One global solve of the scenario through ``parallel.solve_with_restarts``
+    (``--restarts``, ``--tp``), as the JAX command runs it; the autotuner
+    tunes that same path."""
     backend = make_backend(args.scenario, args.seed, device=args.device,
                            workmodel_path=args.workmodel)
     state = backend.monitor()
@@ -956,31 +979,38 @@ def cmd_solve(args) -> dict:
         move_cost=args.move_cost,
     )
     # the solver and the graph it takes as an argument, as the JAX package
-    # tunes and runs them
+    # tunes and runs them: the full restart × tp matrix on every unit
     if args.placement_unit == "pod":
         solve_graph = pod_level_graph(state, graph)
 
         def solver(st, g, generator, c):
-            return global_assign_pods(st, None, generator, c, pod_graph=g)
-    elif args.sparse:
-        solve_graph, solver = from_comm_graph(graph), global_assign_sparse
+            return global_assign_pods(st, None, generator, c, pod_graph=g,
+                                      n_restarts=args.restarts, tp=args.tp)
     else:
-        solve_graph, solver = graph, global_assign
+        solve_graph = from_comm_graph(graph) if args.sparse else graph
+
+        def solver(st, g, generator, c):
+            return solve_with_restarts(st, None if args.sparse else g, generator,
+                                       n_restarts=args.restarts, config=c, tp=args.tp,
+                                       sparse_graph=g if args.sparse else None)
     tune_info = None
     if args.latency_budget is not None:
         cfg, tune_info = tune_sweeps(state, solve_graph, cfg, args.latency_budget, solver=solver)
     new_state, info = solver(state, solve_graph, torch.Generator().manual_seed(args.seed), cfg)
     out = {
         "scenario": args.scenario,
-        "restarts": 1,
-        "tp": 1,
+        "restarts": int(info["restarts"]),
+        "tp": int(info["tp"]) if "tp" in info else 1,
         "communication_cost_before": float(communication_cost(state, graph)),
         "communication_cost_after": float(communication_cost(new_state, graph)),
         "load_std_before": float(load_std(state)),
         "load_std_after": float(load_std(new_state)),
-        "moves_per_sweep": [int(m) for m in info["moves_per_sweep"]],
     }
-    if args.move_cost > 0:
+    if "moves_per_sweep" in info:
+        out["moves_per_sweep"] = [int(m) for m in info["moves_per_sweep"]]
+    if "restart_objectives" in info:
+        out["restart_objectives"] = [float(o) for o in info["restart_objectives"]]
+    if args.move_cost > 0 and "move_penalty" in info:
         out["move_cost"] = args.move_cost
         out["move_penalty"] = float(info["move_penalty"])
     if args.sparse:
@@ -993,19 +1023,44 @@ def cmd_solve(args) -> dict:
     return out
 
 
+def _join_process_group(args) -> bool:
+    """Under ``torchrun`` (``WORLD_SIZE`` above 1) join the process group
+    the launcher describes, on this rank's device: NCCL for the card
+    (``cuda:LOCAL_RANK``), gloo for ``--device cpu``. Returns whether it
+    joined one."""
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized() \
+            or not hasattr(args, "device"):
+        return False
+    dev = rank_device(args.device)
+    args.device = str(dev)
+    dist.init_process_group(collective_backend(dev))
+    return True
+
+
 def run_command(argv: list[str] | None = None) -> dict | str:
     """Parse ``argv``, run the command and write its telemetry artifacts;
     returns the command's JSON object, or the ``telemetry`` report's text
     (what :func:`main` prints)."""
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
-    out = {"reschedule": cmd_reschedule, "bench": cmd_bench, "solve": cmd_solve,
-           "trace": cmd_trace, "telemetry": cmd_telemetry}[args.command](args)
-    write_telemetry_artifacts(args)
+    joined = _join_process_group(args)
+    try:
+        out = {"reschedule": cmd_reschedule, "bench": cmd_bench, "solve": cmd_solve,
+               "trace": cmd_trace, "telemetry": cmd_telemetry}[args.command](args)
+        write_telemetry_artifacts(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return out
 
 
 def main(argv: list[str] | None = None) -> int:
     out = run_command(argv)
+    if int(os.environ.get("RANK", "0")) != 0:
+        return 0  # every rank computed the same result; rank 0 prints it
     if isinstance(out, str):  # the telemetry report is human text already
         print(out)
         return 0

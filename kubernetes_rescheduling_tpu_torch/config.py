@@ -14,10 +14,13 @@ serving plane, SLO v2, shadow mode and the perf ledger keep their blocks
 :class:`SloConfig`, :class:`ShadowConfig`, :class:`PerfConfig`).
 :meth:`RescheduleConfig.from_toml` reads the JAX package's TOML files:
 each nested table lands on the flat fields by the table :data:`TOML_TABLES`.
-The config also carries fields of planes this port does not have yet
-(multi-device, ROADMAP Queue 1 item 5): each keeps its JAX default, and
-``validate`` refuses a value that asks for the plane, naming the item — a
-run never quietly does something else.
+``solver_restarts`` and ``solver_tp`` run as in the JAX package: best-of-N
+solves a round, in sequence on one device, and each solve's node axis
+sharded over ``tp`` ranks of the process group (``parallel/``). The config
+also carries fields of planes this port does not have yet (the fleet's dp
+plane and its restarts, the mesh plane: ROADMAP Queue 1 item 5): each keeps
+its JAX default, and ``validate`` refuses a value that asks for the plane,
+naming the item — a run never quietly does something else.
 """
 
 from __future__ import annotations
@@ -537,11 +540,6 @@ class RescheduleConfig:
                     "placement_unit='pod' does not support global_moves_cap "
                     "(use move_cost: disruption pricing inside the solve)"
                 )
-        if self.solver_restarts > 1 or self.solver_tp > 1:
-            raise ValueError(
-                "solver_restarts > 1 and solver_tp > 1 run across devices, which the port "
-                "does not do yet (ROADMAP Queue 1 item 5)"
-            )
         if self.solver_restarts < 1 or self.solver_tp < 1:
             raise ValueError("solver_restarts and solver_tp must be >= 1")
         self.retry.validate()
@@ -736,6 +734,18 @@ class RescheduleConfig:
                     "fleet mode does not support an integer global_moves_cap: wave-cap "
                     "selection is a sequential host-side re-scoring loop per tenant, "
                     "which defeats the batched dispatch (use move_cost)"
+                )
+            if self.solver_tp != 1:
+                raise ValueError(
+                    "fleet mode does not compose with solver_tp yet: the mesh's dp axis "
+                    "is the tenant axis (fleet.plane='dp'); node-axis sharding of each "
+                    "tenant's solve would need a dp×tp fleet mesh"
+                )
+            if self.solver_restarts > 1:
+                raise ValueError(
+                    "fleet restarts (solver_restarts > 1 with fleet mode) fan the tenants' "
+                    "restarts out over the fleet's device mesh, which the port does not "
+                    "do yet (ROADMAP Queue 1 item 5)"
                 )
 
     def _validate_schedules(self) -> None:

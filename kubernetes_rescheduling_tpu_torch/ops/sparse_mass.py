@@ -118,6 +118,25 @@ def hub_mass_plain(
     return M.reshape(num_hub_blocks * BLOCK_R, N)
 
 
+def reference_hub_mass(
+    sgraph, w_mm, tgt_l, rvu_l, *, num_nodes: int, blocks=None, col_offset: int = 0,
+):
+    """Plain per-block twin of :func:`hub_neighbor_mass`: the hub offsets
+    and widths are static, so each hub block's W strip is one product with
+    its scaled one-hot slab. ``col_offset`` as in
+    :func:`reference_sparse_mass` (the node-sharded solver's columns)."""
+    N = int(num_nodes)
+    cols = col_offset + torch.arange(N, dtype=torch.int32, device=w_mm.device)
+    outs, lo = [], 0
+    for b in blocks if blocks is not None else sgraph.hub_blocks:
+        width = sgraph.block_ntiles[b] * sgraph.bu
+        off = sgraph.block_toff[b] * sgraph.bu
+        oh = _scaled_one_hot(tgt_l[lo:lo + width], rvu_l[lo:lo + width], cols, w_mm.dtype)
+        outs.append(w_mm[:, off:off + width].to(torch.float32) @ oh)
+        lo += width
+    return torch.cat(outs, dim=0)
+
+
 def hub_tile_arrays(sgraph, blocks=None, device=None):
     """The hub blocks' ragged tile lists flattened, output-block-major:
     ``(W column tile, group-local column tile, output slot, is-first)``,

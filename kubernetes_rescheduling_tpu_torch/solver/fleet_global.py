@@ -21,9 +21,10 @@ comes home as ONE flat f32 bundle, ``[svc_target (T·S), first_pod (T·S),
 obj rows (T·OBJ_ROWS)]`` (:func:`decode_fleet_global`); padded tenant slots
 (``tenant_mask`` False) never emit a move.
 
-Best-of-R restarts (``n_restarts > 1``) run across devices in the JAX
-package and are refused here (ROADMAP Queue 1 item 5), as the solo
-``solver_restarts`` is.
+Best-of-R fleet restarts (``n_restarts > 1``) fan the tenants' restarts
+out over the fleet's device mesh in the JAX package and are refused here
+(ROADMAP Queue 1 item 5); a solo loop's ``solver_restarts`` runs
+(``parallel.solve_with_restarts``).
 """
 
 from __future__ import annotations

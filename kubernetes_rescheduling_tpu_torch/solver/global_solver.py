@@ -290,11 +290,19 @@ def input_comm_cost(state: ClusterState, graph: CommGraph) -> torch.Tensor:
     return torch.where(collapsed, fast, communication_cost(state, graph))
 
 
+def restart_bill_from_arrays(pod_mask, pod_node, tgt, move_cost) -> torch.Tensor:
+    """The array-level core of :func:`pod_restart_bill`, for callers that
+    hold only the pod arrays (the restart selection of the node-sharded
+    solves ranks every restart with it)."""
+    return move_cost * torch.sum(torch.where(pod_mask & (pod_node != tgt), 1.0, 0.0))
+
+
 def pod_restart_bill(state: ClusterState, tgt, move_cost) -> torch.Tensor:
     """Exact restart bill of adopting per-pod target nodes ``tgt``: every
-    already-placed pod whose node would change pays ``move_cost``."""
-    placed = state.pod_valid & (state.pod_node >= 0)
-    return move_cost * torch.sum(torch.where(placed & (state.pod_node != tgt), 1.0, 0.0))
+    already-placed pod whose node would change pays ``move_cost``. One
+    definition: every adopt gate and every restart ranking prices with it."""
+    return restart_bill_from_arrays(state.pod_valid & (state.pod_node >= 0), state.pod_node,
+                                    tgt, move_cost)
 
 
 def auto_chunk(S: int, chunk_size: int = 0) -> int:

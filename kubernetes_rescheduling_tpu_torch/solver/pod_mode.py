@@ -18,7 +18,6 @@ from kubernetes_rescheduling_tpu_torch.core import sparsegraph
 from kubernetes_rescheduling_tpu_torch.core.sparsegraph import SparseCommGraph
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import GlobalSolverConfig
-from kubernetes_rescheduling_tpu_torch.solver.sparse_solver import global_assign_sparse
 
 
 def _pods_by_service(state: ClusterState, S: int):
@@ -89,21 +88,23 @@ def global_assign_pods(
     pod_graph: SparseCommGraph | None = None,
     n_restarts: int = 1,
     tp: int = 1,
+    mesh=None,
     plan: list | None = None,
+    plans: list | None = None,
 ) -> tuple[ClusterState, dict[str, torch.Tensor]]:
     """Re-place every POD independently; never worse than the input (the
     gate compares pod-level comm + balance). Pass a prebuilt ``pod_graph``
     (:func:`pod_level_graph`) to amortize the host-side expansion across
     rounds with an unchanged pod set.
 
-    One solve on one device: ``n_restarts`` and ``tp`` above 1 (restarts
-    across devices, node-axis sharding) belong to the multi-device port
-    (ROADMAP Queue 1 item 5) and raise here."""
-    if n_restarts > 1 or tp > 1:
-        raise ValueError(
-            f"n_restarts={n_restarts}, tp={tp}: restarts and tp sharding are not ported "
-            "yet (ROADMAP Queue 1 item 5, multi-device); use n_restarts=1, tp=1"
-        )
+    ``n_restarts`` / ``tp`` / ``mesh`` route through the same production
+    entry as the service-level solves
+    (``parallel.solve_with_restarts(sparse_graph=...)``): best-of-N
+    restarts, node-axis sharding over ``tp`` ranks and their composition
+    all run on the pod graph. ``plan`` is the single solve's plan list,
+    ``plans`` one plan list per restart."""
+    from kubernetes_rescheduling_tpu_torch.parallel.sharded import solve_with_restarts
+
     if pod_graph is None:
         pod_graph = pod_level_graph(state, graph)
     # each pod is its own pseudo-service: the solver's aggregates then see
@@ -111,6 +112,8 @@ def global_assign_pods(
     view = state.replace(
         pod_service=torch.arange(state.num_pods, dtype=torch.int32, device=state.device)
     )
-    new_view, info = global_assign_sparse(view, pod_graph, generator, config, plan=plan)
-    info = dict(info, restarts=torch.tensor(1))
+    new_view, info = solve_with_restarts(
+        view, None, generator, n_restarts=n_restarts, config=config, mesh=mesh, tp=tp,
+        sparse_graph=pod_graph, plans=[plan] if plan is not None else plans,
+    )
     return state.replace(pod_node=new_view.pod_node), info

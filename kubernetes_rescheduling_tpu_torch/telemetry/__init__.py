@@ -46,10 +46,16 @@ from kubernetes_rescheduling_tpu_torch.telemetry.spans import (
 )
 from kubernetes_rescheduling_tpu_torch.telemetry.accounting import (
     count_reconcile,
+    publish_round_telemetry,
     pull,
     timed_call,
 )
-from kubernetes_rescheduling_tpu_torch.telemetry.costmodel import get_costbook
+from kubernetes_rescheduling_tpu_torch.telemetry.costmodel import (
+    CostBook,
+    get_costbook,
+    sample_device_memory,
+)
+from kubernetes_rescheduling_tpu_torch.telemetry.perf_ledger import PerfLedger
 from kubernetes_rescheduling_tpu_torch.telemetry.manifest import (
     run_manifest,
     write_manifest,
@@ -90,8 +96,12 @@ __all__ = [
     "trace_to",
     "count_reconcile",
     "pull",
+    "publish_round_telemetry",
     "timed_call",
+    "CostBook",
     "get_costbook",
+    "sample_device_memory",
+    "PerfLedger",
     "run_manifest",
     "write_manifest",
     "ProfilerGate",

@@ -5,7 +5,8 @@
 tensor to the host and counts the transfer as
 ``device_transfers_total{site=...}``; :func:`pull_arrays` packs several
 tensors of mixed dtypes into one such transfer. :func:`timed_call` and
-:func:`count_reconcile` instrument the backends. The JAX package's
+:func:`count_reconcile` instrument the backends, and
+:func:`publish_round_telemetry` surfaces a ``run_rounds`` record. The JAX package's
 ``instrument_jit`` counts compilations as ``jax_traces_total{fn=...}``;
 the port's counterpart is ``cuda_graph_captures_total{fn=...}``, counted
 by the capture cache of ``solver/compiled.py`` once per captured solve
@@ -90,3 +91,31 @@ def count_reconcile(backend: str, pods: int, registry: MetricsRegistry | None = 
         "backend_pods_restarted_total", "pods restarted by reconcile waves",
         labelnames=("backend",),
     ).labels(backend=backend).inc(max(int(pods), 0))
+
+
+def publish_round_telemetry(tel, *, algorithm: str = "unknown",
+                            registry: MetricsRegistry | None = None) -> dict[str, float]:
+    """Surface a ``solver.round_loop.RoundTelemetry`` (one round, or
+    :func:`~kubernetes_rescheduling_tpu_torch.solver.round_loop.run_rounds`'
+    stacked rounds) through the registry: ``rounds_total`` and
+    ``moves_total`` grow by its rounds and moves, the ``communication_cost``
+    and ``load_std`` gauges take its last round's values. One counted host
+    read (``site="round_telemetry"``) for the whole record; returns the
+    summary it published."""
+    reg = registry if registry is not None else get_registry()
+    host = pull_arrays({"moved": tel.moved, "communication_cost": tel.communication_cost,
+                        "load_std": tel.load_std}, site="round_telemetry", registry=reg)
+    moved = host["moved"]
+    cost = host["communication_cost"].astype(np.float64).reshape(-1)
+    lstd = host["load_std"].astype(np.float64).reshape(-1)
+    rounds, moves = int(moved.size), int(np.sum(moved))
+    reg.counter("rounds_total", "rescheduling rounds executed",
+                labelnames=("algorithm",)).labels(algorithm=algorithm).inc(rounds)
+    reg.counter("moves_total", "rounds that moved a deployment",
+                labelnames=("algorithm",)).labels(algorithm=algorithm).inc(moves)
+    reg.gauge("communication_cost", "communication cost after the most recent round",
+              labelnames=("algorithm",)).labels(algorithm=algorithm).set(float(cost[-1]))
+    reg.gauge("load_std", "node CPU-% standard deviation after the most recent round",
+              labelnames=("algorithm",)).labels(algorithm=algorithm).set(float(lstd[-1]))
+    return {"rounds": rounds, "moves": moves, "communication_cost": float(cost[-1]),
+            "load_std": float(lstd[-1])}

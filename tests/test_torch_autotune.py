@@ -101,7 +101,31 @@ def test_solve_latency_budget_cli_on_the_cpu(flags, capsys):
     assert out["communication_cost_after"] <= out["communication_cost_before"]
 
 
-def test_solve_refuses_restarts_and_tp():
-    for flags in (["--restarts", "2"], ["--tp", "2"]):
-        with pytest.raises(SystemExit, match="Queue 1 item 5"):
-            cli.main(["solve", "--scenario", "dense", "--device", "cpu", *flags])
+def test_solve_restarts_matches_jax_and_tp_needs_devices(monkeypatch, capsys):
+    """``solve --restarts 2`` on µBench, fed the JAX command's per-restart
+    plans (``split(PRNGKey(seed), 2)``), prints the JAX command's keys and
+    values: the same restart objectives (rel 1e-6: f32 sums of integer
+    weights), costs and load spreads; ``--tp 2`` on one device fails with
+    the JAX package's message."""
+    import jax
+    from test_torch_global_solver import jax_plan
+
+    from kubernetes_rescheduling_tpu import cli as jcli
+
+    assert jcli.main(["solve", "--scenario", "mubench", "--restarts", "2", "--seed", "3"]) == 0
+    j_out = json.loads(capsys.readouterr().out)
+    keys = jax.random.split(jax.random.PRNGKey(3), 2)
+    plans = [jax_plan(k, jgs.GlobalSolverConfig(), 20, 3, inline=False) for k in keys]
+    real = cli.solve_with_restarts
+    monkeypatch.setattr(cli, "solve_with_restarts",
+                        lambda *a, **kw: real(*a, **kw, plans=plans))
+    assert cli.main(["solve", "--scenario", "mubench", "--restarts", "2", "--seed", "3",
+                     "--device", "cpu"]) == 0
+    t_out = json.loads(capsys.readouterr().out)
+    assert set(t_out) == set(j_out) and t_out["restarts"] == 2 and t_out["tp"] == 1
+    assert t_out["restart_objectives"] == pytest.approx(j_out["restart_objectives"], rel=1e-6)
+    for k in ("communication_cost_before", "communication_cost_after", "load_std_before",
+              "load_std_after"):
+        assert t_out[k] == pytest.approx(j_out[k], rel=1e-6), k
+    with pytest.raises(ValueError, match="tp=2 does not divide the 1 available devices"):
+        cli.main(["solve", "--scenario", "mubench", "--tp", "2", "--device", "cpu"])

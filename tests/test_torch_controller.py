@@ -413,8 +413,6 @@ def test_cli_reschedule_global(capsys, solver_backend):
 REFUSED = [
     # proactive is carried; what the JAX package refuses of it, it refuses
     (dict(algorithm="proactive", scan_block=4), "pinning greedy algorithm"),
-    (dict(solver_restarts=2), r"ROADMAP Queue 1 item 5\b"),
-    (dict(solver_tp=2), r"ROADMAP Queue 1 item 5\b"),
     # the k8s backend is carried: churn on a live cluster is refused, as in
     # the JAX package
     (dict(backend="k8s", elastic="steady"), "churn injection requires the hermetic sim"),
@@ -452,6 +450,37 @@ def test_config_refuses_planes_it_does_not_carry(kw, match):
 
     with pytest.raises(ValueError, match=match):
         t_run(Untouched(), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("plane", ["solver_restarts", "solver_tp"])
+def test_config_runs_restarts_and_tp(plane):
+    """``solver_restarts`` and ``solver_tp`` are carried: validate()
+    accepts them. Two global rounds of best-of-2 restarts (seed 2, µBench)
+    fed the JAX loop's per-restart plans (``split(fold_in(key, round), 2)``)
+    equal the JAX loop's records; a tp of 2 on one process fails at the
+    solve with the JAX package's message (the node-sharded rounds over a
+    process group are tests/test_torch_parallel.py's)."""
+    seed = 2
+    kw = dict(algorithm="global", max_rounds=2, sleep_after_action_s=0.0, seed=seed,
+              **{plane: 2})
+    TConfig(**kw).validate()
+    tb = t_make("mubench", seed, device="cpu")
+    if plane == "solver_tp":
+        with pytest.raises(ValueError, match="tp=2 does not divide the 1 available devices"):
+            t_run(tb, TConfig(**kw), device="cpu", registry=TRegistry())
+        return
+    jb = j_make("mubench", seed)
+    j = j_run(jb, JConfig(**kw), registry=JRegistry())
+    S, N = tb.comm_graph().num_services, len(tb.node_names)
+
+    def plans(rnd):
+        keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), rnd), 2)
+        return [jax_plan(k, jgs.GlobalSolverConfig(), S, N, inline=False) for k in keys]
+
+    t = t_run(tb, TConfig(**kw), device="cpu", registry=TRegistry(), solver_plans=plans)
+    assert_same_records(t, j)
+    assert tb.events == jb.events
+    assert all(r.objective_before is None and r.objective_after is not None for r in t.rounds)
 
 
 def test_cli_refuses_what_the_port_does_not_carry():

@@ -142,6 +142,23 @@ def test_matrix_cell_equals_jax(matrices, algo):
     assert set(p1[0]) == set(p1[1]) and p1[0]["edge_counts"] == p1[1]["edge_counts"]
 
 
+def test_pipelined_cell_load_equals_jax(tmp_path):
+    """The pipelined µBench cell (``communication``, seed 3, 3 rounds) on
+    jax's key stream: its pipelined rounds close before the next round's
+    move, as the JAX harness's do, so phase r2's load segments, its sent
+    and error counts and the simulator clock equal the JAX cell's."""
+    kw = dict(algorithms=("communication",), repeats=1, rounds=3, scenario="mubench", seed=3,
+              session_name="p", pipeline=True)
+    j = jh.run_experiment(jh.ExperimentConfig(out_dir=str(tmp_path / "jax"), **kw))
+    tcfg = th.ExperimentConfig(out_dir=str(tmp_path / "port"), **kw)
+    t = th.run_experiment(tcfg, device="cpu", seams=jax_seams(tcfg))
+    jr, tr = j["runs"][0], t["runs"][0]
+    for phase in ("before", "during", "after"):
+        close_load(tr["load"][phase], jr["load"][phase], f"pipelined {phase}")
+    assert tr["sim_clock_s"] == jr["sim_clock_s"]
+    assert tr["moves"] == jr["moves"]
+
+
 def test_matrix_summary_and_session_equal_jax(matrices):
     j, t, jdir, tdir = matrices
     assert set(t) == set(j) == {"config", "runs", "aggregate"}
@@ -271,14 +288,13 @@ def test_observe_weights_streams_per_round(monkeypatch, tmp_path):
 
 def test_experiment_config_rejects_invalid_combo_early():
     """tests/test_bench.py's case: invalid combinations fail at
-    construction. Restarts and tp above 1 run across devices, which the
-    port refuses naming ROADMAP Queue 1 item 5 (the JAX package accepts
-    them)."""
+    construction; every (sparse, dp, tp) combination is a supported
+    composition, as in the JAX package."""
     th.ExperimentConfig(solver_backend="sparse")
     for kw in (dict(solver_restarts=4, solver_tp=2), dict(solver_restarts=4),
                dict(solver_tp=2)):
-        with pytest.raises(ValueError, match="Queue 1 item 5"):
-            th.ExperimentConfig(solver_backend="sparse", **kw)
+        th.ExperimentConfig(solver_backend="sparse", **kw)
+        jh.ExperimentConfig(solver_backend="sparse", **kw)
     with pytest.raises(ValueError, match="placement_unit"):
         th.ExperimentConfig(placement_unit="bogus")
     with pytest.raises(ValueError, match="churn_profile requires the sim backend"):

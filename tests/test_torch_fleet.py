@@ -322,8 +322,11 @@ def test_fleet_config_validation():
     with pytest.raises(ValueError, match="placement_unit"):
         RescheduleConfig(algorithm="global", placement_unit="pod",
                          fleet=FleetConfig(tenants=2)).validate()
-    with pytest.raises(ValueError, match=r"solver_tp.*ROADMAP Queue 1 item 5\b"):
+    with pytest.raises(ValueError, match="fleet mode does not compose with solver_tp yet"):
         RescheduleConfig(algorithm="global", solver_tp=2,
+                         fleet=FleetConfig(tenants=2)).validate()
+    with pytest.raises(ValueError, match=r"fleet restarts.*ROADMAP Queue 1 item 5\b"):
+        RescheduleConfig(algorithm="global", solver_restarts=2,
                          fleet=FleetConfig(tenants=2)).validate()
     # the loop holds the fleet gate even with the fleet block off
     with pytest.raises(ValueError, match="greedy"):

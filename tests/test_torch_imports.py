@@ -107,6 +107,13 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import kubernetes_rescheduling_tpu_torch.bench.plots\n"
         "import kubernetes_rescheduling_tpu_torch.utils.profiling\n"
         "import kubernetes_rescheduling_tpu_torch.ops.work\n"
+        "import kubernetes_rescheduling_tpu_torch.parallel\n"
+        "import kubernetes_rescheduling_tpu_torch.parallel.launch\n"
+        "import kubernetes_rescheduling_tpu_torch.oracle\n"
+        "import kubernetes_rescheduling_tpu_torch.oracle.optimum\n"
+        "import kubernetes_rescheduling_tpu_torch.bench, kubernetes_rescheduling_tpu_torch.utils\n"
+        "from kubernetes_rescheduling_tpu_torch.bench import run_experiment, CsvSink\n"
+        "from kubernetes_rescheduling_tpu_torch.utils import CheckpointManager\n"
         "from kubernetes_rescheduling_tpu_torch.telemetry import OpsPlane, run_manifest\n"
         "OpsPlane.from_config(kubernetes_rescheduling_tpu_torch.config.RescheduleConfig())\n"
         "run_manifest()\n"
@@ -187,6 +194,7 @@ def _entry_points():
     from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
     from kubernetes_rescheduling_tpu_torch.core.workmodel import ServiceSpec, Workmodel
     from kubernetes_rescheduling_tpu_torch.forecast import FleetForecastPlane, ForecastPlane
+    from kubernetes_rescheduling_tpu_torch.parallel import make_mesh
     from kubernetes_rescheduling_tpu_torch.serving import ServingEngine
     from kubernetes_rescheduling_tpu_torch.solver import run_rounds
     from kubernetes_rescheduling_tpu_torch.telemetry import OpsPlane
@@ -289,6 +297,11 @@ def _entry_points():
         "cli bench": lambda: cli.main(["bench", "--repeats", "1", "--rounds", "1"]),
         "cli reschedule --perf-ledger": lambda: cli.main(
             ["reschedule", "--perf-ledger", "unused.jsonl"]),
+        "make_mesh": lambda: make_mesh(),
+        "cli solve --restarts": lambda: cli.main(["solve", "--restarts", "2"]),
+        "cli trace --restarts": lambda: cli.main(["trace", "--steps", "2", "--restarts", "2"]),
+        "cli reschedule --restarts": lambda: cli.main(
+            ["reschedule", "--algorithm", "global", "--restarts", "2"]),
     }
 
 
@@ -300,3 +313,109 @@ def test_entry_points_default_to_the_card(name):
         pytest.skip("a CUDA device is present: the default device exists")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()
+
+
+# the JAX names the port leaves to ROADMAP Queue 1 item 5 (the fleet's dp
+# plane, the mesh plane) or out on purpose (``instrument_jit``: its
+# counterpart is the capture cache's ``cuda_graph_captures_total``)
+SURFACE_EXCEPTIONS = {
+    "parallel": {"fleet_solve_dp"},
+    "telemetry": {"MeshPlane", "DeviceSeries", "instrument_jit"},
+}
+# port names beyond the JAX ``__all__``s: the port's plan seams and helpers
+# its tests and chip_smoke.py use, the forecast twin of ``oracle``
+PORT_EXTRAS = {
+    "": set(),
+    "core": set(),
+    "solver": {"SparseSweepPlan", "SweepPlan", "global_assign_pods", "pod_level_graph",
+               "prepare_weights", "sparse_layout"},
+    "backends": {"device_kind"},
+    "telemetry": {"ProfilerGate"},
+    "utils": set(),
+    "bench": set(),
+    "oracle": {"forecast"},
+    "parallel": set(),
+}
+
+
+@pytest.mark.parametrize("sub", sorted(PORT_EXTRAS))
+def test_public_surface_matches_jax(sub):
+    """Each port package exports the JAX package's ``__all__`` (minus the
+    listed item-5 and left-out names) plus the listed port extras, and
+    every exported name resolves. The JAX side is read from its source
+    (``ast``), so this imports no jax."""
+    import importlib
+
+    jax_root = REPO / "kubernetes_rescheduling_tpu"
+    init = (jax_root / sub / "__init__.py") if sub else jax_root / "__init__.py"
+    tree = ast.parse(init.read_text())
+    jax_all = next(set(ast.literal_eval(n.value)) for n in tree.body
+                   if isinstance(n, ast.Assign) and getattr(n.targets[0], "id", "") == "__all__")
+    mod = importlib.import_module("kubernetes_rescheduling_tpu_torch" + (f".{sub}" if sub else ""))
+    want = (jax_all - SURFACE_EXCEPTIONS.get(sub, set())) | PORT_EXTRAS[sub]
+    assert set(mod.__all__) == want
+    assert all(getattr(mod, name) is not None for name in mod.__all__)
+
+
+def _subcommands(parser):
+    import argparse
+
+    return next(a.choices for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+
+
+# port-only options, and the JAX options still refused with ROADMAP Queue 1
+# item 5 (the mesh plane's watchdog rule)
+CLI_PORT_ONLY = {"device"}
+CLI_JAX_ONLY = {"reschedule": {"slo_mesh_imbalance_ratio"}, "bench": {"slo_mesh_imbalance_ratio"}}
+
+
+def test_cli_defaults_match_jax():
+    """Every subcommand's options, defaults and choices equal the JAX
+    ``build_parser()``'s (``solve --scenario`` defaults to ``mubench``),
+    but for the listed port-only and item-5 options."""
+    from kubernetes_rescheduling_tpu import cli as jcli
+    from kubernetes_rescheduling_tpu_torch import cli as tcli
+
+    js, ts = _subcommands(jcli.build_parser()), _subcommands(tcli.build_parser())
+    assert set(js) == set(ts)
+    for name in js:
+        jd = {a.dest: (a.default, a.choices and list(a.choices)) for a in js[name]._actions}
+        td = {a.dest: (a.default, a.choices and list(a.choices)) for a in ts[name]._actions}
+        for dest in CLI_JAX_ONLY.get(name, set()):
+            jd.pop(dest)
+        for dest in CLI_PORT_ONLY & set(td):
+            td.pop(dest)
+        assert td == jd, name
+    assert ts["solve"].get_default("scenario") == "mubench"
+
+
+def test_publish_round_telemetry():
+    """tests/test_telemetry.py::test_publish_round_telemetry on the port:
+    four rounds of ``run_rounds`` surface through the registry, with one
+    counted host read for the whole record."""
+    from kubernetes_rescheduling_tpu_torch.bench.harness import make_backend
+    from kubernetes_rescheduling_tpu_torch.solver import run_rounds
+    from kubernetes_rescheduling_tpu_torch.telemetry import (
+        MetricsRegistry,
+        publish_round_telemetry,
+        set_registry,
+    )
+
+    registry = MetricsRegistry()
+    prev = set_registry(registry)
+    try:
+        backend = make_backend("mubench", 0, device="cpu")
+        backend.inject_imbalance(backend.node_names[0])
+        _, tel = run_rounds(backend.monitor(), backend.comm_graph(), 4, rounds=4,
+                            device="cpu")
+        out = publish_round_telemetry(tel, algorithm="communication")
+    finally:
+        set_registry(prev)
+    assert out["rounds"] == 4
+    assert registry.counter("rounds_total", labelnames=("algorithm",)).labels(
+        algorithm="communication").value == 4
+    assert registry.gauge("communication_cost", labelnames=("algorithm",)).labels(
+        algorithm="communication").value == pytest.approx(out["communication_cost"])
+    assert out["communication_cost"] == pytest.approx(float(tel.communication_cost[-1]))
+    assert out["moves"] == int(tel.moved.sum())
+    assert registry.value("device_transfers_total", site="round_telemetry") == 1

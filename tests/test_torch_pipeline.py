@@ -117,6 +117,32 @@ def test_pipelined_matches_jax_pipelined(kind):
     assert tb.events == jb.events
 
 
+@pytest.mark.parametrize("algorithm", ["communication", "proactive"])
+def test_pipelined_on_round_clock_matches_jax(algorithm):
+    """A pipelined greedy round runs its pre-fence hook between the first
+    decide and its fence, so the previous round closes (``on_round``
+    included) before this round's move: the simulator's clock at each
+    ``on_round`` reads 18 / 36 / 54 / 72 s (15 s pacing, 3 s reconcile), as
+    in the JAX pipelined loop and the port's sequential loop."""
+    clocks = {}
+    for name, make, run, cfg in (
+        ("jax", j_make, j_run, JConfig(algorithm=algorithm, max_rounds=4,
+                                       sleep_after_action_s=15.0,
+                                       controller=ControllerConfig(pipeline=True))),
+        ("pipelined", t_make, t_run, TConfig(algorithm=algorithm, max_rounds=4,
+                                             sleep_after_action_s=15.0, pipeline=True)),
+        ("sequential", t_make, t_run, TConfig(algorithm=algorithm, max_rounds=4,
+                                              sleep_after_action_s=15.0)),
+    ):
+        b = make("mubench", 3) if name == "jax" else make("mubench", 3, device="cpu")
+        b.inject_imbalance(b.node_names[0])
+        seen = clocks[name] = []
+        run(b, cfg, on_round=lambda rec, st, b=b, seen=seen: seen.append(b.clock_s),
+            **({} if name == "jax" else {"device": "cpu"}))
+    assert clocks["pipelined"] == clocks["jax"] == clocks["sequential"] == [18.0, 36.0,
+                                                                             54.0, 72.0]
+
+
 class Flaky:
     """A backend failing the listed monitor and apply calls (1-based, per
     call kind) — the same faults in the same call order for both schedules."""

@@ -381,10 +381,11 @@ def test_toml_item5_fields_are_refused_naming_the_item(tmp_path):
     assert jconfig.RescheduleConfig.from_toml(p).obs.slo_mesh_imbalance_ratio == 1.5
     with pytest.raises(ValueError, match="Queue 1 item 5"):
         tconfig.RescheduleConfig.from_toml(p)
+    # restarts are carried now: the TOML field loads as in the JAX package
     p.write_text("solver_restarts = 2\n[controller]\ndonate_carry = false\n"
                  "[obs]\ndevice_rollup = false\n")
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        tconfig.RescheduleConfig.from_toml(p)
+    assert tconfig.RescheduleConfig.from_toml(p).solver_restarts == 2 == \
+        jconfig.RescheduleConfig.from_toml(p).solver_restarts
     p.write_text("namespace = 'prod'\ndelete_timeout_s = 60.0\n[controller]\n"
                  "donate_carry = false\n[obs]\ndevice_rollup = false\ndevice_label_budget = 4\n")
     cfg = tconfig.RescheduleConfig.from_toml(p)

@@ -1,6 +1,7 @@
 """The port's ``run_rounds`` against the JAX package's and against the
-dict-world reference oracle (``oracle/reference_oracle.py``), on the
-patterns of tests/test_round_loop.py. Exact: placements, per-round
+port's dict-world reference oracle (``oracle/reference_oracle.py``), on the
+patterns of tests/test_round_loop.py; the port's oracle loop is held to
+the JAX test's own ``oracle_loop`` once. Exact: placements, per-round
 decisions and the per-round communication cost (integer pair counts) are
 equal; the per-round load spread too (the same f32 sums of pod loads in pod
 order).
@@ -11,15 +12,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_round_loop import oracle_loop
+from test_round_loop import oracle_loop as jax_oracle_loop
 
 from kubernetes_rescheduling_tpu.core import topology as jtopo
 from kubernetes_rescheduling_tpu.core.workmodel import mubench_workmodel_c as j_wm_c
 from kubernetes_rescheduling_tpu.policies import POLICY_IDS
 from kubernetes_rescheduling_tpu.solver import round_loop as jrl
 from kubernetes_rescheduling_tpu.solver import run_rounds as j_run_rounds
+from kubernetes_rescheduling_tpu_torch import oracle
 from kubernetes_rescheduling_tpu_torch.core import topology as ttopo
-from kubernetes_rescheduling_tpu_torch.core.state import ClusterState
+from kubernetes_rescheduling_tpu_torch.core.state import UNASSIGNED, ClusterState
 from kubernetes_rescheduling_tpu_torch.core.workmodel import mubench_workmodel_c as t_wm_c
 from kubernetes_rescheduling_tpu_torch.objectives import communication_cost
 from kubernetes_rescheduling_tpu_torch.solver import round_loop as trl
@@ -34,6 +36,36 @@ def jax_gumbel_rows(key, rounds, n):
     return torch.as_tensor(np.stack(
         [np.asarray(jax.random.gumbel(k, (n,))) for k in jax.random.split(key, rounds)]
     ))
+
+
+def oracle_loop(state, graph, relation, policy, rounds, threshold=30.0):
+    """tests/test_round_loop.py's reference-semantics loop on the port's
+    oracle and tensor states (the same deliberate fixes as
+    ``solver.round_loop``: a real snapshot edit, a skip instead of a
+    crash)."""
+    trace = []
+    for _ in range(rounds):
+        snap = oracle.to_snapshot(state, graph)
+        most, hazard = oracle.detection(snap, threshold)
+        victim = oracle.pick_max_pod(snap, most) if most else None
+        if victim is None:
+            trace.append(None)
+            continue
+        svc = victim.service
+        group = state.pod_valid & (state.pod_service == graph.names.index(svc))
+        removed = state.replace(pod_node=torch.where(group, UNASSIGNED, state.pod_node))
+        snap2 = oracle.to_snapshot(removed, graph)
+        if len(hazard) == len(snap.nodes_name):
+            trace.append(None)
+            continue
+        if policy == "communication":
+            target = oracle.choose_communication(snap2, relation, svc, hazard)
+        else:
+            target = getattr(oracle, f"choose_{policy}")(snap2, hazard)
+        t_idx = state.node_names.index(target)
+        state = removed.replace(pod_node=torch.where(group, t_idx, removed.pod_node))
+        trace.append((most, victim.index, svc, target))
+    return state, trace
 
 
 def assert_same_rounds(t_final, t_tel, j_final, j_tel):
@@ -55,9 +87,9 @@ def test_round_loop_matches_jax_and_oracle(policy):
     t_final, t_tel = run_rounds(t_scn.state, t_scn.graph, POLICY_IDS[policy], rounds=rounds,
                                 device="cpu")
     assert_same_rounds(t_final, t_tel, j_final, j_tel)
-    exp_final, exp_trace = oracle_loop(j_scn.state, j_scn.graph, j_wm_c().relation(), policy,
+    exp_final, exp_trace = oracle_loop(t_scn.state, t_scn.graph, t_wm_c().relation(), policy,
                                        rounds)
-    np.testing.assert_array_equal(t_final.pod_node.numpy(), np.asarray(exp_final.pod_node))
+    np.testing.assert_array_equal(t_final.pod_node.numpy(), exp_final.pod_node.numpy())
     names, nodes = t_scn.graph.names, t_scn.state.node_names
     for r, step in enumerate(exp_trace):
         if step is None:
@@ -129,6 +161,18 @@ def _pair(seed: int, cap: float):
     return (j_sfw(j_wm_c(), seed=seed, node_cpu_cap_m=cap), j_wm_c().comm_graph(),
             ttopo.state_from_workmodel(t_wm_c(), seed=seed, node_cpu_cap_m=cap, device="cpu"),
             t_wm_c().comm_graph(device="cpu"))
+
+
+@pytest.mark.parametrize("policy", ["spread", "binpack", "kubescheduling", "communication"])
+def test_port_oracle_loop_matches_the_jax_oracle_loop(policy):
+    """The port's oracle loop and the JAX test's, on the piled µBench
+    cluster (a hazard every round): the same trace and final placement."""
+    j_state, j_graph, t_state, t_graph = _piled()
+    rel = j_wm_c().relation()
+    j_final, j_trace = jax_oracle_loop(j_state, j_graph, rel, policy, 5)
+    t_final, t_trace = oracle_loop(t_state, t_graph, rel, policy, 5)
+    assert t_trace == j_trace and any(step is not None for step in t_trace)
+    np.testing.assert_array_equal(t_final.pod_node.numpy(), np.asarray(j_final.pod_node))
 
 
 def test_car_reduces_comm_cost_from_random_start():

@@ -275,8 +275,18 @@ def test_pods_match_jax():
     # the sparse form of the service graph expands to the same pod graph
     via_sparse = tpm.pod_level_graph(t_scn.state, tsg.from_comm_graph(t_scn.graph))
     assert_same_graph_arrays(via_sparse, pod_graph)
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        tpm.global_assign_pods(t_scn.state, t_scn.graph, None, cfg, n_restarts=2)
+    # best-of-2 restarts on the pod graph, fed the JAX restarts' plans
+    j_best, j_rinfo = jpm.global_assign_pods(j_scn.state, j_scn.graph, key,
+                                             jgs.GlobalSolverConfig(**base), n_restarts=2)
+    plans = [jax_sparse_plan(k, cfg.sweeps, tss.sparse_layout(pod_graph, cfg),
+                             t_scn.state.num_nodes) for k in jax.random.split(key, 2)]
+    t_best, t_rinfo = tpm.global_assign_pods(t_scn.state, None, None, cfg, pod_graph=pod_graph,
+                                             n_restarts=2, plans=plans)
+    np.testing.assert_array_equal(t_best.pod_node.numpy(), np.asarray(j_best.pod_node))
+    assert int(t_rinfo["best_restart"]) == int(j_rinfo["best_restart"])
+    np.testing.assert_allclose(t_rinfo["restart_objectives"].numpy(),
+                               np.asarray(j_rinfo["restart_objectives"]), rtol=1e-6)
+    assert int(t_rinfo["restarts"]) == int(j_rinfo["restarts"]) == 2
 
 
 def assert_same_graph_arrays(t, j):

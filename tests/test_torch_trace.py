@@ -166,6 +166,47 @@ def test_replay_on_device_sparse_matches_jax(mode, jax_mode, noise):
     assert (t_objs <= t_bef).all()
 
 
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_replay_on_device_restarts_pick_each_steps_best(kind):
+    """``restarts=2``: every step is a best-of-2 over the same step body —
+    the step's two one-restart replays from the previous step's placement,
+    the lower ``objective_after`` adopted (the first on ties), with no
+    host read between steps. Checked step by step against one-step
+    single-restart replays of each plan (noise off: the plans differ in
+    their compositions)."""
+    cfg = tgs.GlobalSolverConfig(sweeps=2, balance_weight=0.0, noise_temp=0.0, chunk_size=512)
+    gen = torch.Generator().manual_seed(4)
+    if kind == "dense":
+        t_scn = ttopo.synthetic_scenario(n_pods=256, n_nodes=32, seed=6, powerlaw=True,
+                                         device="cpu")
+        state = t_scn.state
+        ii, jj, mults = ttr.drift_multipliers(t_scn.graph, 3, seed=3)
+        lay = tgs.dense_layout(256, 32, cfg, "cpu")
+        plans = [[tgs.draw_plans(gen, 2, lay.sp, lay.chunk, lay.n_chunks, 1) for _ in range(2)]
+                 for _ in range(3)]
+
+        def run(state, m, step_plans, restarts):
+            return ttr.replay_on_device(state, t_scn.graph, ii, jj, m, config=cfg,
+                                        plans=step_plans, restarts=restarts)
+    else:
+        _, _, state, t_graph = hub_instance()
+        t_sg, t_loc, mults = ttr.drift_multipliers_sparse(t_graph, 3, seed=3)
+        lay = tss.sparse_layout(t_sg, cfg)
+        plans = [[tss.draw_sparse_plans(gen, 2, lay) for _ in range(2)] for _ in range(3)]
+
+        def run(state, m, step_plans, restarts):
+            return ttr.replay_on_device_sparse(state, t_sg, t_loc, m, config=cfg,
+                                               plans=step_plans, restarts=restarts)
+    final, objs, befs = run(state, mults, plans, 2)
+    for k in range(3):
+        outs = [run(state, mults[k:k + 1], [p], 1) for p in plans[k]]
+        best = min(range(2), key=lambda i: float(outs[i][1][0]))
+        assert float(objs[k]) == float(outs[best][1][0])
+        state = outs[best][0]
+    assert torch.equal(final.pod_node, state.pod_node)
+    assert (objs <= befs).all()
+
+
 def test_replay_on_device_sparse_refuses_single_block():
     scn = ttopo.synthetic_scenario(n_pods=120, n_nodes=6, seed=4, device="cpu")
     from kubernetes_rescheduling_tpu_torch.core.sparsegraph import from_comm_graph, trace_locator
@@ -207,15 +248,32 @@ def test_replay_matches_jax():
             assert getattr(t, f) == pytest.approx(getattr(j, f), rel=1e-6, abs=1e-6), f
 
 
-def test_replay_warns_and_refuses_what_is_not_ported():
-    _, t_wm, _, t_state = bookinfo()
+def test_replay_warns_and_runs_restarts_as_jax():
+    """An unknown service in a step warns; ``replay(restarts=2)`` makes each
+    step a best-of-2 and, fed the JAX replay's per-restart plans
+    (``split(sub, 2)`` of each step's key), equals its records."""
+    j_wm, t_wm, j_state, t_state = bookinfo(replicas=2)
     graph = t_wm.comm_graph(device="cpu")
     trace = [ttr.TraceStep(t=0.0, weights={("productpage", "nowhere"): 1.0})]
     with pytest.warns(UserWarning, match="nowhere"):
         _, recs = ttr.replay(t_state, graph, trace, generator=torch.Generator().manual_seed(0))
     assert len(recs) == 1
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        ttr.replay(t_state, graph, trace, generator=torch.Generator(), restarts=2)
+    base = dict(sweeps=4, balance_weight=0.0)
+    key = jax.random.PRNGKey(5)
+    j_final, j_recs = jtr.replay(j_state, j_wm.comm_graph(), jtr.canary_trace(4), key=key,
+                                 config=jgs.GlobalSolverConfig(**base), restarts=2)
+    plans, k = [], key
+    for _ in range(4):
+        k, sub = jax.random.split(k)
+        plans.append([jax_plan(r, jgs.GlobalSolverConfig(**base), len(t_wm.services), 3,
+                               inline=False) for r in jax.random.split(sub, 2)])
+    t_final, t_recs = ttr.replay(t_state, graph, ttr.canary_trace(4),
+                                 config=tgs.GlobalSolverConfig(**base), restarts=2, plans=plans)
+    np.testing.assert_array_equal(t_final.pod_node.numpy(), np.asarray(j_final.pod_node))
+    for t, j in zip(t_recs, j_recs, strict=True):
+        assert (t.t, t.moves) == (j.t, j.moves)
+        for f in ("cost_before_solve", "cost_after_solve", "load_std_before", "load_std_after"):
+            assert getattr(t, f) == pytest.approx(getattr(j, f), rel=1e-6, abs=1e-6), f
     # observed_step is ported (ROADMAP item 4.4): the load generator's
     # observed pair weights as a trace step
     from kubernetes_rescheduling_tpu_torch.bench.loadgen import LoadGenConfig, LoadGenerator
@@ -243,8 +301,9 @@ def test_trace_cli_on_the_cpu(capsys, tmp_path):
                      "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out)
     assert out["trace"] == str(path) and len(out["steps"]) == 1
-    with pytest.raises(SystemExit, match="item 5"):
-        cli.main(["trace", "--device", "cpu", "--restarts", "2"])
+    assert cli.main(["trace", "--device", "cpu", "--steps", "3", "--restarts", "2"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["restarts"] == 2 and len(out["steps"]) == 3
     # --trace-out / --metrics-out write the spans (one trace/step span a
     # step), the registry and the run manifest
     trace_out, metrics_out = tmp_path / "x.json", tmp_path / "m.jsonl"
