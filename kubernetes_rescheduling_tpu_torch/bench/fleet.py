@@ -67,9 +67,28 @@ gate opens around the next rounds or scan block. Breaker transitions of
 the pipelined fleet fire on its workers; the plane's hooks they reach take
 no lock the main thread holds while it waits for them.
 
-Left out (refused by ``config.validate()``, each naming its ROADMAP item):
-the dp plane and its device rollups behind ``/devices``, and fleet
-restarts (item 5). Checkpoint/resume is solo-only, as in the JAX package.
+Fleet restarts (``config.solver_restarts`` R > 1 on a global round) run
+each tenant's best-of-R inside the one fleet program
+(``solver.fleet_global``), restart ``i`` of tenant ``t`` on the i-th of
+``parallel.sharded.restart_generators`` of the tenant's round generator, or
+on the i-th plan list of its ``solver_plans`` seam.
+
+The dp plane (``config.fleet.plane="dp"``, ``parallel/fleet.py``): each
+rank of the fleet's dp mesh (shaped once from the default process group)
+decides its block of tenants, and one gather over dp hands every rank the
+whole fleet's decision bundle before the one counted read — no host read
+is added a round. Under ``torchrun`` every rank runs this loop's host side
+for the whole fleet: it is deterministic and replicated, so the records
+are equal on every rank (timings aside); only rank 0 writes files, serves
+HTTP and prints (``cli.py``). Without a process group the dp plane is the
+vmap plane's call itself. A dp run feeds the mesh plane
+(``telemetry.mesh.MeshPlane``, with ``config.device_rollup``): each
+round's or scan block's fence and pulled bytes attributed across the dp
+devices by the per-tenant cost column, each card's allocated memory riding
+the gather, published as bounded families, the ``device_rollup`` event,
+the ``/healthz`` ``mesh`` stanza, ``GET /devices`` and the
+``mesh_imbalance`` rule. Checkpoint/resume is solo-only, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -471,6 +490,36 @@ def run_fleet_controller(
     mech = PlacementMechanism[scoring if scoring is not None else "global"]
     solver_cfg = _solver_config(config) if fleet_mode == "global" else None
 
+    # the dp plane's mesh, resolved once (making one is collective over the
+    # world), and the mesh plane it feeds
+    dp_mesh = mesh_plane = None
+    if config.fleet.plane == "dp":
+        from kubernetes_rescheduling_tpu_torch.parallel import fleet as dp_fleet
+
+        dp_mesh = dp_fleet._fleet_mesh(T, None, device=dev)
+        if config.device_rollup:
+            from kubernetes_rescheduling_tpu_torch.telemetry.mesh import MeshPlane
+
+            mesh_plane = MeshPlane(registry, device_names=dp_fleet.dp_device_names(dp_mesh),
+                                   budget=config.device_label_budget)
+            if ops is not None:
+                ops.bind_mesh(mesh_plane)
+    with_hbm = mesh_plane is not None
+
+    def observe_mesh(*, dispatch_s, transfer_bytes, weights, rounds, rnd, hbm=None) -> None:
+        """One round's or block's device-axis accounting everywhere at once:
+        the bounded mesh families, the named device_rollup event, the
+        /healthz mesh stanza and the mesh_imbalance window."""
+        if mesh_plane is None:
+            return
+        summary, ev = mesh_plane.observe_block(dispatch_s=dispatch_s,
+                                               transfer_bytes=transfer_bytes, weights=weights,
+                                               rounds=rounds, round=rnd, hbm_mb=hbm)
+        if logger is not None:
+            logger.info("device_rollup", **ev)
+        if ops is not None:
+            ops.observe_device_rollup(summary, event=ev)
+
     # startup: the solo loop's bounded probe per tenant, without its hard
     # failure — a dark tenant starts without a snapshot (counted skips)
     for t in tenants:
@@ -677,18 +726,33 @@ def run_fleet_controller(
         mask_np = np.zeros((T,), bool)
         mask_np[active] = True
         mask = torch.from_numpy(mask_np).to(dev)
-        g_moves = g_objs = decisions = hazard = fc_rows = None
+        g_moves = g_objs = decisions = hazard = fc_rows = hbm = None
         if fleet_mode == "global":
             gens, plans = [], []
             for t in tenants:
                 gens.append(round_generator(t.seed, rnd))
                 plans.append(t.solver_plans(rnd) if t.solver_plans is not None else None)
+            solve_kw = dict(config=solver_cfg, generators=gens, plans=plans,
+                            n_restarts=config.solver_restarts)
             with span("fleet/global_solve", round=rnd, tenants=len(active)):
-                flat_dev = fleet_global_solve(slot_states, graphs, mask, config=solver_cfg,
-                                              generators=gens, plans=plans)
+                if dp_mesh is not None:
+                    out = dp_fleet.fleet_global_solve_dp(slot_states, graphs, mask,
+                                                         mesh=dp_mesh, with_hbm=with_hbm,
+                                                         **solve_kw)
+                    flat_dev = torch.cat(out) if with_hbm else out
+                else:
+                    flat_dev = fleet_global_solve(slot_states, graphs, mask, **solve_kw)
                 flat = pull(flat_dev, site=DECISION_SITE, registry=registry)
-            g_moves, g_objs = decode_fleet_global(flat, tenants=T,
-                                                  num_services=graphs[0].num_services)
+            mesh_bytes = int(flat.nbytes)
+            if with_hbm:
+                flat, hbm = flat[:-dp_mesh.shape["dp"]], flat[-dp_mesh.shape["dp"]:]
+            num_services = graphs[0].num_services
+            if dp_mesh is not None:
+                g_moves, g_objs = dp_fleet.decode_fleet_global_dp(
+                    flat, tenants=T, num_services=num_services, dp=dp_mesh.shape["dp"])
+            else:
+                g_moves, g_objs = decode_fleet_global(flat, tenants=T,
+                                                      num_services=num_services)
         else:
             gumbel = None
             if scoring == "random":
@@ -704,18 +768,30 @@ def run_fleet_controller(
                     deltas, diag_dev = forecast_plane.observe_and_predict(stacked, mask)
             with span("fleet/solve", round=rnd, tenants=len(active)):
                 if forecast_plane is not None:
+                    parts.append(diag_dev.reshape(-1))
+                if dp_mesh is not None:
+                    out = (dp_fleet.fleet_solve_proactive_dp(
+                        stacked, graphs, pid, thr, mask, deltas, gumbel, mesh=dp_mesh,
+                        with_hbm=with_hbm) if forecast_plane is not None else
+                        dp_fleet.fleet_solve_dp(stacked, graphs, pid, thr, mask, gumbel,
+                                                mesh=dp_mesh, with_hbm=with_hbm))
+                    dec_dev, hz_dev = out[:2]
+                    parts.extend(out[2:])
+                elif forecast_plane is not None:
                     dec_dev, hz_dev = fleet_solve_proactive(stacked, graphs, pid, thr, mask,
                                                             deltas, gumbel)
-                    parts.append(diag_dev.reshape(-1))
                 else:
                     dec_dev, hz_dev = fleet_solve(stacked, graphs, pid, thr, mask, gumbel)
                 n_nodes = int(hz_dev.shape[1])
                 flat = pull(torch.cat([dec_dev.reshape(-1).float(), hz_dev.reshape(-1).float(),
                                        *parts]),
                             site=DECISION_SITE, registry=registry)
+            mesh_bytes = int(flat.nbytes)
+            if with_hbm:
+                flat, hbm = flat[:-dp_mesh.shape["dp"]], flat[-dp_mesh.shape["dp"]:]
             decisions = flat[:T * 4].reshape(T, 4).astype(np.int64)
             hazard = flat[T * 4:T * 4 + T * n_nodes].reshape(T, n_nodes) > 0.5
-            if parts:
+            if forecast_plane is not None:
                 fc_rows = flat[T * 4 + T * n_nodes:].reshape(T, DIAG_SIZE)
         solve_s = time.perf_counter() - t0
         result.batched_solves += 1
@@ -808,9 +884,11 @@ def run_fleet_controller(
                                               torch.from_numpy(flags), merge, top_k=rollup_k),
                         site=METRICS_SITE, registry=registry)
             metrics, rollup = decode_fleet_bundle(flat, tenants=T, top_k=rollup_k)
+            mesh_bytes += int(flat.nbytes)
         else:
             metrics = pull(fleet_metrics(after_states, after_graphs, edges),
                            site=METRICS_SITE, registry=registry)
+            mesh_bytes += int(metrics.nbytes)
         wall = time.perf_counter() - t0
         observe_wall_round(registry, "fleet", wall)
         result.round_wall_s.append(wall)
@@ -825,6 +903,10 @@ def run_fleet_controller(
             last_pair[i] = metrics[i]
             ever_good[i] = True
             emit_tenant_round(tenants[i], rec, rnd)
+        # attribution weights: this round's per-tenant comm cost (tenant
+        # block i's share of the dispatch lands on device i)
+        observe_mesh(dispatch_s=solve_s, transfer_bytes=mesh_bytes, weights=metrics[:, 0],
+                     rounds=1, rnd=rnd, hbm=hbm)
         if rollup is not None:
             emit_rollup(rollup, rnd)
         update_fleet_health()
@@ -886,6 +968,8 @@ def run_fleet_controller(
         scan_mod.count_scan_block(registry, k)
         result.batched_solves += 1
         result.device_solve_s += fence_s
+        # the whole block bundle's bytes, tripwire lanes included
+        block_bytes = int(flat.nbytes)
         trip = None
         if trip_on:
             flat, trip = tripwire_mod.split_fleet_tripwire(flat, rounds=k, tenants=T)
@@ -893,6 +977,9 @@ def run_fleet_controller(
                                               rollup_k=scan_rollup_k)
         decisions, hazard, landed_idx, metrics = decoded[:4]
         rollups = decoded[4] if scan_rollup_k else None
+        # per-tenant comm cost summed over the block's rounds
+        observe_mesh(dispatch_s=fence_s, transfer_bytes=block_bytes,
+                     weights=metrics[..., 0].sum(axis=0), rounds=k, rnd=start)
         commit = k
         trip_info = None
         if trip is not None and trip.tripped:

@@ -13,6 +13,8 @@ the report text) of the JAX package's commands.
     python -m kubernetes_rescheduling_tpu_torch reschedule --churn-profile diurnal-autoscale
     python -m kubernetes_rescheduling_tpu_torch reschedule --fleet 16 --scenario mubench --imbalance
     python -m kubernetes_rescheduling_tpu_torch reschedule --fleet 4 --scenario large --algorithm global
+    python -m kubernetes_rescheduling_tpu_torch reschedule --fleet 4 --algorithm global --restarts 2
+    torchrun --nproc-per-node 4 -m kubernetes_rescheduling_tpu_torch reschedule --fleet 8 --fleet-plane dp
     python -m kubernetes_rescheduling_tpu_torch reschedule --algorithm proactive --churn-profile diurnal-autoscale
     python -m kubernetes_rescheduling_tpu_torch reschedule --serve 0 --metrics-out m.jsonl --trace-out t.json
     python -m kubernetes_rescheduling_tpu_torch reschedule --serve 0 --place --imbalance
@@ -55,8 +57,12 @@ scored against the trace's scheduler (the output's ``shadow`` block).
 device, over the dp ranks of a process group); ``--tp T`` shards each
 solve's node axis over T ranks of the process group ``torchrun`` starts
 (the CLI joins it when ``WORLD_SIZE`` is set), and on one device fails with
-the JAX package's message. Fleet restarts are refused, naming their ROADMAP
-item.
+the JAX package's message. With ``--fleet``, ``--restarts N`` runs each
+tenant's best-of-N inside the fleet's one program, and ``--fleet-plane dp``
+shards the tenants over the ranks of that process group (``/devices`` and
+``--slo-mesh-imbalance-ratio`` read its mesh plane). Under ``torchrun``
+every rank runs the command; only rank 0 prints, serves the ops plane and
+writes ``--metrics-out`` / ``--trace-out``.
 """
 
 from __future__ import annotations
@@ -175,7 +181,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "ONE device decision a round (greedy policies, or --algorithm global)")
     r.add_argument("--fleet-plane", default="vmap", choices=["vmap", "dp"],
                    help="device batching for --fleet: 'vmap' (one program over the "
-                        "tenants); 'dp' is refused (ROADMAP Queue 1 item 5)")
+                        "tenants) or 'dp' (a block of tenants a rank of the process group "
+                        "torchrun starts, the blocks gathered; one process: the vmap "
+                        "program)")
     r.add_argument("--fleet-chaos-tenants", default="", metavar="I,J,...",
                    help="tenant indices the --chaos-profile wraps (empty = every tenant; "
                         "tenant t's faults seeded --chaos-seed + t)")
@@ -468,6 +476,10 @@ def _add_serve_flags(parser: argparse.ArgumentParser) -> None:
                              "rounds (a scan block rounds it up to the block); the artifact "
                              "lands as profile_NNN/ under the bundle dir. POST /profile arms "
                              "later captures (0 = none armed at start)")
+    parser.add_argument("--slo-mesh-imbalance-ratio", type=float, default=0.0, metavar="R",
+                        help="mesh_imbalance watchdog rule: worst/median attributed device "
+                             "step time above this ratio flips /healthz to 503 (needs the dp "
+                             "fleet plane's device rollup; >= 1.0, 0 = rule off)")
     d = SloConfig()
     parser.add_argument("--slo", action="store_true",
                         help="the SLO v2 plane: sample registry families into the bounded "
@@ -527,11 +539,20 @@ def _serving_config(args) -> ServingConfig:
     return ServingConfig(enabled=bool(args.place), **overrides)
 
 
+def _rank0() -> bool:
+    """Whether this process is rank 0 of its process group (or alone): the
+    one that prints, serves and writes files."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_initialized() else int(os.environ.get("RANK", "0"))
+    return rank == 0
+
+
 def _build_ops_plane(args, config: RescheduleConfig):
     """The live ops plane of a run (``--serve``), started; ``(None, None)``
-    when off. Returns ``(ops, logger)``: the logger feeds ``/events`` and
-    the decision events."""
-    if args.serve is None:
+    when off, and on every rank but rank 0. Returns ``(ops, logger)``: the
+    logger feeds ``/events`` and the decision events."""
+    if args.serve is None or not _rank0():
         return None, None
     from kubernetes_rescheduling_tpu_torch.telemetry.server import OpsPlane
     from kubernetes_rescheduling_tpu_torch.utils.logging import get_logger
@@ -597,17 +618,6 @@ def _forecast_config(args) -> ForecastConfig:
     return ForecastConfig(lags=args.forecast_lags, ridge=args.forecast_ridge,
                           min_history=args.forecast_min_history,
                           min_skill=args.forecast_min_skill, decay=args.forecast_decay)
-
-
-def _refuse_unported(command: str, args) -> None:
-    """Exit naming the ROADMAP item of what the port does not carry yet:
-    fleet restarts (``--fleet`` with ``--restarts`` above 1) fan the
-    tenants' restarts out over the fleet's device mesh. Restarts and tp of
-    a solo run are carried (``parallel/``)."""
-    if getattr(args, "fleet", 0) and args.restarts > 1:
-        raise SystemExit(f"{command}: --fleet with --restarts above 1 needs the fleet's "
-                         "device mesh (parallel/fleet.py), not ported yet (ROADMAP Queue 1 "
-                         "item 5)")
 
 
 def _parse_tenant_list(raw: str) -> tuple[int, ...]:
@@ -687,7 +697,6 @@ def _shadow_summary(args, backend, result) -> dict:
 
 
 def cmd_reschedule(args) -> dict:
-    _refuse_unported("reschedule", args)
     algo = _norm_algo(args.algorithm)
     _refuse_shadow_compositions(args)
     if args.place and args.fleet:
@@ -748,6 +757,7 @@ def cmd_reschedule(args) -> dict:
         serving=_serving_config(args),
         slo=_slo_config(args),
         slo_serving_p99_ms=args.slo_serving_p99_ms,
+        slo_mesh_imbalance_ratio=args.slo_mesh_imbalance_ratio,
         profile_rounds=args.profile_rounds,
     )
     try:
@@ -1050,7 +1060,8 @@ def run_command(argv: list[str] | None = None) -> dict | str:
     try:
         out = {"reschedule": cmd_reschedule, "bench": cmd_bench, "solve": cmd_solve,
                "trace": cmd_trace, "telemetry": cmd_telemetry}[args.command](args)
-        write_telemetry_artifacts(args)
+        if _rank0():
+            write_telemetry_artifacts(args)
     finally:
         if joined:
             dist.destroy_process_group()

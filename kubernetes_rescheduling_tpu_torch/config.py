@@ -15,12 +15,12 @@ serving plane, SLO v2, shadow mode and the perf ledger keep their blocks
 :meth:`RescheduleConfig.from_toml` reads the JAX package's TOML files:
 each nested table lands on the flat fields by the table :data:`TOML_TABLES`.
 ``solver_restarts`` and ``solver_tp`` run as in the JAX package: best-of-N
-solves a round, in sequence on one device, and each solve's node axis
-sharded over ``tp`` ranks of the process group (``parallel/``). The config
-also carries fields of planes this port does not have yet (the fleet's dp
-plane and its restarts, the mesh plane: ROADMAP Queue 1 item 5): each keeps
-its JAX default, and ``validate`` refuses a value that asks for the plane,
-naming the item — a run never quietly does something else.
+solves a round, in sequence on one device (a fleet's too, inside its one
+program), and each solve's node axis sharded over ``tp`` ranks of the
+process group (``parallel/``). The fleet's dp plane shards the tenants over
+the dp ranks of the process group (``parallel/fleet.py``) and feeds the
+mesh plane (``device_rollup``, ``device_label_budget``,
+``slo_mesh_imbalance_ratio``).
 """
 
 from __future__ import annotations
@@ -216,11 +216,11 @@ class ServingConfig:
 class FleetConfig:
     """Fleet mode (the JAX package's ``[fleet]`` block): ``tenants`` clusters
     decided by one device plane a round under the multiplexed loop
-    (``bench/fleet.py``); 0 = off. ``plane`` is the device batching: the
-    port carries ``"vmap"`` (one captured program over the tenants);
-    ``"dp"`` (one tenant group a device) is refused with multi-device
-    (ROADMAP Queue 1 item 5). ``chaos_tenants`` selects the tenants the
-    run's chaos profile wraps (empty = every tenant)."""
+    (``bench/fleet.py``); 0 = off. ``plane`` is the device batching:
+    ``"vmap"`` (one captured program over the tenants) or ``"dp"`` (a block
+    of tenants a rank of the process group's dp mesh, ``parallel/fleet.py``;
+    without a process group the vmap program). ``chaos_tenants`` selects
+    the tenants the run's chaos profile wraps (empty = every tenant)."""
 
     tenants: int = 0
     plane: str = "vmap"                  # "vmap" | "dp"
@@ -236,11 +236,6 @@ class FleetConfig:
                 raise ValueError(f"chaos_tenants must be non-negative ints, got {t!r}")
             if self.tenants and t >= self.tenants:
                 raise ValueError(f"chaos tenant {t} out of range for {self.tenants} tenants")
-        if self.plane == "dp":
-            raise ValueError(
-                "fleet plane 'dp' shards the tenants over devices, which the port does "
-                "not do yet (ROADMAP Queue 1 item 5)"
-            )
         return self
 
 
@@ -442,9 +437,8 @@ class RescheduleConfig:
     slo_scan_tripwire: bool = True
     slo_serving_p99_ms: float = 0.0
     # the mesh plane (obs.device_rollup, obs.device_label_budget,
-    # obs.slo_mesh_imbalance_ratio): per-device rollups over a multi-device
-    # mesh, ROADMAP Queue 1 item 5. One device has nothing to roll up, so
-    # the defaults run; the mesh_imbalance rule is refused
+    # obs.slo_mesh_imbalance_ratio): per-device rollups over the dp fleet
+    # plane's devices; the mesh_imbalance rule judges meshes of >= 2
     device_rollup: bool = True
     device_label_budget: int = 64
     slo_mesh_imbalance_ratio: float = 0.0
@@ -679,14 +673,10 @@ class RescheduleConfig:
             raise ValueError(
                 "device_label_budget must be >= 0 (0 = per-device series always "
                 "suppressed; the bounded mesh rollups still emit)")
-        if self.slo_mesh_imbalance_ratio != 0.0:
-            if self.slo_mesh_imbalance_ratio < 1.0:
-                raise ValueError(
-                    "slo_mesh_imbalance_ratio must be 0 (rule off) or >= 1 (a worst/median "
-                    "step-time ratio)")
+        if self.slo_mesh_imbalance_ratio != 0.0 and self.slo_mesh_imbalance_ratio < 1.0:
             raise ValueError(
-                "slo_mesh_imbalance_ratio judges the per-device rollups of a multi-device "
-                "mesh, which the port does not have yet (ROADMAP Queue 1 item 5)")
+                "slo_mesh_imbalance_ratio must be 0 (rule off) or >= 1 (a worst/median "
+                "step-time ratio)")
         if self.profile_rounds < 0:
             raise ValueError("profile_rounds must be >= 0 (0 = no capture armed at run start)")
         if self.profile_max_captures < 1:
@@ -740,12 +730,6 @@ class RescheduleConfig:
                     "fleet mode does not compose with solver_tp yet: the mesh's dp axis "
                     "is the tenant axis (fleet.plane='dp'); node-axis sharding of each "
                     "tenant's solve would need a dp×tp fleet mesh"
-                )
-            if self.solver_restarts > 1:
-                raise ValueError(
-                    "fleet restarts (solver_restarts > 1 with fleet mode) fan the tenants' "
-                    "restarts out over the fleet's device mesh, which the port does not "
-                    "do yet (ROADMAP Queue 1 item 5)"
                 )
 
     def _validate_schedules(self) -> None:

@@ -14,11 +14,15 @@ the card, gloo on the CPU), started by ``torchrun`` or by the caller:
   sharded over tp;
 - ``sharded_global_assign`` / ``sharded_sparse_assign`` — the dense and
   sparse global solves with the node axis sharded over tp;
-- ``sharded_solve_with_restarts`` — dp restarts of tp-sharded solves.
+- ``sharded_solve_with_restarts`` — dp restarts of tp-sharded solves;
+- ``fleet_solve_dp`` (and in ``parallel.fleet`` the proactive and global
+  planes) — fleet mode's dp plane: a block of tenants a rank, the
+  blocks' outputs gathered over dp;
+- ``parallel.dryrun.dryrun_multichip`` — every sharded path against its
+  single-device twin on a (dp, tp) mesh.
 
 The JAX package's ``compat.py`` (a shim over jax versions of
-``shard_map``) has no counterpart. The fleet's dp plane
-(``fleet_solve_dp``) is ROADMAP Queue 1 item 5.
+``shard_map``) has no counterpart.
 """
 
 from kubernetes_rescheduling_tpu_torch.parallel.mesh import make_mesh
@@ -32,6 +36,7 @@ from kubernetes_rescheduling_tpu_torch.parallel.sharded_solver import (
     sharded_solve_with_restarts,
 )
 from kubernetes_rescheduling_tpu_torch.parallel.sharded_sparse import sharded_sparse_assign
+from kubernetes_rescheduling_tpu_torch.parallel.fleet import fleet_solve_dp
 
 __all__ = [
     "make_mesh",
@@ -41,4 +46,5 @@ __all__ = [
     "sharded_sparse_assign",
     "sharded_solve_with_restarts",
     "solve_with_restarts",
+    "fleet_solve_dp",
 ]

@@ -21,10 +21,17 @@ comes home as ONE flat f32 bundle, ``[svc_target (T·S), first_pod (T·S),
 obj rows (T·OBJ_ROWS)]`` (:func:`decode_fleet_global`); padded tenant slots
 (``tenant_mask`` False) never emit a move.
 
-Best-of-R fleet restarts (``n_restarts > 1``) fan the tenants' restarts
-out over the fleet's device mesh in the JAX package and are refused here
-(ROADMAP Queue 1 item 5); a solo loop's ``solver_restarts`` runs
-(``parallel.solve_with_restarts``).
+Best-of-R fleet restarts (``n_restarts > 1``) run on the one device, as in
+the JAX package (a ``lax.scan`` over ``split(key, R)`` a tenant): tenant
+``t``'s body runs R solo solve bodies in turn, restart ``i`` on the plans of
+``parallel.sharded.restart_generators(generators[t], R)[i]``, and adopts the
+first ``argmin`` of ``objective_after + move_penalty`` on the device — the
+rule of ``parallel.sharded.parallel_restarts`` — so each tenant equals the
+solo ``solve_with_restarts(n_restarts=R)`` bit for bit. The body keeps the
+R placements and one solve's working set at a time; only ``objective_after``
+and ``move_penalty`` are reported (``objective_before`` and ``improved``
+ride as NaN and decode to None, as in the JAX package). The capture key
+holds R, so a fleet round at R restarts is one replay.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     dense_solve,
     dense_solve_inputs,
     state_from_inputs,
+    state_inputs,
 )
 
 # objective row layout per tenant, after the two [T, S] planes; NaN in
@@ -73,24 +81,57 @@ def collapse_moves(state: ClusterState, new_pod_node: torch.Tensor, num_services
     return svc_target, first_pod
 
 
-def fleet_global_body(t: dict, adjs, *, config: GlobalSolverConfig, lay, tenants: int
-                      ) -> dict[str, torch.Tensor]:
-    """The T solo solve bodies in tenant order and the bundle, as a function
-    of device tensors that reads nothing back: ``t`` holds every tenant's
-    solve inputs under ``"<t>:"`` and the tenant ``mask``."""
+def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d device index, without reading it back."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+def _best_of(st: ClusterState, graph: CommGraph, config: GlobalSolverConfig, lay, ti: dict,
+             n_restarts: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One tenant's best-of-R: the R solo solve bodies on the restarts' plans
+    (``ti["<r>:..."]``), each placement written into one buffer as it
+    finishes, and the first ``argmin`` of ``objective_after +
+    move_penalty`` (``parallel_restarts``' rule). Returns ``(pod_node,
+    obj row f32[4])`` with NaN for before and improved."""
+    pods = torch.empty((n_restarts, st.num_pods), dtype=st.pod_node.dtype, device=st.device)
+    objs, pens = [], []
+    for r in range(n_restarts):
+        out = dense_solve(st, graph, config, lay, tenant_inputs(ti, r))
+        pods[r] = out["pod_node"]
+        objs.append(out["objective_after"])
+        pens.append(out["move_penalty"])
+        del out
+    objs, pens = torch.stack(objs), torch.stack(pens)
+    best = torch.argmin(objs + pens)
+    nan = torch.full((), float("nan"), device=st.device)
+    obj = torch.stack([nan, _pick(objs, best).float(), nan, _pick(pens, best).float()])
+    return _pick(pods, best), obj
+
+
+def fleet_global_body(t: dict, adjs, *, config: GlobalSolverConfig, lay, tenants: int,
+                      n_restarts: int = 1) -> dict[str, torch.Tensor]:
+    """The T solo solve bodies in tenant order (R of them a tenant with
+    ``n_restarts > 1``) and the bundle, as a function of device tensors that
+    reads nothing back: ``t`` holds every tenant's solve inputs under
+    ``"<t>:"`` (a restart's plans under ``"<t>:<r>:"``) and the tenant
+    ``mask``."""
     S = lay.services
     targets, firsts, objs = [], [], []
     for i in range(tenants):
         ti = tenant_inputs(t, i)
         st = state_from_inputs(ti)
-        out = dense_solve(st, CommGraph(adj=adjs[i], service_valid=ti["service_valid"]),
-                          config, lay, ti)
-        svc_target, first_pod = collapse_moves(st, out["pod_node"], S)
+        g = CommGraph(adj=adjs[i], service_valid=ti["service_valid"])
+        if n_restarts > 1:
+            pod_node, obj = _best_of(st, g, config, lay, ti, n_restarts)
+        else:
+            out = dense_solve(st, g, config, lay, ti)
+            pod_node = out["pod_node"]
+            obj = torch.stack([out["objective_before"].float(), out["objective_after"].float(),
+                               out["improved"].float(), out["move_penalty"].float()])
+        svc_target, first_pod = collapse_moves(st, pod_node, S)
         targets.append(svc_target)
         firsts.append(first_pod)
-        objs.append(torch.stack([out["objective_before"].float(),
-                                 out["objective_after"].float(),
-                                 out["improved"].float(), out["move_penalty"].float()]))
+        objs.append(obj)
         P = st.num_pods
     m = t["mask"]
     svc_target = torch.where(m[:, None], torch.stack(targets), -1)
@@ -111,20 +152,34 @@ def fleet_global_solve(states, graphs: Sequence[CommGraph], tenant_mask: torch.T
     are ``plans[t]``, else drawn from ``generators[t]`` exactly as
     ``global_assign`` draws them — so each tenant's result equals
     ``global_assign(states[t], graphs[t], generators[t], config,
-    plan=plans[t])``. Decode with :func:`decode_fleet_global`."""
-    if n_restarts > 1:
-        raise ValueError(
-            "fleet_global_solve(n_restarts > 1) fans the restarts out across devices, "
-            "which the port does not do yet (ROADMAP Queue 1 item 5)"
-        )
+    plan=plans[t])``. With ``n_restarts`` R > 1, ``plans[t]`` is one plan
+    list a restart, else restart ``i`` draws from
+    ``parallel.sharded.restart_generators(generators[t], R)[i]``, and tenant
+    ``t`` equals ``solve_with_restarts(states[t], graphs[t], generators[t],
+    n_restarts=R, config=config)``. Decode with :func:`decode_fleet_global`."""
+    from kubernetes_rescheduling_tpu_torch.parallel.sharded import restart_generators
+
     T = int(tenant_mask.shape[0])
+    R = max(int(n_restarts), 1)
     check_graphs(graphs, T)
     sts = tenant_states(states, T)
     generators = list(generators) if generators is not None else [None] * T
     plans = list(plans) if plans is not None else [None] * T
     inputs, lay = {}, None
     for i in range(T):
-        lay_i, inp = dense_solve_inputs(sts[i], graphs[i], generators[i], config, plans[i])
+        if R > 1:
+            if plans[i] is not None and len(plans[i]) != R:
+                raise ValueError(f"tenant {i}: {len(plans[i])} restart plans for {R} restarts")
+            gens = restart_generators(generators[i], R) if plans[i] is None else [None] * R
+            inp = {}
+            for r in range(R):
+                lay_i, inp_r = dense_solve_inputs(sts[i], graphs[i], gens[r], config,
+                                                  plans[i][r] if plans[i] is not None else None)
+                base = {k: inp_r.pop(k) for k in ("service_valid", *state_inputs(sts[i]))}
+                inp.update(base)
+                inp.update(prefixed(r, inp_r))
+        else:
+            lay_i, inp = dense_solve_inputs(sts[i], graphs[i], generators[i], config, plans[i])
         if lay is not None and lay_i != lay:
             raise ValueError(f"tenant {i} solve layout {lay_i} != tenant 0 layout {lay}")
         lay = lay_i
@@ -133,9 +188,11 @@ def fleet_global_solve(states, graphs: Sequence[CommGraph], tenant_mask: torch.T
     adjs = tuple(g.adj for g in graphs)
 
     def make_body():
-        return lambda t: fleet_global_body(t, adjs, config=config, lay=lay, tenants=T)
+        return lambda t: fleet_global_body(t, adjs, config=config, lay=lay, tenants=T,
+                                           n_restarts=R)
 
-    out = CACHE.run("fleet_global_solve", (config, lay, T), inputs, make_body, operands=adjs)
+    out = CACHE.run("fleet_global_solve", (config, lay, T, R), inputs, make_body,
+                    operands=adjs)
     return out["flat"]
 
 

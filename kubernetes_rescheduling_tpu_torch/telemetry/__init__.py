@@ -14,9 +14,11 @@
 - :mod:`fleet_rollup` — device-side tenant rollups and the tenant-label
   budget;
 - :mod:`flight_recorder`, :mod:`watchdog`, :mod:`timeseries`, :mod:`slo`,
-  :mod:`mesh` (the profiler gate) and :mod:`server` — the live ops plane:
+  :mod:`mesh` (the mesh plane over the dp fleet planes —
+  :class:`MeshPlane`, :class:`DeviceSeries` — and the profiler gate) and
+  :mod:`server` — the live ops plane:
   ``/metrics``, ``/healthz``, ``/events``, ``/tenants``, ``POST /place``,
-  ``/slo``, ``/query``, ``POST /profile``, and the :class:`OpsPlane` the
+  ``/slo``, ``/query``, ``/devices``, ``POST /profile``, and the :class:`OpsPlane` the
   loops consume.
 
 - :mod:`costmodel` — the compiled-cost book of the captured graphs, the
@@ -25,8 +27,6 @@
   regression detector;
 - :mod:`report` — the ``telemetry`` command's renderings of a run's
   artifacts.
-
-The mesh plane (``MeshPlane``, ``DeviceSeries``) is ROADMAP Queue 1 item 5.
 """
 
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import (
@@ -73,7 +73,11 @@ from kubernetes_rescheduling_tpu_torch.telemetry.fleet_rollup import (
     TenantSeries,
     TenantSummaryRing,
 )
-from kubernetes_rescheduling_tpu_torch.telemetry.mesh import ProfilerGate
+from kubernetes_rescheduling_tpu_torch.telemetry.mesh import (
+    DeviceSeries,
+    MeshPlane,
+    ProfilerGate,
+)
 from kubernetes_rescheduling_tpu_torch.telemetry.flight_recorder import FlightRecorder
 from kubernetes_rescheduling_tpu_torch.telemetry.server import (
     HealthState,
@@ -102,6 +106,8 @@ __all__ = [
     "get_costbook",
     "sample_device_memory",
     "PerfLedger",
+    "DeviceSeries",
+    "MeshPlane",
     "run_manifest",
     "write_manifest",
     "ProfilerGate",

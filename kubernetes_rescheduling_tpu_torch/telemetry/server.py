@@ -37,9 +37,10 @@ Endpoints (``--serve PORT`` on ``reschedule``/``bench``):
 - ``GET /query?series=&n=`` — bounded raw readout of one history-plane
   ring (``telemetry.timeseries.SeriesStore``); a bare /query lists the
   retained series names. 404 when disabled or the series is unknown.
-- ``GET /devices`` — the mesh/device plane's per-device overview. The
-  mesh plane runs with the dp fleet planes (ROADMAP Queue 1 item 5), so
-  this answers 404 until one binds, as in the JAX package.
+- ``GET /devices`` — the mesh/device plane's per-device overview
+  (``telemetry.mesh.MeshPlane``): attributed step ms, cumulative transfer
+  MB and allocated card memory per device, the rollup event. 404 until a
+  dp fleet run binds a mesh plane (``OpsPlane.bind_mesh``).
 - ``POST /profile`` — arm one on-demand ``torch.profiler`` capture
   (``{"rounds"?: int}``, default 1) around the next N fleet rounds or
   the next scan block; the artifact lands in the flight-recorder

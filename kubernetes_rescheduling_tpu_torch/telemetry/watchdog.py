@@ -51,8 +51,9 @@ The port's copy of ``kubernetes_rescheduling_tpu.telemetry.watchdog``
 The ``perf_regression`` verdicts come through :meth:`Watchdog.observe_perf`
 from ``perf_ledger.detect`` (the bench harness after each cell, ``reschedule
 --perf-ledger`` after its run); the ``shadow_win_rate`` rule reads the
-rounds' shadow blocks, and the ``mesh_imbalance`` feed comes with ROADMAP
-Queue 1 item 5.
+rounds' shadow blocks, and the ``mesh_imbalance`` rule the mesh plane's
+summaries (:meth:`Watchdog.observe_mesh`: the dp fleet loop and
+``bench_multichip`` through ``OpsPlane.observe_device_rollup``).
 """
 
 from __future__ import annotations

@@ -424,8 +424,10 @@ REFUSED = [
     # shadow mode is carried: chaos on the replayed trace is refused
     (dict(shadow=TShadowConfig(enabled=True), chaos="soak"),
      "shadow mode cannot compose with chaos"),
-    # fleet mode is carried; its dp plane is multi-device
-    (dict(fleet=TFleetConfig(tenants=4, plane="dp")), r"ROADMAP Queue 1 item 5\b"),
+    # fleet mode and its dp plane are carried: the mesh plane's rule refuses
+    # a ratio below 1, as in the JAX package
+    (dict(fleet=TFleetConfig(tenants=4, plane="dp"), slo_mesh_imbalance_ratio=0.5),
+     "slo_mesh_imbalance_ratio must be 0"),
     # the serving plane is carried: it scores with the greedy machinery only
     (dict(serving=TServingConfig(enabled=True), algorithm="global"),
      "serving.enabled requires a greedy algorithm"),

@@ -153,12 +153,25 @@ def test_fleet_solve_one_capture_key(monkeypatch):
 
 
 def test_fleet_solve_proactive_refused():
-    """The proactive fleet plane is carried on one device; sharding its
-    tenants over devices (``plane="dp"``) waits with multi-device."""
+    """The proactive fleet plane is carried on both planes: with ``plane=
+    "dp"`` and no process group the dp call is the vmap call (dp = 1), its
+    decisions equal; what the JAX package refuses of proactive (a scan
+    block) it refuses on the dp plane too."""
+    from kubernetes_rescheduling_tpu_torch.parallel import fleet as tdp
+
     RescheduleConfig(algorithm="proactive", fleet=FleetConfig(tenants=2)).validate()
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 5\b"):
-        RescheduleConfig(algorithm="proactive",
+    RescheduleConfig(algorithm="proactive", fleet=FleetConfig(tenants=2, plane="dp")).validate()
+    with pytest.raises(ValueError, match="pinning greedy algorithm"):
+        RescheduleConfig(algorithm="proactive", scan_block=4,
                          fleet=FleetConfig(tenants=2, plane="dp")).validate()
+    _, tf = fleets(2)
+    states, graphs = snapshots(tf)
+    st = tfleet.stack_tenants(states)
+    mask = torch.ones(2, dtype=torch.bool)
+    deltas = torch.linspace(-5.0, 5.0, 2 * states[0].num_nodes).reshape(2, -1)
+    a = tfleet.fleet_solve_proactive(st, graphs, 3, 30.0, mask, deltas)
+    b = tdp.fleet_solve_proactive_dp(st, graphs, 3, 30.0, mask, deltas)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_stack_tenants_rejects_mismatched_shapes():
@@ -266,16 +279,19 @@ def test_cli_fleet_reschedule(capsys):
     (["--backend", "k8s"], "sim backend"),
     (["--moves-per-round", "3"], "greedy"),
     (["--algorithm", "global", "--solver-backend", "sparse"], "sparse"),
-    (["--fleet-plane", "dp"], r"ROADMAP Queue 1 item 5\b"),
+    (["--fleet-plane", "dp", "--slo-mesh-imbalance-ratio", "0.5"],
+     "slo_mesh_imbalance_ratio must be 0"),
     (["--fleet-chaos-tenants", "2", "--chaos-profile", "soak"], "chaos tenant 2 out of range"),
-    (["--algorithm", "proactive", "--fleet-plane", "dp"], r"ROADMAP Queue 1 item 5\b"),
+    (["--algorithm", "proactive", "--fleet-plane", "dp", "--scan-block", "4"],
+     "pinning greedy algorithm"),
     (["--pipeline", "--scan-block", "4"], "mutually exclusive"),
 ], ids=["k8s", "multi-move", "sparse", "dp", "chaos-tenants", "proactive", "pipeline"])
 def test_cli_fleet_refusals(argv, match):
     """tests/test_fleet.py:376-400: what fleet mode cannot batch exits with
     its reason, what the JAX package refuses of a carried plane (a chaos
-    tenant out of range, a pipelined fleet scan) is refused for its reason,
-    and what the port does not carry names its ROADMAP item."""
+    tenant out of range, a pipelined fleet scan, on the dp plane a mesh
+    imbalance ratio below 1 or a proactive scan block) is refused for its
+    reason."""
     with pytest.raises(SystemExit, match=match):
         t_cli.main(["reschedule", "--fleet", "2", "--device", "cpu", *argv])
 
@@ -285,23 +301,20 @@ def test_cli_fleet_refusals(argv, match):
 
 def test_fleet_config_validation():
     """tests/test_fleet.py:417: what the JAX package accepts and refuses,
-    and the port's refusals naming their ROADMAP items."""
+    the dp plane and fleet restarts included."""
     FleetConfig(tenants=4).validate()
     with pytest.raises(ValueError, match="plane"):
         FleetConfig(plane="pmap").validate()
     with pytest.raises(ValueError, match="out of range"):
         FleetConfig(tenants=2, chaos_tenants=(2,)).validate()
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 5\b"):
-        FleetConfig(tenants=4, plane="dp").validate()
+    FleetConfig(tenants=4, plane="dp").validate()
     # chaos tenants are carried
     FleetConfig(tenants=4, chaos_tenants=(0, 3)).validate()
     RescheduleConfig(chaos="soak", fleet=FleetConfig(tenants=4, chaos_tenants=(3,))).validate()
     RescheduleConfig(algorithm="global", fleet=FleetConfig(tenants=2)).validate()
     RescheduleConfig(moves_per_round="all", fleet=FleetConfig(tenants=2)).validate()
     RescheduleConfig(algorithm="proactive", fleet=FleetConfig(tenants=2)).validate()
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 5\b"):
-        RescheduleConfig(algorithm="proactive",
-                         fleet=FleetConfig(tenants=2, plane="dp")).validate()
+    RescheduleConfig(algorithm="proactive", fleet=FleetConfig(tenants=2, plane="dp")).validate()
     # the pipelined fleet is carried; the JAX package refuses it only as it
     # refuses any pipelined run
     RescheduleConfig(pipeline=True, fleet=FleetConfig(tenants=2)).validate()
@@ -325,9 +338,10 @@ def test_fleet_config_validation():
     with pytest.raises(ValueError, match="fleet mode does not compose with solver_tp yet"):
         RescheduleConfig(algorithm="global", solver_tp=2,
                          fleet=FleetConfig(tenants=2)).validate()
-    with pytest.raises(ValueError, match=r"fleet restarts.*ROADMAP Queue 1 item 5\b"):
-        RescheduleConfig(algorithm="global", solver_restarts=2,
-                         fleet=FleetConfig(tenants=2)).validate()
+    RescheduleConfig(algorithm="global", solver_restarts=2,
+                     fleet=FleetConfig(tenants=2)).validate()
+    RescheduleConfig(algorithm="global", solver_restarts=2,
+                     fleet=FleetConfig(tenants=2, plane="dp")).validate()
     # the loop holds the fleet gate even with the fleet block off
     with pytest.raises(ValueError, match="greedy"):
         t_run_fleet(t_make_fleet("mubench", 2, device="cpu"),

@@ -164,11 +164,23 @@ def test_fleet_global_kernel_lowering_vs_jax_interpret():
 
 
 def test_fleet_global_restarts_refused():
+    """Fleet restarts are carried (tests/test_torch_fleet_restarts.py holds
+    them against JAX and the solo solve): what is refused is a restart
+    without its plans or a generator, and a plan count other than R."""
     _, tf = fleets(2)
     t_states, t_graphs = snapshots(tf)
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 5\b"):
-        tfg.fleet_global_solve(t_states, t_graphs, torch.ones(2, dtype=torch.bool),
-                               n_restarts=2)
+    mask = torch.ones(2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="generator or explicit plans"):
+        tfg.fleet_global_solve(t_states, t_graphs, mask, n_restarts=2)
+    cfg = tgs.GlobalSolverConfig(sweeps=2)
+    with pytest.raises(ValueError, match="tenant 0: 1 restart plans for 2 restarts"):
+        tfg.fleet_global_solve(t_states, t_graphs, mask, config=cfg, n_restarts=2,
+                               plans=[[None], [None]])
+    flat = tfg.fleet_global_solve(t_states, t_graphs, mask, config=cfg, n_restarts=2,
+                                  generators=[round_generator(s, 0) for s in (1, 2)])
+    _, objs = tfg.decode_fleet_global(flat.numpy(), tenants=2,
+                                      num_services=t_graphs[0].num_services)
+    assert all(o[0] is None and o[2] is None for o in objs)
 
 
 def test_fleet_global_one_capture_key(monkeypatch):

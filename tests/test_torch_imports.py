@@ -189,7 +189,9 @@ def _entry_points():
         sparse_problem,
     )
     from kubernetes_rescheduling_tpu_torch.bench.loadgen import LoadGenerator
+    from kubernetes_rescheduling_tpu_torch.bench.multichip import bench_multichip
     from kubernetes_rescheduling_tpu_torch.config import ForecastConfig, RescheduleConfig
+    from kubernetes_rescheduling_tpu_torch.parallel.dryrun import dryrun_multichip
     from kubernetes_rescheduling_tpu_torch.core import sparsegraph, topology
     from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
     from kubernetes_rescheduling_tpu_torch.core.workmodel import ServiceSpec, Workmodel
@@ -302,6 +304,12 @@ def _entry_points():
         "cli trace --restarts": lambda: cli.main(["trace", "--steps", "2", "--restarts", "2"]),
         "cli reschedule --restarts": lambda: cli.main(
             ["reschedule", "--algorithm", "global", "--restarts", "2"]),
+        "cli reschedule --fleet --restarts": lambda: cli.main(
+            ["reschedule", "--fleet", "2", "--algorithm", "global", "--restarts", "2"]),
+        "cli reschedule --fleet-plane dp": lambda: cli.main(
+            ["reschedule", "--fleet", "2", "--fleet-plane", "dp"]),
+        "bench_multichip": lambda: bench_multichip(tenants=2, n_services=8, n_nodes=4),
+        "dryrun_multichip": lambda: dryrun_multichip(),
     }
 
 
@@ -315,12 +323,10 @@ def test_entry_points_default_to_the_card(name):
         _entry_points()[name]()
 
 
-# the JAX names the port leaves to ROADMAP Queue 1 item 5 (the fleet's dp
-# plane, the mesh plane) or out on purpose (``instrument_jit``: its
+# the JAX names the port leaves out on purpose (``instrument_jit``: its
 # counterpart is the capture cache's ``cuda_graph_captures_total``)
 SURFACE_EXCEPTIONS = {
-    "parallel": {"fleet_solve_dp"},
-    "telemetry": {"MeshPlane", "DeviceSeries", "instrument_jit"},
+    "telemetry": {"instrument_jit"},
 }
 # port names beyond the JAX ``__all__``s: the port's plan seams and helpers
 # its tests and chip_smoke.py use, the forecast twin of ``oracle``
@@ -341,7 +347,7 @@ PORT_EXTRAS = {
 @pytest.mark.parametrize("sub", sorted(PORT_EXTRAS))
 def test_public_surface_matches_jax(sub):
     """Each port package exports the JAX package's ``__all__`` (minus the
-    listed item-5 and left-out names) plus the listed port extras, and
+    listed left-out names) plus the listed port extras, and
     every exported name resolves. The JAX side is read from its source
     (``ast``), so this imports no jax."""
     import importlib
@@ -363,16 +369,14 @@ def _subcommands(parser):
     return next(a.choices for a in parser._actions if isinstance(a, argparse._SubParsersAction))
 
 
-# port-only options, and the JAX options still refused with ROADMAP Queue 1
-# item 5 (the mesh plane's watchdog rule)
+# port-only options
 CLI_PORT_ONLY = {"device"}
-CLI_JAX_ONLY = {"reschedule": {"slo_mesh_imbalance_ratio"}, "bench": {"slo_mesh_imbalance_ratio"}}
 
 
 def test_cli_defaults_match_jax():
     """Every subcommand's options, defaults and choices equal the JAX
     ``build_parser()``'s (``solve --scenario`` defaults to ``mubench``),
-    but for the listed port-only and item-5 options."""
+    but for the listed port-only options."""
     from kubernetes_rescheduling_tpu import cli as jcli
     from kubernetes_rescheduling_tpu_torch import cli as tcli
 
@@ -381,8 +385,6 @@ def test_cli_defaults_match_jax():
     for name in js:
         jd = {a.dest: (a.default, a.choices and list(a.choices)) for a in js[name]._actions}
         td = {a.dest: (a.default, a.choices and list(a.choices)) for a in ts[name]._actions}
-        for dest in CLI_JAX_ONLY.get(name, set()):
-            jd.pop(dest)
         for dest in CLI_PORT_ONLY & set(td):
             td.pop(dest)
         assert td == jd, name

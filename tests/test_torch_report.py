@@ -18,8 +18,8 @@ CPU, against the JAX package.
   manifest is compared apart).
 - Every TOML file of the JAX tests (captured by wrapping the JAX loader
   while the JAX test runs) loads in the port to the flat equivalents of the
-  JAX config, or is refused naming ROADMAP Queue 1 item 5 (a plane the port
-  does not carry: the fleet's ``plane = "dp"``).
+  JAX config (the fleet's ``plane = "dp"`` and the mesh plane's fields
+  included), or is refused as the JAX loader refuses it.
 """
 
 import contextlib
@@ -326,8 +326,7 @@ def test_toml_files_of_the_jax_tests_load_alike(module, case, tmp_path, monkeypa
     """Run the JAX test as it is (its own assertions on the JAX config), with
     the JAX loader wrapped to record every file it reads; then each file
     through the port's loader: the same values on the flat fields, or the
-    JAX loader's refusal, or the port's refusal of a plane it does not carry
-    (item 5)."""
+    JAX loader's refusal."""
     import importlib
 
     mod = importlib.import_module(module)
@@ -353,12 +352,7 @@ def test_toml_files_of_the_jax_tests_load_alike(module, case, tmp_path, monkeypa
             with pytest.raises(type(e)):
                 tconfig.RescheduleConfig.from_toml(p)
             continue
-        try:
-            tcfg = tconfig.RescheduleConfig.from_toml(p)
-        except ValueError as e:
-            assert "Queue 1 item 5" in str(e), (text, e)
-            assert jcfg.fleet.plane == "dp" or jcfg.obs.slo_mesh_imbalance_ratio
-            continue
+        tcfg = tconfig.RescheduleConfig.from_toml(p)
         want, got = flat_from_jax(jcfg), flat_of_port(tcfg)
         assert got == want, {k: (got[k], want[k]) for k in want if got[k] != want[k]}
 
@@ -377,11 +371,18 @@ def test_toml_refuses_unknown_keys_as_jax_does(tmp_path):
 
 def test_toml_item5_fields_are_refused_naming_the_item(tmp_path):
     p = tmp_path / "mesh.toml"
-    p.write_text("[obs]\nslo_mesh_imbalance_ratio = 1.5\n")
-    assert jconfig.RescheduleConfig.from_toml(p).obs.slo_mesh_imbalance_ratio == 1.5
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        tconfig.RescheduleConfig.from_toml(p)
-    # restarts are carried now: the TOML field loads as in the JAX package
+    # the fields of ROADMAP Queue 1 item 5 (the mesh plane's rule, the dp
+    # plane) load as in the JAX package; a ratio below 1 is refused by both
+    p.write_text("[obs]\nslo_mesh_imbalance_ratio = 1.5\n[fleet]\ntenants = 2\nplane = 'dp'\n")
+    j = jconfig.RescheduleConfig.from_toml(p)
+    t = tconfig.RescheduleConfig.from_toml(p)
+    assert (t.slo_mesh_imbalance_ratio, t.fleet.plane) == \
+        (j.obs.slo_mesh_imbalance_ratio, j.fleet.plane) == (1.5, "dp")
+    p.write_text("[obs]\nslo_mesh_imbalance_ratio = 0.5\n")
+    for loader in (jconfig.RescheduleConfig.from_toml, tconfig.RescheduleConfig.from_toml):
+        with pytest.raises(ValueError, match="mesh_imbalance"):
+            loader(p)
+    # restarts are carried: the TOML field loads as in the JAX package
     p.write_text("solver_restarts = 2\n[controller]\ndonate_carry = false\n"
                  "[obs]\ndevice_rollup = false\n")
     assert tconfig.RescheduleConfig.from_toml(p).solver_restarts == 2 == \

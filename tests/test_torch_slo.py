@@ -75,6 +75,7 @@ def on_port(module, names: dict):
     for k, v in list(g.items()):
         if isinstance(v, types.FunctionType) and v.__module__ == module.__name__:
             g[k] = types.FunctionType(v.__code__, g, v.__name__, v.__defaults__, v.__closure__)
+            g[k].__kwdefaults__ = v.__kwdefaults__
     return g
 
 

@@ -12,7 +12,7 @@ carry the JAX package's names.
 Left out of the JAX files: ``instrument_jit``, ``publish_round_telemetry``
 and ``pull`` of jax arrays (the port's capture counter and ``pull`` are
 covered by tests/test_torch_compiled.py), the jax manifest keys, and the
-mesh plane (``MeshPlane``, ``DeviceSeries``: item 5). ``LatencyHistogram``,
+mesh plane (``MeshPlane``, ``DeviceSeries``: tests/test_torch_mesh.py). ``LatencyHistogram``,
 the report and the CLI cases are tests/test_torch_report.py's.
 """
 
@@ -116,8 +116,8 @@ def test_profiler_case_on_port(case, registry, tmp_path):
 
 
 def test_devices_answers_404_until_a_mesh_plane_binds(registry):
-    """The mesh plane is ROADMAP Queue 1 item 5: /devices answers 404, as
-    in the JAX package before a dp run binds one."""
+    """/devices answers 404 until a dp run binds a mesh plane, as in the JAX
+    package (tests/test_torch_mesh.py serves one after the bind)."""
     plane = tserver.OpsPlane.from_config(TConfig(serve_port=0), registry=registry,
                                          bundle_dir=None).start()
     try:
