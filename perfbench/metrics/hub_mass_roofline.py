@@ -1,0 +1,8 @@
+"""Kernel hub_mass's share of its roofline: Σ of its launches' bounds over Σ of
+their measured device time (``counts/hub_mass.py``)."""
+
+from perfbench.layer import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, ["hub_mass"])

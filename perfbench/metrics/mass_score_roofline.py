@@ -1,0 +1,8 @@
+"""Kernel mass_score's share of its roofline: Σ of its launches' bounds over Σ of
+their measured device time (``counts/mass_score.py``)."""
+
+from perfbench.layer import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, ["mass_score"])
