@@ -8,8 +8,9 @@ every other scenario is the dense solver on ``make_backend``. Runs the
 default-config solve once to warm up, then once more under
 ``torch.profiler`` (CPU and CUDA activities), and prints one JSON object:
 the wall time of the profiled solve, the summed device time of its kernels,
-the device's idle share of the wall time, the launch count, and the
-kernels that took the most device time. A third solve runs under
+the device's busy time (the union of its operations' intervals: kernels
+that overlap count once) and idle share of the wall time, the launch
+count, and the kernels that took the most device time. A third solve runs under
 PyTorch's sync debug mode and reports where the host waited for the device
 (``file:line`` of each synchronizing call site; the mode does not catch
 every kind of sync). Needs a CUDA device.
@@ -43,9 +44,31 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import prepare_weigh
 SPARSE_SCENARIOS = {"sparse50k": (50_000, 2_000)}
 
 
+def union_length(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals: time covered
+    by at least one of them."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
+
+
+def device_kernels(events) -> list:
+    """The profiler's events that are device work: on the card, with
+    device time, and not a user annotation (a ``record_function`` span,
+    such as the port's hot spans, is mirrored on the card's timeline over
+    the work it launched)."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+            and not e.is_user_annotation]
+
+
 def _trace(fn, top: int) -> dict:
     """``fn()`` under ``torch.profiler``: wall ms (ending in a synchronize),
-    device kernel ms, the device's idle share and the busiest kernels."""
+    device kernel ms, the device's busy ms and idle share, and the busiest
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -54,11 +77,9 @@ def _trace(fn, top: int) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-    ]
+    kernels = device_kernels(prof.events())
     device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    busy_ms = union_length([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
     by_name: dict[str, list[float]] = {}
     for e in kernels:
         agg = by_name.setdefault(e.name, [0, 0.0])
@@ -69,7 +90,8 @@ def _trace(fn, top: int) -> dict:
         "device": torch.cuda.get_device_name(0),
         "wall_ms": wall_ms,
         "device_kernel_ms": device_ms,
-        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "kernel_launches": len(kernels),
         "top_kernels": [
             {"name": name[:120], "launches": n, "ms": ms} for name, (n, ms) in ranked

@@ -19,6 +19,11 @@ on the device.
 :func:`replay` runs each step as ``parallel.solve_with_restarts``, so
 ``restarts > 1`` is a best-of-N solve there too. :func:`observed_step`
 turns the load generator's observed traffic into a step.
+
+While tracing is on (``telemetry/spans.py``), a device replay call is the
+hot span ``replay/call``, its plan draw ``replay/plans`` and its uploads
+``replay/stage``; its bodies mark the phase ``update`` (the weight
+scatter) before the solve's own phases (``telemetry/phases.py``).
 """
 
 from __future__ import annotations
@@ -40,7 +45,6 @@ from kubernetes_rescheduling_tpu_torch.core.sparsegraph import (
 )
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
 from kubernetes_rescheduling_tpu_torch.core.workmodel import ServiceSpec, Workmodel
-from kubernetes_rescheduling_tpu_torch.telemetry.spans import span
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import communication_cost, load_std
 from kubernetes_rescheduling_tpu_torch.solver.compiled import CACHE, to_device
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
@@ -63,7 +67,9 @@ from kubernetes_rescheduling_tpu_torch.solver.sparse_solver import (
     sparse_static,
     sparse_tables,
 )
+from kubernetes_rescheduling_tpu_torch.telemetry.phases import phase_mark
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import get_registry
+from kubernetes_rescheduling_tpu_torch.telemetry.spans import span
 from kubernetes_rescheduling_tpu_torch.utils.logging import get_logger
 
 
@@ -328,22 +334,32 @@ def replay_on_device(
     random decisions. Returns ``(final_state, objs[steps],
     costs_before[steps])``: each step's objective under its new weights
     after and before its solve."""
+    with span("replay/call", hot=True, fn="replay_on_device", steps=len(mults),
+              restarts=restarts):
+        return _replay_dense(state, graph, ii, jj, mults, generator, config, plans, restarts)
+
+
+def _replay_dense(state, graph, ii, jj, mults, generator, config, plans, restarts):
     dev = state.device
     lay = dense_layout(graph.num_services, state.num_nodes, config, dev)
     check_weight_budget(lay.sp, config)
-    m = _mults_on(mults, dev)
     block = COMPOSITION_BLOCK if lay.inline_mass else 1
-    plans = _restart_plans(plans, m.shape[0], restarts, lambda: draw_plans(
-        generator, config.sweeps, lay.sp, lay.chunk, lay.n_chunks, block))
-    base = {"service_valid": graph.service_valid,
-            "ii": to_device(torch.as_tensor(np.asarray(ii, dtype=np.int64)), dev),
-            "jj": to_device(torch.as_tensor(np.asarray(jj, dtype=np.int64)), dev)}
-    step_inputs = [[dict(base, mult=m[k], **dense_plan_inputs(p, lay, config, dev, generator))
-                    for p in step] for k, step in enumerate(plans)]
+    with span("replay/plans", hot=True):
+        plans = _restart_plans(plans, len(mults), restarts, lambda: draw_plans(
+            generator, config.sweeps, lay.sp, lay.chunk, lay.n_chunks, block))
+    with span("replay/stage", hot=True):
+        m = _mults_on(mults, dev)
+        base = {"service_valid": graph.service_valid,
+                "ii": to_device(torch.as_tensor(np.asarray(ii, dtype=np.int64)), dev),
+                "jj": to_device(torch.as_tensor(np.asarray(jj, dtype=np.int64)), dev)}
+        step_inputs = [[dict(base, mult=m[k], **dense_plan_inputs(p, lay, config, dev,
+                                                                   generator))
+                        for p in step] for k, step in enumerate(plans)]
     base_adj = graph.adj
 
     def make_body():
         def step(t):
+            phase_mark("update")
             w = base_adj[t["ii"], t["jj"]] * t["mult"]
             adj_t = base_adj.index_put((t["ii"], t["jj"]), w).index_put((t["jj"], t["ii"]), w)
             g = CommGraph(adj=adj_t, service_valid=t["service_valid"])
@@ -378,19 +394,28 @@ def replay_on_device_sparse(
             "single-block sparse graphs delegate to the dense solver — "
             "use replay_on_device with the dense graph instead"
         )
+    with span("replay/call", hot=True, fn="replay_on_device_sparse", steps=len(mults),
+              restarts=restarts):
+        return _replay_sparse(state, sgraph, loc, mults, generator, config, plans, restarts)
+
+
+def _replay_sparse(state, sgraph, loc, mults, generator, config, plans, restarts):
     dev = state.device
     lay = sparse_layout(sgraph, config)
-    m = _mults_on(mults, dev)
-    plans = _restart_plans(plans, m.shape[0], restarts,
-                           lambda: draw_sparse_plans(generator, config.sweeps, lay))
-    step_inputs = [[dict(mult=m[k], **sparse_plan_inputs(p, lay, config, state.num_nodes, dev,
-                                                         generator))
-                    for p in step] for k, step in enumerate(plans)]
+    with span("replay/plans", hot=True):
+        plans = _restart_plans(plans, len(mults), restarts,
+                               lambda: draw_sparse_plans(generator, config.sweeps, lay))
+    with span("replay/stage", hot=True):
+        m = _mults_on(mults, dev)
+        step_inputs = [[dict(mult=m[k], **sparse_plan_inputs(p, lay, config, state.num_nodes,
+                                                             dev, generator))
+                        for p in step] for k, step in enumerate(plans)]
 
     def make_body():
         tables = sparse_tables(sgraph, lay, dev)
 
         def step(t):
+            phase_mark("update")
             sg_t = with_edge_weights(sgraph, loc, loc.base_w * t["mult"])
             return sparse_solve(state_from_inputs(t), sg_t, config, lay, tables, t)
         return step

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
@@ -44,6 +45,7 @@ _ARGTYPES = {
 _RESTYPES = {"krt_error_string": ctypes.c_char_p}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_build_s = 0.0  # seconds build() has spent compiling in this process
 
 
 def _nvcc() -> str:
@@ -71,10 +73,12 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict[str, str]:
     Returns ``{name: compiler output}`` for the sources compiled now (with
     ``verbose``, ``-Xptxas -v`` adds each kernel's registers, shared memory
     and spills). Raises with the compiler's output if any build fails."""
+    global _build_s
     extra = ("-Xptxas", "-v") if verbose else ()
     todo = {n: _target(n) for n in names if not _target(n).exists()}
     if not todo:
         return {}
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -94,9 +98,15 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict[str, str]:
         else:
             os.unlink(tmp)
             failed.append(f"--- {name}.cu (nvcc exit {proc.returncode}) ---\n{out}")
+    _build_s += time.perf_counter() - t0
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def build_seconds() -> float:
+    """Seconds :func:`build` has spent compiling in this process."""
+    return _build_s
 
 
 def load(path) -> ctypes.CDLL:

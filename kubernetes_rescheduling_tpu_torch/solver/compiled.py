@@ -27,7 +27,16 @@ wrappers count their launches on the host, which a replay skips: a capture
 records what its body launched, takes it back off the counts (nothing ran)
 and each replay adds it again. The first capture of each ``fn`` also
 records its cost (tensor sizes, pool, the kernels' work) in
-``telemetry/costmodel.py``'s book.
+``telemetry/costmodel.py``'s book; every miss adds its seconds, less
+any first build of the kernels it triggered, to
+``cuda_graph_capture_seconds_total{fn=...}``.
+
+A capture records the body's phase marks (``telemetry/phases.py``) as
+event nodes of the graph. While tracing is on (``telemetry/spans.py``:
+a profiler session records, or the tracer was enabled), ``run`` is the
+hot span ``graph/run``, a miss the span ``graph/capture``, a replay's
+phase times are read at the next run of its ``fn``, and a CPU body's
+phases are timed on the host clock.
 
 :func:`eager` — the counterpart of ``jax.disable_jit()`` — runs every solve
 op by op; tests and ``chip_smoke.py`` compare the two. On the CPU the body
@@ -47,9 +56,10 @@ from typing import Callable
 
 import torch
 
-from kubernetes_rescheduling_tpu_torch.ops import KERNEL_WRAPPERS
-from kubernetes_rescheduling_tpu_torch.telemetry import costmodel
+from kubernetes_rescheduling_tpu_torch.ops import KERNEL_WRAPPERS, _build
+from kubernetes_rescheduling_tpu_torch.telemetry import costmodel, phases
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import get_registry
+from kubernetes_rescheduling_tpu_torch.telemetry.spans import span
 
 Body = Callable[[dict], dict]
 
@@ -105,6 +115,7 @@ class _Entry:
     launches: tuple           # per kernel wrapper, per replay
     capture_s: float
     pool_bytes: int           # device memory the capture reserved
+    marks: phases.Marks | None  # the phase events every replay records
 
 
 # captured solves kept: each holds its graph's memory pool and its
@@ -140,29 +151,60 @@ class GraphCache:
         """The body's outputs for ``inputs``: eagerly on the CPU or under
         :func:`eager`, else by a replay of the graph captured for
         ``(fn, key, the inputs' shapes, the operands' identities)``."""
-        devices = {v.device for v in inputs.values()}
-        if len(devices) != 1:
-            raise ValueError(f"{fn}: inputs on several devices {sorted(map(str, devices))}")
-        if devices.pop().type != "cuda" or _EAGER.get():
-            return make_body()(inputs)
-        full = self._full_key(fn, key, inputs, operands)
-        entry = self._entries.get(full)
-        if entry is None:
-            return self._capture(fn, full, inputs, make_body(), tuple(operands))
-        self._entries.move_to_end(full)
-        for name, buf in entry.inputs.items():
-            buf.copy_(inputs[name])
-        entry.graph.replay()
-        _add_launches(entry.launches)
-        costmodel.republish(fn)
-        # the graph overwrites its outputs on the next replay
-        return {k: v.clone() for k, v in entry.outputs.items()}
+        with span("graph/run", hot=True, fn=fn) as args:
+            traced = args is not None
+            devices = {v.device for v in inputs.values()}
+            if len(devices) != 1:
+                raise ValueError(f"{fn}: inputs on several devices {sorted(map(str, devices))}")
+            phases.settle(fn)
+            on_card = devices.pop().type == "cuda"
+            if not on_card or _EAGER.get():
+                if not traced or on_card:
+                    return make_body()(inputs)
+                args["hit"] = False
+                marks = phases.Marks(fn, "host")
+                with phases.recording(marks):
+                    out = make_body()(inputs)
+                phases.submit(marks)
+                return out
+            full = self._full_key(fn, key, inputs, operands)
+            entry = self._entries.get(full)
+            if traced:
+                args["hit"] = entry is not None
+            if entry is None:
+                return self._capture(fn, full, inputs, make_body, tuple(operands))
+            self._entries.move_to_end(full)
+            for name, buf in entry.inputs.items():
+                buf.copy_(inputs[name])
+            entry.graph.replay()
+            _add_launches(entry.launches)
+            if traced and entry.marks is not None:
+                phases.submit(entry.marks)
+            # the graph overwrites its outputs on the next replay
+            return {k: v.clone() for k, v in entry.outputs.items()}
 
-    def _capture(self, fn, full, inputs, body, operands) -> dict:
+    def _capture(self, fn, full, inputs, make_body, operands) -> dict:
+        t_miss, built0 = time.perf_counter(), _build.build_seconds()
+        with span("graph/capture", hot=True, fn=fn) as args:
+            warm, entry = self._capture_entry(fn, full, inputs, make_body(), operands)
+            if args is not None:
+                args.update(capture_s=entry.capture_s, pool_bytes=entry.pool_bytes)
+        # the warm-up builds a kernel library on its first use in a checkout
+        # (``ops/_build.py``): that is the build's time, not the capture's
+        built = _build.build_seconds() - built0
+        get_registry().counter(
+            "cuda_graph_capture_seconds_total",
+            "seconds of capture-cache misses (the eager warm-up body, the synchronize "
+            "and the capture), less the kernels' first build",
+            labelnames=("fn",),
+        ).labels(fn=fn).inc(max(0.0, time.perf_counter() - t_miss - built))
+        return warm
+
+    def _capture_entry(self, fn, full, inputs, body, operands) -> tuple[dict, _Entry]:
         static = {k: v.clone() for k, v in inputs.items()}
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), phases.recording(None):
             warm = body(static)
         torch.cuda.current_stream().wait_stream(side)
         # an output that is an input buffer would change at the next replay
@@ -177,8 +219,10 @@ class GraphCache:
         reserved = torch.cuda.memory_reserved()
         before, work0 = _launch_counts(), _work()
         graph = torch.cuda.CUDAGraph()
+        # the phase marks become event-record nodes of the graph
+        marks = phases.Marks(fn, "graph")
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph), phases.recording(marks):
             outputs = body(static)
         capture_s = time.perf_counter() - t0
         after, work1 = _launch_counts(), _work()
@@ -191,15 +235,15 @@ class GraphCache:
             "capture of a steady shape means an unstable key)",
             labelnames=("fn",),
         ).labels(fn=fn).inc()
-        self._entries[full] = _Entry(graph, static, outputs, body, operands, launches,
-                                     capture_s, pool_bytes)
+        entry = self._entries[full] = _Entry(graph, static, outputs, body, operands, launches,
+                                             capture_s, pool_bytes, marks if marks.names else None)
         # the compiled-cost book: the first capture of each fn
         costmodel.record_capture(fn, costmodel.graph_cost(
             static, operands, outputs, ops=work1[0] - work0[0], nbytes=work1[1] - work0[1],
             temp_bytes=pool_bytes))
         while len(self._entries) > MAX_ENTRIES:
             self._entries.popitem(last=False)
-        return warm
+        return warm, entry
 
 
 CACHE = GraphCache()

@@ -76,6 +76,7 @@ from kubernetes_rescheduling_tpu_torch.solver.swap import (
     scan_sweeps,
     swap_flags,
 )
+from kubernetes_rescheduling_tpu_torch.telemetry.phases import END, phase_mark
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _EPILOGUES = ("auto", "on", "off")
@@ -527,7 +528,10 @@ def dense_solve(
 ) -> dict[str, torch.Tensor]:
     """One dense solve as a function of device tensors that reads nothing
     back to the host: ``t`` holds the plans (:func:`dense_plan_inputs`).
-    Returns the new ``pod_node`` and the info tensors."""
+    Returns the new ``pod_node`` and the info tensors. Marks the phases
+    ``setup``, ``sweeps`` / ``swap_sweeps`` and ``ranking`` a sweep, and
+    ``epilogue`` (``telemetry/phases.py``)."""
+    phase_mark("setup")
     dev = state.device
     f32 = torch.float32
     # over-budget repulsion only exists alongside budget enforcement
@@ -659,8 +663,14 @@ def dense_solve(
         better = obj < best_obj
         return torch.where(better, assign, best_assign), torch.where(better, obj, best_obj)
 
+    def sweep_phase(do_swap: bool) -> str:
+        return "swap_sweeps" if use_swaps and do_swap else "sweeps"
+
     def make_sweep(do_swap: bool):
+        phase = sweep_phase(do_swap)
+
         def sweep(carry, xs):
+            phase_mark(phase)
             sp, temp = xs
             assign, best_assign, best_obj = carry
             assign = assign.clone()
@@ -716,18 +726,22 @@ def dense_solve(
                     )
                     X[ids] = one_hot_rows(assign[ids], valid_c, mm_dtype)
                     sws = sws + n_sw
+            phase_mark("ranking")
             best_assign, best_obj = best_seen(assign, loads(assign)[0], best_assign, best_obj)
             return (assign, best_assign, best_obj), (moves, sws)
 
         return sweep
 
     def make_sweep_inline(do_swap: bool):
+        phase = sweep_phase(do_swap)
+
         def sweep_inline(carry, xs):
             """Same decisions as ``sweep`` (M is exact for integer weights),
             but the occupancy matrix never exists: the mass kernel gathers
             the chunk's W row-blocks and rebuilds occupancy from
             ``assign``; per-node loads are carried through the chunks and
             refreshed from the assignment at the sweep boundary."""
+            phase_mark(phase)
             sp, temp = xs
             assign, cpu_load, mem_load, best_assign, best_obj = carry
             assign = assign.clone()
@@ -770,6 +784,7 @@ def dense_solve(
                     sws = sws + n_sw
             # refresh the carried loads from the assignment each sweep:
             # incremental f32 drift stays bounded to one sweep
+            phase_mark("ranking")
             cpu_fresh, mem_fresh = loads(assign)
             best_assign, best_obj = best_seen(assign, cpu_fresh, best_assign, best_obj)
             return (assign, cpu_fresh, mem_fresh, best_assign, best_obj), (moves, sws)
@@ -797,6 +812,7 @@ def dense_solve(
         (_, best_assign, _), outs = scan_sweeps(
             make_sweep, (assign0, assign0, obj0), plan, temps, sw_flags
         )
+    phase_mark("epilogue")
     moves_per_sweep = torch.stack([m for m, _ in outs]) if outs else zero[None][:0]
     swaps_per_sweep = torch.stack([s for _, s in outs]) if outs else zero[None][:0]
 
@@ -814,7 +830,7 @@ def dense_solve(
         best_assign[torch.clamp(state.pod_service, 0, SP - 1)],
         state.pod_node,
     )
-    return {
+    out = {
         "pod_node": new_pod_node,
         "objective_before": obj_true0,
         "objective_after": torch.where(improved, best_obj, obj_true0),
@@ -827,3 +843,5 @@ def dense_solve(
         "communication_cost": torch.where(improved, best_comm, comm_true0),
         "load_std": load_std(state.replace(pod_node=new_pod_node)),
     }
+    phase_mark(END)
+    return out

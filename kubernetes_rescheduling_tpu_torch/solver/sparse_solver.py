@@ -97,6 +97,7 @@ from kubernetes_rescheduling_tpu_torch.solver.swap import (
     scan_sweeps,
     swap_flags,
 )
+from kubernetes_rescheduling_tpu_torch.telemetry.phases import END, phase_mark
 
 # The noise seed law: the fused mass+score kernel seeds 256-row block i of
 # a chunk with seed + i, the standalone score kernel tile t with seed + t.
@@ -412,7 +413,10 @@ def sparse_solve(
 ) -> dict[str, torch.Tensor]:
     """One sparse solve as a function of device tensors that reads nothing
     back to the host: ``t`` holds the plans (:func:`sparse_plan_inputs`).
-    Returns the new ``pod_node`` and the info tensors."""
+    Returns the new ``pod_node`` and the info tensors. Marks the phases
+    ``setup``, ``hubs``, ``sweeps`` / ``swap_sweeps`` and ``ranking`` a
+    sweep, and ``epilogue`` (``telemetry/phases.py``)."""
+    phase_mark("setup")
     dev = state.device
     f32 = torch.float32
     ow = config.overload_weight if config.enforce_capacity else 0.0
@@ -568,8 +572,10 @@ def sparse_solve(
 
     def make_sweep(do_swap: bool):
         swap_now = use_swaps and do_swap
+        phase = "swap_sweeps" if swap_now else "sweeps"
 
         def sweep(carry, xs):
+            phase_mark("hubs")
             sp, temp = xs
             assign, cpu_load, mem_load, best_assign, best_obj, best_comm = carry
             assign = assign.clone()
@@ -584,6 +590,7 @@ def sparse_solve(
                     None if sp.hub_gumbel is None else sp.hub_gumbel[g],
                 )
                 moves = moves + adm.sum()
+            phase_mark(phase)
             chunk_blocks = reg_ext[sp.block_perm.long()].reshape(n_chunks, lay.blocks_per_chunk)
             chunk_ids = (chunk_blocks[:, :, None] * BLOCK_R + row_iota).reshape(n_chunks, C_eff)
             for c in range(n_chunks):
@@ -635,6 +642,7 @@ def sparse_solve(
                 sws = sws + n_sw
             # refresh the carried loads at each sweep boundary: incremental
             # f32 drift stays bounded to one sweep
+            phase_mark("ranking")
             cpu_fresh, mem_fresh = loads(assign)
             comm, obj = objective_terms(assign, cpu_fresh)
             better = obj < best_obj
@@ -659,6 +667,7 @@ def sparse_solve(
     (_, _, _, best_assign, best_obj, best_comm), outs = scan_sweeps(
         make_sweep, (assign0, cpu0, mem0, assign0, obj0, comm0), plan, temps, sw_flags
     )
+    phase_mark("epilogue")
     moves_per_sweep = torch.stack([m for m, _ in outs]) if outs else zero[None][:0]
     swaps_per_sweep = torch.stack([s for _, s in outs]) if outs else zero[None][:0]
 
@@ -671,7 +680,7 @@ def sparse_solve(
     )
     improved = raw_after + best_pen < obj_true0
     new_pod_node = torch.where(improved & state.pod_valid, best_assign[pod_slot], state.pod_node)
-    return {
+    out = {
         "pod_node": new_pod_node,
         "objective_before": obj_true0,
         "objective_after": torch.where(improved, raw_after, obj_true0),
@@ -684,3 +693,5 @@ def sparse_solve(
         "communication_cost": torch.where(improved, best_comm, comm_true0),
         "load_std": load_std(state.replace(pod_node=new_pod_node)),
     }
+    phase_mark(END)
+    return out

@@ -5,6 +5,9 @@
   Prometheus text exposition and a JSONL sink;
 - :mod:`spans` — nested host-side spans exported as Chrome trace-event
   JSON, with ``torch.profiler`` folded in (``span(..., profile_dir=...)``);
+  hot spans on the replay path record only while tracing is on;
+- :mod:`phases` — timed phases inside a solve body (event nodes of its
+  captured graph on the card), read without a wait;
 - :mod:`accounting` — counted device→host transfers (``pull``) and the
   boundary's call timings;
 - :mod:`manifest` — per-run provenance (config, torch, CUDA, the card, git

@@ -74,8 +74,9 @@ class CostBook:
     """Process-wide cost snapshots of captured graphs, keyed by fn label.
 
     The book outlives any one registry: tests and the bench harness swap
-    registries mid-process while a graph is captured once, so the gauges
-    are republished from the book into whichever registry is current."""
+    registries mid-process while a graph is captured once, so the ops
+    plane's ``/metrics`` render republishes the gauges from the book into
+    the registry it renders (:func:`republish_book`)."""
 
     def __init__(self) -> None:
         self._snaps: dict[str, dict[str, float]] = {}
@@ -155,13 +156,20 @@ def publish_cost_gauges(registry: MetricsRegistry, fn_label: str,
 
 def republish(fn_label: str, registry: MetricsRegistry | None = None) -> bool:
     """Re-set the cost gauges of one fn from the book into ``registry`` (the
-    current default when None) — the replay hook that keeps swapped-in
-    registries populated without re-recording."""
+    current default when None), without re-recording."""
     snap = get_costbook().get(fn_label)
     if snap is None:
         return False
     publish_cost_gauges(registry if registry is not None else get_registry(), fn_label, snap)
     return True
+
+
+def republish_book(registry: MetricsRegistry) -> None:
+    """Re-set every recorded fn's cost gauges into ``registry``: the ops
+    plane's ``/metrics`` render, so a registry swapped in after a capture
+    still shows the book."""
+    for label in get_costbook().labels():
+        republish(label, registry)
 
 
 def publish_roofline(registry: MetricsRegistry, fn_label: str,

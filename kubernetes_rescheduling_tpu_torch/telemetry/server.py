@@ -73,6 +73,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 from urllib.parse import parse_qs, urlsplit
 
+from kubernetes_rescheduling_tpu_torch.telemetry import costmodel
 from kubernetes_rescheduling_tpu_torch.telemetry.flight_recorder import (
     FlightRecorder,
     state_digest,
@@ -321,7 +322,9 @@ def _make_handler(ops: OpsServer):
             self._count(endpoint)
             if endpoint == "/metrics":
                 with ops._read_lock:
-                    body = ops._reg().expose().encode()
+                    reg = ops._reg()
+                    costmodel.republish_book(reg)
+                    body = reg.expose().encode()
                 self._respond(
                     200, body, "text/plain; version=0.0.4; charset=utf-8"
                 )

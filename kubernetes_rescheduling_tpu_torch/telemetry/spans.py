@@ -14,6 +14,22 @@ device activity lands in ``profile_dir`` as a Chrome trace.
 
 Span durations also feed the metrics registry (histogram
 ``span_seconds{span=...}``).
+
+**Hot spans.** ``span(name, hot=True, ...)`` marks a site on a path that
+runs every round (the streaming replay, the capture cache). Such a span
+records only while tracing is on: while a ``torch.profiler`` session
+records in the process (a ``--trace 1`` benchmark window, the ops
+plane's ``POST /profile``, ``span(profile_dir=...)``), or after
+:meth:`Tracer.enable`. Off, it costs one check and returns a shared
+no-op context. On, it also opens a ``torch.profiler.record_function`` of
+the same name while a profiler records, so it lands in the same kineto
+trace as the device activity, on one clock: the Tracer re-anchors its
+wall clock each time tracing turns on.
+
+Every span carries its ``index`` (a sequence number of its tracer), its
+``parent`` (the enclosing span's index) and its ``call`` (the index of
+the outermost span open on its thread, shared by every span of one entry
+call).
 """
 
 from __future__ import annotations
@@ -28,6 +44,8 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Iterator
+
+import torch
 
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import (
     MetricsRegistry,
@@ -84,6 +102,30 @@ class SpanEvent:
     tid: int
     depth: int
     args: dict[str, Any] = field(default_factory=dict)
+    index: int = -1
+    parent: int | None = None
+    call: int | None = None
+
+
+def _profiler_recording() -> bool:
+    """Whether a ``torch.profiler`` session records in this process."""
+    return torch._C._autograd._profiler_enabled()
+
+
+class _Off:
+    """The context a hot span returns while tracing is off: shared,
+    stateless, its ``as`` target None."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
 
 
 class Tracer:
@@ -103,42 +145,81 @@ class Tracer:
         self._lock = threading.Lock()
         self._local = threading.local()
         self._registry = registry
+        self._seq = itertools.count()
+        self._enabled = False
+        self._on = False  # tracing at the last hot check
+        self._anchor()
+
+    def _anchor(self) -> None:
         # perf_counter gives monotonic durations; the wall anchor places
-        # them on the epoch axis so traces from separate processes align
-        self._wall_anchor = time.time()
-        self._perf_anchor = time.perf_counter()
+        # them on the epoch axis (the profiler's), so traces from separate
+        # processes, and the kineto trace of this one, align
+        self._wall_anchor_ns = time.time_ns()
+        self._perf_anchor_ns = time.perf_counter_ns()
 
     def _now_us(self) -> float:
-        return (
-            self._wall_anchor + (time.perf_counter() - self._perf_anchor)
-        ) * 1e6
+        return (self._wall_anchor_ns + time.perf_counter_ns() - self._perf_anchor_ns) / 1e3
 
-    def _depth_stack(self) -> list[str]:
+    def enable(self) -> None:
+        """Turn tracing on without a profiler: hot spans and the solve's
+        phase times record until :meth:`disable`."""
+        self._enabled = True
+
+    def disable(self) -> None:
+        self._enabled = False
+
+    def tracing(self) -> bool:
+        """Whether hot spans record now; re-anchors the wall clock on the
+        turn from off to on."""
+        on = self._enabled or _profiler_recording()
+        if on and not self._on:
+            self._anchor()
+        self._on = on
+        return on
+
+    def _depth_stack(self) -> list[int]:
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []
         return stack
 
+    def span(self, name: str, profile_dir: str | None = None, *, hot: bool = False,
+             **args: Any):
+        """A context that records the region as a span; its ``as`` target
+        is the span's ``args`` dict, which the region may add to. A hot
+        span records only while :meth:`tracing` (else the target is
+        None)."""
+        if hot and not self.tracing():
+            return _OFF
+        return self._span(name, profile_dir, hot, args)
+
     @contextlib.contextmanager
-    def span(
-        self,
-        name: str,
-        profile_dir: str | None = None,
-        **args: Any,
-    ) -> Iterator[None]:
+    def _span(self, name: str, profile_dir: str | None, hot: bool,
+              args: dict[str, Any]) -> Iterator[dict[str, Any]]:
         stack = self._depth_stack()
         depth = len(stack)
-        stack.append(name)
+        index = next(self._seq)
+        parent = stack[-1] if stack else None
+        call = stack[0] if stack else index
+        stack.append(index)
+        annotation = None
+        if hot and _profiler_recording():
+            annotation = torch.profiler.record_function(name)
+            annotation.__enter__()
+        # stamped after the annotation opens: its start is the kineto
+        # event's, less the annotation's own entry
         t0_us = self._now_us()
         t0 = time.perf_counter()
         try:
             if profile_dir is not None:
                 with trace_to(profile_dir):
-                    yield
+                    yield args
             else:
-                yield
+                yield args
         finally:
             dur_s = time.perf_counter() - t0
+            if annotation is not None:
+                annotation.__exit__(None, None, None)
             stack.pop()
             ev = SpanEvent(
                 name=name,
@@ -147,6 +228,9 @@ class Tracer:
                 tid=threading.get_ident(),
                 depth=depth,
                 args=args,
+                index=index,
+                parent=parent,
+                call=call,
             )
             with self._lock:
                 if len(self._events) == self._max_events:
@@ -192,7 +276,8 @@ class Tracer:
                 "dur": ev.dur_us,
                 "pid": pid,
                 "tid": ev.tid,
-                "args": {**ev.args, "depth": ev.depth},
+                "args": {**ev.args, "depth": ev.depth, "parent": ev.parent,
+                         "call": ev.call},
             }
             for ev in self.events
         ]
@@ -219,8 +304,7 @@ def set_tracer(tracer: Tracer) -> Tracer:
     return prev
 
 
-@contextlib.contextmanager
-def span(name: str, profile_dir: str | None = None, **args: Any):
-    """``with span("solve/compile"):`` on the process-default tracer."""
-    with _default_tracer.span(name, profile_dir=profile_dir, **args):
-        yield
+def span(name: str, profile_dir: str | None = None, *, hot: bool = False, **args: Any):
+    """``with span("solve/compile"):`` on the process-default tracer;
+    ``hot=True`` for a site that runs every round (:meth:`Tracer.span`)."""
+    return _default_tracer.span(name, profile_dir, hot=hot, **args)
