@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version: the
 chunk step of the dense solver (``fused_admission``), the sparse neighbor
-mass (``sparse_mass``), and the build that compiles them at first use
+mass (``sparse_mass``), the chunk's swap phase (``swap``, whose plain twin
+is ``solver/swap.py``), and the build that compiles them at first use
 (``_build``). :func:`launch_counts` reads every wrapper's count of kernel
 launches."""
 
@@ -16,10 +17,12 @@ from kubernetes_rescheduling_tpu_torch.ops.sparse_mass import (
     sparse_mass_score,
     sparse_neighbor_mass,
 )
+from kubernetes_rescheduling_tpu_torch.ops.swap import swap_decide, swap_desire
 
 KERNEL_WRAPPERS = (
     fused_neighbor_mass, score_stage, admission_stage,
     sparse_neighbor_mass, hub_neighbor_mass, sparse_mass_score,
+    swap_desire, swap_decide,
 )
 
 
@@ -45,4 +48,6 @@ __all__ = [
     "score_stage",
     "sparse_mass_score",
     "sparse_neighbor_mass",
+    "swap_decide",
+    "swap_desire",
 ]

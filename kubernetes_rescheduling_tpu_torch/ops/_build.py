@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("mass", "score", "admission", "sparse_mass", "mass_score")
+SOURCES = ("mass", "score", "admission", "sparse_mass", "mass_score", "swap")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -39,6 +39,10 @@ _ARGTYPES = {
     "krt_mass_score_launch": (
         [_I, _P, _I, _L] + [_P] * 5 + [_I] * 7 + [_P] * 11 + [_F] * 2 + [_P] * 2 + [_I] * 4
         + [_P] * 6
+    ),
+    "krt_swap_desire_launch": [_I] + [_P] * 8 + [_I] * 4 + [_P] * 2,
+    "krt_swap_decide_launch": (
+        [_I, _P, _I, _P, _P, _I, _L] + [_P] * 12 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P] * 6
     ),
     "krt_error_string": [_I],
 }

@@ -19,6 +19,10 @@ from __future__ import annotations
 import math
 
 SCORE_OPS_PER_PAIR = {True: 97, False: 31}
+# f32 operations of one exchange gain in kernel 8: the kept-mass side (5),
+# the two departure-corrected balance terms (9 each), their combination
+# (4), the pair and fit masks (11) and the argmax compares (2)
+SWAP_OPS_PER_PAIR = 40
 
 
 def count(fn, ops: float, nbytes: float) -> None:
@@ -66,3 +70,29 @@ def mass_score(C: int, cols: int, N: int, w_itemsize: int, slab: int,
     s_ops, s_bytes = score(C, N, use_noise)
     return (2.0 * C * cols + s_ops,
             float(C * cols * w_itemsize + slab * 8 + C * 4) + s_bytes - C * N * 4)
+
+
+def swap_desire(C: int, N: int, k: int) -> tuple[float, float]:
+    """Kernel 7: M [C, N] read once for the row maxima (compares); a row's
+    service id, assignment, validity and moved bytes, its node's validity,
+    move bill and anchor read (23 bytes a row) and its key written. With
+    k >= C it reads and writes nothing."""
+    if k >= C:
+        return 0.0, 0.0
+    return float(C * N), float(C * N * 4 + C * 23 + C * 4)
+
+
+def swap_decide(C: int, N: int, k: int, w_itemsize: int) -> tuple[float, float]:
+    """Kernel 8: the rank counts over the C keys (where k < C), the k x k
+    exchange gains (``SWAP_OPS_PER_PAIR`` each) from the k x k entries of M
+    and of the pair weights they need; a chunk row's key, service id,
+    assignment, validity, moved byte, node validity and demands (27 bytes)
+    and a subset row's weight row, node loads and budgets, own mass, move
+    bill and anchor (36 bytes) read; new_node, swapped and the assignment
+    written at full width (9 bytes a row), n_swaps once; the loads read and
+    written once (16 bytes a node). The coupling, the capacity race and
+    the commit's sums touch only the candidates and the nodes their swaps
+    touch, which the shapes do not fix: they are not counted."""
+    rank = float(C * C) if k < C else 0.0
+    return (rank + SWAP_OPS_PER_PAIR * k * k,
+            float(k * k * (4 + w_itemsize) + C * 27 + k * 36 + C * 9 + 8 + N * 16))

@@ -69,10 +69,12 @@ from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
     fused_score_admission,
     reference_score_admission,
 )
+from kubernetes_rescheduling_tpu_torch.ops.swap import chunk_swap_kernels, takes_kernels
 from kubernetes_rescheduling_tpu_torch.solver.compiled import CACHE, to_device
 from kubernetes_rescheduling_tpu_torch.solver.swap import (
     BIG_CAP,
     chunk_swap,
+    commit_swaps,
     scan_sweeps,
     swap_flags,
 )
@@ -607,6 +609,7 @@ def dense_solve(
     use_noise = config.noise_temp > 0
 
     use_swaps = config.swap_every > 0 and C >= 2
+    swap_on_card = takes_kernels(use_fused, dev, C)
     sw_flags = swap_flags(config.sweeps, config.swap_every)
     mem_cap_sw = torch.where(torch.isinf(mem_cap), BIG_CAP, mem_cap)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -622,27 +625,27 @@ def dense_solve(
     def _swap_phase(ids, M, Wc, assign, cpu_load, mem_load, admitted):
         """The chunk's swap phase on the post-singles state. ``M`` is the
         chunk-start neighbor mass; services the single phase just moved
-        sit out."""
+        sit out. On the card kernels 7 and 8 decide (``Wc`` is None: they
+        read the pair weights from ``W_mm`` at the subset's ids)."""
+        k = min(config.swap_k, C)
+        if swap_on_card:  # the kernels gather the chunk's rows and commit
+            _, _, n_sw, cpu_load, mem_load = chunk_swap_kernels(
+                M, W_mm, ids, assign, ids, svc_valid, admitted, node_valid, svc_cpu, svc_mem,
+                cpu_load, mem_load, cap, mem_cap_sw, config.balance_weight, ow,
+                pen_vec if mc_on else None, assign0 if mc_on else None, k,
+                enforce_capacity=config.enforce_capacity)
+            return cpu_load, mem_load, n_sw
         cur = assign[ids]
         valid_c = svc_valid[ids]
         eligible = valid_c & ~admitted & node_valid[cur.long()]
         c_cpu = svc_cpu[ids]
         c_mem = svc_mem[ids]
         new_node, swapped, n_sw = chunk_swap(
-            M, Wc, cur, eligible, c_cpu, c_mem,
-            cpu_load, mem_load, cap, mem_cap_sw,
-            config.balance_weight, ow,
-            pen_vec[ids] if mc_on else None,
-            assign0[ids] if mc_on else None,
-            min(config.swap_k, C),
-            enforce_capacity=config.enforce_capacity,
-        )
-        d_c = torch.where(swapped, c_cpu, 0.0)
-        d_m = torch.where(swapped, c_mem, 0.0)
-        cpu_load = cpu_load.index_put((new_node.long(),), d_c, accumulate=True)
-        cpu_load = cpu_load.index_put((cur.long(),), -d_c, accumulate=True)
-        mem_load = mem_load.index_put((new_node.long(),), d_m, accumulate=True)
-        mem_load = mem_load.index_put((cur.long(),), -d_m, accumulate=True)
+            M, Wc, cur, eligible, c_cpu, c_mem, cpu_load, mem_load, cap, mem_cap_sw,
+            config.balance_weight, ow, pen_vec[ids] if mc_on else None,
+            assign0[ids] if mc_on else None, k, enforce_capacity=config.enforce_capacity)
+        cpu_load, mem_load = commit_swaps(cpu_load, mem_load, cur, new_node, swapped,
+                                          c_cpu, c_mem)
         assign[ids] = new_node
         return cpu_load, mem_load, n_sw
 
@@ -720,7 +723,7 @@ def dense_solve(
                     )
                 moves = moves + admitted.sum()
                 if use_swaps and do_swap:
-                    Wc = Wr[:, ids].to(f32)
+                    Wc = None if swap_on_card else Wr[:, ids].to(f32)
                     cpu_load, mem_load, n_sw = _swap_phase(
                         ids, M, Wc, assign, cpu_load, mem_load, admitted
                     )
@@ -777,7 +780,8 @@ def dense_solve(
                 if use_swaps and do_swap:
                     # chunk-local pair weights: the composition is
                     # block-granular, so this is KB×KB 256×256 tiles of W
-                    Wc = W_mm[ids[:, None], ids[None, :]].to(f32)
+                    # (kernel 8 reads them from W_mm at the subset alone)
+                    Wc = None if swap_on_card else W_mm[ids[:, None], ids[None, :]].to(f32)
                     cpu_load, mem_load, n_sw = _swap_phase(
                         ids, M, Wc, assign, cpu_load, mem_load, admitted
                     )

@@ -70,6 +70,7 @@ from kubernetes_rescheduling_tpu_torch.ops.sparse_mass import (
     sparse_mass_score,
     sparse_neighbor_mass,
 )
+from kubernetes_rescheduling_tpu_torch.ops.swap import chunk_swap_kernels, takes_kernels
 from kubernetes_rescheduling_tpu_torch._random import gumbel as _gumbel
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     _DTYPES,
@@ -94,6 +95,7 @@ from kubernetes_rescheduling_tpu_torch.solver.compiled import CACHE, to_device
 from kubernetes_rescheduling_tpu_torch.solver.swap import (
     BIG_CAP,
     chunk_swap,
+    commit_swaps,
     scan_sweeps,
     swap_flags,
 )
@@ -547,24 +549,29 @@ def sparse_solve(
     mem_cap_sw = torch.where(torch.isinf(mem_cap), BIG_CAP, mem_cap)
     chunk_pos = torch.arange(C_eff, dtype=torch.int32, device=dev)
 
+    swap_on_card = takes_kernels(use_kernels, dev, C_eff)
+
     def _swap_phase(ids, M, Wc, assign, cpu_load, mem_load, admitted):
-        """The dense solver's swap phase over the sorted-space arrays."""
+        """The dense solver's swap phase over the sorted-space arrays:
+        kernels 7 and 8 on the card, ``chunk_swap`` elsewhere."""
+        k = min(config.swap_k, C_eff)
+        if swap_on_card:  # the kernels gather the chunk's rows and commit
+            _, _, n_sw, cpu_load, mem_load = chunk_swap_kernels(
+                M, Wc, None, assign, ids, svc_valid, admitted, node_valid, svc_cpu_s,
+                svc_mem_s, cpu_load, mem_load, cap, mem_cap_sw, lam, ow,
+                pen_vec if mc_on else None, assign0 if mc_on else None, k,
+                enforce_capacity=config.enforce_capacity)
+            return cpu_load, mem_load, n_sw
         cur = assign[ids]
         eligible = svc_valid[ids] & ~admitted & node_valid[cur.long()]
         c_cpu = svc_cpu_s[ids]
         c_mem = svc_mem_s[ids]
         new_node, swapped, n_sw = chunk_swap(
-            M, Wc, cur, eligible, c_cpu, c_mem, cpu_load, mem_load, cap, mem_cap_sw,
-            lam, ow, pen_vec[ids] if mc_on else None, assign0[ids] if mc_on else None,
-            min(config.swap_k, C_eff), enforce_capacity=config.enforce_capacity,
-        )
-        d_c = torch.where(swapped, c_cpu, 0.0)
-        d_m = torch.where(swapped, c_mem, 0.0)
-        new_l, cur_l = new_node.long(), cur.long()
-        cpu_load = cpu_load.index_put((new_l,), d_c, accumulate=True)
-        cpu_load = cpu_load.index_put((cur_l,), -d_c, accumulate=True)
-        mem_load = mem_load.index_put((new_l,), d_m, accumulate=True)
-        mem_load = mem_load.index_put((cur_l,), -d_m, accumulate=True)
+            M, Wc, cur, eligible, c_cpu, c_mem, cpu_load, mem_load, cap, mem_cap_sw, lam, ow,
+            pen_vec[ids] if mc_on else None, assign0[ids] if mc_on else None, k,
+            enforce_capacity=config.enforce_capacity)
+        cpu_load, mem_load = commit_swaps(cpu_load, mem_load, cur, new_node, swapped,
+                                          c_cpu, c_mem)
         assign[ids] = new_node
         return cpu_load, mem_load, n_sw
 

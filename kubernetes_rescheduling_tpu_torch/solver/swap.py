@@ -126,6 +126,20 @@ def chunk_swap(
     return new_node, swapped, n_sw
 
 
+def commit_swaps(cpu_load, mem_load, cur, new_node, swapped, c_cpu, c_mem):
+    """A chunk's swaps applied to the per-node loads (out of place): each
+    swapped service's demand added at its new node, then taken off its old
+    one, by scatter-add (kernel 8 adds in this order too)."""
+    d_c = torch.where(swapped, c_cpu, 0.0)
+    d_m = torch.where(swapped, c_mem, 0.0)
+    new_l, cur_l = new_node.long(), cur.long()
+    cpu_load = cpu_load.index_put((new_l,), d_c, accumulate=True)
+    cpu_load = cpu_load.index_put((cur_l,), -d_c, accumulate=True)
+    mem_load = mem_load.index_put((new_l,), d_m, accumulate=True)
+    mem_load = mem_load.index_put((cur_l,), -d_m, accumulate=True)
+    return cpu_load, mem_load
+
+
 def cols_at(M, cur):
     """``M_cur[i, j] = M[i, cur_j]``: the column gather the JAX package
     writes as a one-hot contraction (``cur`` is always a valid node)."""

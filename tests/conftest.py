@@ -59,6 +59,9 @@ def pytest_configure(config):
         "`-m 'not slow'` run; every invariant they cover keeps at least "
         "one fast representative",
     )
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skips without one (run where the card is)",
+    )
 
 
 @pytest.fixture(autouse=True, scope="module")
