@@ -8,13 +8,13 @@ placement tracks the moving objective. Ships a Bookinfo-style topology
 (productpage → details/reviews, reviews → ratings, three review versions)
 and a canary trace that shifts traffic v1 → v2 → v3.
 
-:func:`replay_on_device` and :func:`replay_on_device_sparse` run every step
-on the card with no host read between steps: each step — the weight update,
-then the solve on the previous step's state — is one replay of the graph
-captured for the step, its inputs (the step's multipliers, plans and
-seeds) copied into the graph's buffers first. With ``restarts`` R > 1 a
-step is a best-of-R: R replays of that graph with R plans, the best picked
-on the device.
+:func:`replay_on_device`, :func:`replay_on_device_sparse` and
+:func:`replay_on_device_pods` run every step on the card with no host read
+between steps: each step — the weight update, then the solve on the
+previous step's state — is one replay of the graph captured for the step,
+its inputs (the step's multipliers, plans and seeds) copied into the
+graph's buffers first. With ``restarts`` R > 1 a step is a best-of-R: R
+replays of that graph with R plans, the best picked on the device.
 
 :func:`replay` runs each step as ``parallel.solve_with_restarts``, so
 ``restarts > 1`` is a best-of-N solve there too. :func:`observed_step`
@@ -23,14 +23,20 @@ turns the load generator's observed traffic into a step.
 While tracing is on (``telemetry/spans.py``), a device replay call is the
 hot span ``replay/call``, its plan draw ``replay/plans`` and its uploads
 ``replay/stage``; its bodies mark the phase ``update`` (the weight
-scatter) before the solve's own phases (``telemetry/phases.py``).
+scatter) before the solve's own phases (``telemetry/phases.py``), a pod
+replay's the phase ``fanout`` (call-pair weights to pod pairs) before it.
+The pod replay's graph build, once a pod set, is the span ``pods/graph``,
+its seconds the counter ``pod_graph_build_seconds_total`` and its pod
+pairs the gauge ``pod_graph_pairs``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import time
 import warnings
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -57,6 +63,11 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     draw_plans,
     state_from_inputs,
     state_inputs,
+)
+from kubernetes_rescheduling_tpu_torch.solver.pod_mode import (
+    call_pairs,
+    pod_level_graph,
+    pod_pair_calls,
 )
 from kubernetes_rescheduling_tpu_torch.solver.sparse_solver import (
     SPARSE_OPERANDS,
@@ -399,7 +410,10 @@ def replay_on_device_sparse(
         return _replay_sparse(state, sgraph, loc, mults, generator, config, plans, restarts)
 
 
-def _replay_sparse(state, sgraph, loc, mults, generator, config, plans, restarts):
+def _replay_sparse(state, sgraph, loc, mults, generator, config, plans, restarts,
+                   fanout=None):
+    """The sparse replay's steps; ``fanout`` (i64[E], a pod replay's) takes
+    each edge's weight from ``mult[fanout]``, ``mult`` one a call pair."""
     dev = state.device
     lay = sparse_layout(sgraph, config)
     with span("replay/plans", hot=True):
@@ -415,13 +429,111 @@ def _replay_sparse(state, sgraph, loc, mults, generator, config, plans, restarts
         tables = sparse_tables(sgraph, lay, dev)
 
         def step(t):
+            mult = t["mult"]
+            if fanout is not None:
+                phase_mark("fanout")
+                mult = mult[fanout]
             phase_mark("update")
-            sg_t = with_edge_weights(sgraph, loc, loc.base_w * t["mult"])
+            sg_t = with_edge_weights(sgraph, loc, loc.base_w * mult)
             return sparse_solve(state_from_inputs(t), sg_t, config, lay, tables, t)
         return step
 
     operands = [getattr(sgraph, k) for k in SPARSE_OPERANDS] + [
-        loc.coo, loc.w_rows, loc.w_cols, loc.base_w]
+        loc.coo, loc.w_rows, loc.w_cols, loc.base_w] + ([] if fanout is None else [fanout])
     return _replay_steps("replay_on_device_sparse",
                          (config, lay, sparse_static(sgraph), loc.canonical), state,
                          step_inputs, make_body, operands)
+
+
+@dataclass(frozen=True)
+class PodView:
+    """A pod set's side of the per-pod replay: the pod-level graph in
+    trace order with its locator, each locator edge's call pair
+    (``index``, i64[pod pairs], into :func:`pod_mode.call_pairs` of the
+    service graph), and the pods as their own services
+    (``pod_service`` = ``arange(P)``, as ``global_assign_pods`` views
+    them)."""
+
+    sgraph: SparseCommGraph
+    loc: TraceLocator
+    index: torch.Tensor
+    pod_service: torch.Tensor
+    num_calls: int
+
+
+# pod views kept: each holds its keys (so an id cannot be reused while it
+# is here) and a pod-level graph on the device
+_POD_VIEWS: OrderedDict[tuple, tuple] = OrderedDict()
+_MAX_POD_VIEWS = 2
+
+
+def pod_view(state: ClusterState, graph: CommGraph | SparseCommGraph) -> PodView:
+    """The :class:`PodView` of ``state``'s pods under ``graph``, built once
+    for each pod set (the same ``graph``, ``pod_service`` and
+    ``pod_valid`` objects; a placement is not part of it)."""
+    keyed = (graph, state.pod_service, state.pod_valid)
+    key = tuple(id(x) for x in keyed)
+    hit = _POD_VIEWS.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], keyed)):
+        _POD_VIEWS.move_to_end(key)
+        return hit[1]
+    t0 = time.perf_counter()
+    with span("pods/graph", pods=state.num_pods) as args:
+        ii, jj = call_pairs(graph)
+        sg, loc = reorder_for_trace(pod_level_graph(state, graph))
+        # canonical locator: edge e is the COO list's slot e
+        index = pod_pair_calls(state, sg, ii, jj, graph.num_services)[:loc.num_edges]
+        view = PodView(sg, loc, torch.as_tensor(index, device=state.device),
+                       torch.arange(state.num_pods, dtype=torch.int32, device=state.device),
+                       len(ii))
+        args.update(call_pairs=len(ii), pod_pairs=loc.num_edges, hub_blocks=len(sg.hub_blocks))
+    reg = get_registry()
+    reg.counter("pod_graph_build_seconds_total",
+                "seconds spent building pod replays' pod-level graphs, trace order and "
+                "call-pair index (once a pod set)").inc(time.perf_counter() - t0)
+    reg.gauge("pod_graph_pairs", "undirected pod pairs of the last pod-level graph "
+              "built for a pod replay").set(loc.num_edges)
+    _POD_VIEWS[key] = (keyed, view)
+    while len(_POD_VIEWS) > _MAX_POD_VIEWS:
+        _POD_VIEWS.popitem(last=False)
+    return view
+
+
+def replay_on_device_pods(
+    state: ClusterState,
+    graph: CommGraph | SparseCommGraph,
+    mults,
+    generator: torch.Generator | None = None,
+    config: GlobalSolverConfig = GlobalSolverConfig(),
+    *,
+    plans: list | None = None,
+    restarts: int = 1,
+):
+    """Per-pod streaming replay: every pod is placed on its own, and a step
+    re-weights call pairs, as a controller sees them. ``state`` holds the
+    pods (a service's pods share its ``pod_service``), ``graph`` is the
+    service-level graph and ``mults`` [steps, call pairs] one multiplier a
+    call pair a step, the call pairs ``(i, j)``, ``i < j`` in service ids,
+    row-major (:func:`pod_mode.call_pairs`). A step multiplies every pod
+    pair of a call pair by its multiplier (one gather inside the captured
+    body), then runs :func:`replay_on_device_sparse`'s step on the
+    pod-level graph (:func:`pod_view`, built once a pod set), whose
+    capture and phases it shares. ``plans`` (drawn at the pod-level
+    layout), ``generator`` and ``restarts`` as there. Returns
+    ``(final_state, objs[steps], costs_before[steps])``, the pods'
+    placements on ``state`` and the pod-level objectives."""
+    view = pod_view(state, graph)
+    if view.sgraph.num_blocks <= 1:
+        raise ValueError(
+            "a pod set of one block delegates to the dense solver — "
+            "use replay_on_device with a dense pod-level graph instead"
+        )
+    if np.shape(mults)[1:] != (view.num_calls,):
+        raise ValueError(f"mults must be [steps, {view.num_calls}] (one a call pair), "
+                         f"got {np.shape(mults)}")
+    pods = state.replace(pod_service=view.pod_service)
+    with span("replay/call", hot=True, fn="replay_on_device_pods", steps=len(mults),
+              restarts=restarts):
+        final, objs, befores = _replay_sparse(pods, view.sgraph, view.loc, mults, generator,
+                                              config, plans, restarts, fanout=view.index)
+    return state.replace(pod_node=final.pod_node), objs, befores

@@ -7,6 +7,11 @@ weight w, the pair-weight semantics the service-level objective already
 encodes, and capacity packs per pod. The expansion is vectorized host
 numpy over a dense ``CommGraph`` or a ``SparseCommGraph``'s COO list (at
 50k services no dense adjacency exists).
+
+A controller sees call rates per service pair, not per pod pair: the
+per-pod streaming replay (``bench/trace.py``) takes one weight a call pair
+in :func:`call_pairs` order and fans it out to the pod pairs through
+:func:`pod_pair_calls`, each pod pair's call pair.
 """
 
 from __future__ import annotations
@@ -77,6 +82,39 @@ def pod_level_graph(
         names=tuple(state.pod_names) if state.pod_names else (),
         device=state.device,
     )
+
+
+def call_pairs(graph: CommGraph | SparseCommGraph) -> tuple[np.ndarray, np.ndarray]:
+    """The graph's undirected call pairs ``(i, j)``, ``i < j`` in service
+    ids, sorted row-major: i64 ``(ii, jj)``, the order of the per-call-pair
+    weights a pod replay takes."""
+    S = graph.num_services
+    if isinstance(graph, SparseCommGraph):
+        perm = graph.perm.cpu().numpy().astype(np.int64)
+        a = perm[graph.edges_src.cpu().numpy()]
+        b = perm[graph.edges_dst.cpu().numpy()]
+        keys = np.unique(a[a < b] * S + b[a < b])
+        return keys // S, keys % S
+    ii, jj = np.nonzero(np.triu(graph.adj.cpu().numpy()[:S, :S], k=1))
+    return ii.astype(np.int64), jj.astype(np.int64)
+
+
+def pod_pair_calls(state: ClusterState, pod_graph: SparseCommGraph, ii, jj,
+                   num_services: int) -> np.ndarray:
+    """i64[E2]: for each entry of a pod-level graph's COO list (in its
+    order; :func:`pod_level_graph` built on ``state``'s pods), the index
+    of its call pair among ``(ii, jj)`` (:func:`call_pairs`)."""
+    S = int(num_services)
+    svc = state.pod_service.cpu().numpy().astype(np.int64)
+    perm = pod_graph.perm.cpu().numpy().astype(np.int64)
+    a = svc[perm[pod_graph.edges_src.cpu().numpy()]]
+    b = svc[perm[pod_graph.edges_dst.cpu().numpy()]]
+    keys = np.minimum(a, b) * S + np.maximum(a, b)
+    call_keys = np.asarray(ii, dtype=np.int64) * S + np.asarray(jj, dtype=np.int64)
+    idx = np.searchsorted(call_keys, keys)
+    if not np.array_equal(call_keys[np.minimum(idx, len(call_keys) - 1)], keys):
+        raise ValueError("a pod pair whose services are not a call pair of the graph")
+    return idx
 
 
 def global_assign_pods(

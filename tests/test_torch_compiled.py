@@ -35,6 +35,7 @@ from kubernetes_rescheduling_tpu_torch.ops import fused_admission as tfa
 from kubernetes_rescheduling_tpu_torch.ops import sparse_mass as tsm
 from kubernetes_rescheduling_tpu_torch.solver import compiled
 from kubernetes_rescheduling_tpu_torch.solver import global_solver as tgs
+from kubernetes_rescheduling_tpu_torch.solver import pod_mode as tpm
 from kubernetes_rescheduling_tpu_torch.solver import sparse_solver as tss
 
 SEED, TEMP = 9, 0.7
@@ -217,6 +218,17 @@ def test_replay_bodies_read_nothing_back(guarded_bodies):
     ttrace.replay_on_device_sparse(t_state, sg2, loc, mults, torch.Generator().manual_seed(0),
                                    tgs.GlobalSolverConfig(sweeps=2, chunk_size=512))
     assert guarded_bodies == ["replay_on_device"] * 2 + ["replay_on_device_sparse"] * 2
+
+
+def test_pod_replay_body_reads_nothing_back(guarded_bodies):
+    scn = synthetic_scenario(n_pods=1536, n_nodes=32, seed=4, replicas=3, powerlaw=True,
+                             mean_degree=2.0, device="cpu")
+    n_calls = len(tpm.call_pairs(scn.graph)[0])
+    mults = np.random.default_rng(3).lognormal(0.0, 0.5, (2, n_calls)).astype(np.float32)
+    ttrace.replay_on_device_pods(scn.state, scn.graph, mults, torch.Generator().manual_seed(0),
+                                 tgs.GlobalSolverConfig(sweeps=2, fused_epilogue="on"))
+    # the pod replay shares the sparse replay's capture label and phases
+    assert guarded_bodies == ["replay_on_device_sparse"] * 2
 
 
 def test_eager_context_and_cpu_solves_bypass_the_cache():
