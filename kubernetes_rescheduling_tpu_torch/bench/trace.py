@@ -71,6 +71,7 @@ from kubernetes_rescheduling_tpu_torch.solver.pod_mode import (
 )
 from kubernetes_rescheduling_tpu_torch.solver.sparse_solver import (
     SPARSE_OPERANDS,
+    count_chunk_steps,
     draw_sparse_plans,
     sparse_layout,
     sparse_plan_inputs,
@@ -440,9 +441,12 @@ def _replay_sparse(state, sgraph, loc, mults, generator, config, plans, restarts
 
     operands = [getattr(sgraph, k) for k in SPARSE_OPERANDS] + [
         loc.coo, loc.w_rows, loc.w_cols, loc.base_w] + ([] if fanout is None else [fanout])
-    return _replay_steps("replay_on_device_sparse",
-                         (config, lay, sparse_static(sgraph), loc.canonical), state,
-                         step_inputs, make_body, operands)
+    out = _replay_steps("replay_on_device_sparse",
+                        (config, lay, sparse_static(sgraph), loc.canonical), state,
+                        step_inputs, make_body, operands)
+    count_chunk_steps("replay_on_device_sparse", lay, config, dev,
+                      sum(len(step) for step in step_inputs))
+    return out
 
 
 @dataclass(frozen=True)

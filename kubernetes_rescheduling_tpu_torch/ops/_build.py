@@ -33,12 +33,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _ARGTYPES = {
     "krt_mass_launch": [_I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P, _P],
     "krt_score_launch": [_I] + [_P] * 12 + [_F] * 2 + [_P] * 2 + [_I] * 10 + [_P] * 6,
-    "krt_admission_launch": [_I] + [_P] * 9 + [_I] * 3 + [_P] * 5 + [_I] * 3 + [_P, _L, _P],
+    "krt_admission_launch": (
+        [_I] + [_P] * 9 + [_I] * 3 + [_P] * 5 + [_I] * 3 + [_P, _L] + [_P] * 5 + [_P]
+    ),
     "krt_sparse_mass_launch": [_I, _P, _I, _L] + [_P] * 4 + [_I] * 7 + [_P, _P],
     "krt_hub_mass_launch": [_I, _P, _I, _L] + [_P] * 6 + [_I] * 6 + [_P, _P],
     "krt_mass_score_launch": (
         [_I, _P, _I, _L] + [_P] * 5 + [_I] * 7 + [_P] * 11 + [_F] * 2 + [_P] * 2 + [_I] * 4
-        + [_P] * 6
+        + [_P] * 5 + [_P, _I, _P]
     ),
     "krt_swap_desire_launch": [_I] + [_P] * 8 + [_I] * 4 + [_P] * 2,
     "krt_swap_decide_launch": (

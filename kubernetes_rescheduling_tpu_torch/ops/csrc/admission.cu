@@ -31,16 +31,24 @@
 //  4. sort the admitted rows by (cur, index) (a u32 key up to 1024 rows)
 //     and scan once more: each node's moved-out total, subtracted from its
 //     moved-in total.
+// With a block table (`blocks`, the sparse solver's plain sweep) the same
+// body also commits: it reads row i's cur, valid, c_cpu and c_mem from the
+// solver's service arrays at the row's id blocks[i / 256] * 256 + i % 256
+// (cur from the assignment), and at the end writes the assignment at those
+// ids, adds each node's delta to the carried loads in place (the one f32
+// add load[n] + d[n] the caller would make) and its admitted count to a
+// move counter (i64, exact). Its decisions and deltas are the same.
 // Each scan is a shuffle scan inside every warp, the warp totals combined
 // by one warp, and the carry added back: a fixed tree over positions. All
-// adds are full f32 adds (no TF32, no bf16) and there are no atomics, so
-// two runs give the same decisions and deltas for any loads. The sums are
+// adds are full f32 adds (no TF32, no bf16) and there are no float atomics
+// (the commit's count is an integer), so two runs give the same decisions
+// and deltas for any loads. The sums are
 // exact for integer-valued loads, and then equal the plain version's
 // bit for bit; non-integer loads may differ from it in the last bit.
 
 #include <cooperative_groups.h>
 
-#include "krt_common.cuh"
+#include "sparse_tile.cuh"
 
 namespace {
 
@@ -304,10 +312,13 @@ admission_kernel(const int* __restrict__ prop, const float* __restrict__ gain,
                  const float* __restrict__ c_mem, int C, int N, int P, int enforce_capacity,
                  int* __restrict__ new_node, uint8_t* __restrict__ admitted,
                  float* __restrict__ d_cpu, float* __restrict__ d_mem, XT* __restrict__ x_rows,
-                 unsigned char* work) {
+                 unsigned char* work, const int* __restrict__ blocks, int* assign,
+                 float* __restrict__ cpu_load, float* __restrict__ mem_load,
+                 long long* __restrict__ moves) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ ScanScratch scan;
   __shared__ Carry carries[2];
+  __shared__ int n_admitted;
   unsigned char* base = work != nullptr ? work : dyn;
   u64* key = reinterpret_cast<u64*>(base);
   u64* aux = key + P;
@@ -324,6 +335,9 @@ admission_kernel(const int* __restrict__ prop, const float* __restrict__ gain,
   const bool packed = P == T && N < static_cast<int>(kPackedLast);
   const int helpers = static_cast<int>(gridDim.x) - 1;  // blocks that zero x_rows
   const long long x_bytes = static_cast<long long>(C) * N * sizeof(XT);
+  // row i's index into the row operands: i, or with a block table its id
+  const bool commit = blocks != nullptr;
+  auto src = [&](int i) { return commit ? blocks[i / kBlockR] * kBlockR + i % kBlockR : i; };
 
   // 0. a helper block zeroes its share of x_rows (16-byte pieces, the
   // last helper the tail) and waits at the cluster barrier
@@ -350,18 +364,22 @@ admission_kernel(const int* __restrict__ prop, const float* __restrict__ gain,
     u64 k = kLast;
     if (i < C) {
       const int p = prop[i];
-      s_cpu[i] = c_cpu[i];
-      s_mem[i] = c_mem[i];
+      const int r = src(i);
+      s_cpu[i] = c_cpu[r];
+      s_mem[i] = c_mem[r];
       s_slack_cpu[i] = slack_cpu[i];
       s_slack_mem[i] = slack_mem[i];
       s_prop[i] = p;
-      s_cur[i] = cur[i];
+      s_cur[i] = commit ? assign[r] : cur[i];
       if (wants[i] != 0) k = (static_cast<u64>(static_cast<u32>(p)) << 32) | descending(gain[i]);
     }
     key[i] = k;
     idx[i] = static_cast<u32>(i);
   }
-  if (tid == 0) carries[0] = carries[1] = Carry{0.0f, 0.0f, kNoCarry};
+  if (tid == 0) {
+    carries[0] = carries[1] = Carry{0.0f, 0.0f, kNoCarry};
+    n_admitted = 0;
+  }
   __syncthreads();
   if (packed) {
     sort_packed(key, aux, idx, false);
@@ -399,15 +417,21 @@ admission_kernel(const int* __restrict__ prop, const float* __restrict__ gain,
   if (helpers > 0) cg::this_cluster().sync();  // x_rows is zero
 
   // 3. the rows' outputs; sort keys of the admitted rows by (cur, index)
+  int mine = 0;
   for (int i = tid; i < P; i += T) {
     u64 k = kLast;
     if (i < C) {
       const bool a = s_adm[i] != 0;
       const int from = s_cur[i];
       const int to = a ? s_prop[i] : from;
-      new_node[i] = to;
-      admitted[i] = a ? 1 : 0;
-      if (x_rows != nullptr && valid[i] != 0 && to >= 0 && to < N) {
+      if (commit) {
+        assign[src(i)] = to;
+      } else {
+        new_node[i] = to;
+        admitted[i] = a ? 1 : 0;
+      }
+      mine += a;
+      if (x_rows != nullptr && valid[src(i)] != 0 && to >= 0 && to < N) {
         x_rows[static_cast<long long>(i) * N + to] = XT(1.0f);
       }
       if (a && from >= 0 && from < N) k = static_cast<u64>(static_cast<u32>(from)) << 32;
@@ -415,6 +439,7 @@ admission_kernel(const int* __restrict__ prop, const float* __restrict__ gain,
     key[i] = k;
     idx[i] = static_cast<u32>(i);
   }
+  if (commit && mine > 0) atomicAdd(&n_admitted, mine);
   if (tid == 0) carries[0] = Carry{0.0f, 0.0f, kNoCarry};
   __syncthreads();
   if (packed) {
@@ -440,6 +465,15 @@ admission_kernel(const int* __restrict__ prop, const float* __restrict__ gain,
       d_mem[seg] = __fsub_rn(d_mem[seg], y);
     }
   }
+  if (!commit) return;
+
+  // 5. the commit: every node's delta onto its carried load, the count
+  __syncthreads();
+  for (int n = tid; n < N; n += T) {
+    cpu_load[n] = __fadd_rn(cpu_load[n], d_cpu[n]);
+    mem_load[n] = __fadd_rn(mem_load[n], d_mem[n]);
+  }
+  if (tid == 0) *moves += n_admitted;
 }
 
 template <typename XT>
@@ -447,10 +481,15 @@ int launch(const int* prop, const float* gain, const int* wants, const float* sl
            const float* slack_mem, const int* cur, const uint8_t* valid, const float* c_cpu,
            const float* c_mem, int C, int N, int enforce_capacity, int* new_node,
            uint8_t* admitted, float* d_cpu, float* d_mem, void* x_rows, int threads, int P,
-           void* work, long long work_bytes, cudaStream_t stream) {
-  // the wrapper's geometry (`admission_geometry`)
+           void* work, long long work_bytes, const int* blocks, int* assign, float* cpu_load,
+           float* mem_load, long long* moves, cudaStream_t stream) {
+  // the wrapper's geometry (`admission_geometry`); a commit has every
+  // operand of its own and neither x_rows nor per-row outputs
+  const bool commit_ok = x_rows == nullptr && C % kBlockR == 0 && assign != nullptr &&
+                         cpu_load != nullptr && mem_load != nullptr && moves != nullptr;
   if (threads < 32 || threads > 1024 || (threads & 31) || P < threads || (P & (P - 1)) ||
-      P < C || work_bytes < 20LL * P + 25LL * C) {
+      P < C || work_bytes < 20LL * P + 25LL * C || (blocks != nullptr && !commit_ok) ||
+      (blocks == nullptr && (cur == nullptr || new_node == nullptr || admitted == nullptr))) {
     return cudaErrorInvalidValue;
   }
   const size_t smem = work != nullptr ? 0 : static_cast<size_t>(work_bytes);
@@ -458,14 +497,14 @@ int launch(const int* prop, const float* gain, const int* wants, const float* sl
   cudaError_t err = krt_allow_smem(admission_kernel<XT>, smem, &granted);
   if (err != cudaSuccess) return err;
   // the grid is one cluster: the racing block, and with x_rows its helpers
-  const unsigned blocks = x_rows != nullptr ? kXRowsBlocks : 1;
+  const unsigned grid = x_rows != nullptr ? kXRowsBlocks : 1;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = blocks;
+  cluster.val.clusterDim.x = grid;
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
+  cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -474,7 +513,8 @@ int launch(const int* prop, const float* gain, const int* wants, const float* sl
   err = cudaLaunchKernelEx(&cfg, admission_kernel<XT>, prop, gain, wants, slack_cpu, slack_mem,
                            cur, valid, c_cpu, c_mem, C, N, P, enforce_capacity, new_node,
                            admitted, d_cpu, d_mem, static_cast<XT*>(x_rows),
-                           static_cast<unsigned char*>(work));
+                           static_cast<unsigned char*>(work), blocks, assign, cpu_load, mem_load,
+                           moves);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -487,7 +527,12 @@ int launch(const int* prop, const float* gain, const int* wants, const float* sl
 // it (the packed sort keeps 22 bits of it). Outputs: new_node i32[C], admitted u8[C], d_cpu / d_mem f32[N], and
 // x_rows [C, N] (x_kind 0: none, 1: bf16, 2: f32; 16-byte aligned).
 // threads, P, work_bytes: the wrapper's geometry; work: a device scratch
-// of work_bytes, or null to keep the rows in shared memory.
+// of work_bytes, or null to keep the rows in shared memory. A commit
+// (`blocks`, i32[C / 256]) reads cur, valid, c_cpu and c_mem as the
+// service arrays at the rows' ids (cur = assign, i32; cur, new_node and
+// admitted are then null, x_kind 0), writes assign at those ids, adds the
+// deltas (still written to d_cpu / d_mem) to cpu_load and mem_load (f32[N])
+// and the admitted count to moves (one i64).
 KRT_EXPORT int krt_admission_launch(int device, const int* prop, const float* gain,
                                     const int* wants, const float* slack_cpu,
                                     const float* slack_mem, const int* cur,
@@ -495,16 +540,19 @@ KRT_EXPORT int krt_admission_launch(int device, const int* prop, const float* ga
                                     const float* c_mem, int C, int N, int enforce_capacity,
                                     int* new_node, uint8_t* admitted, float* d_cpu,
                                     float* d_mem, void* x_rows, int x_kind, int threads, int P,
-                                    void* work, long long work_bytes, void* stream) {
+                                    void* work, long long work_bytes, const int* blocks,
+                                    int* assign, float* cpu_load, float* mem_load,
+                                    long long* moves, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
   if (x_kind == 2) {
     return launch<float>(prop, gain, wants, slack_cpu, slack_mem, cur, valid, c_cpu, c_mem, C,
                          N, enforce_capacity, new_node, admitted, d_cpu, d_mem, x_rows, threads,
-                         P, work, work_bytes, s);
+                         P, work, work_bytes, blocks, assign, cpu_load, mem_load, moves, s);
   }
   return launch<__nv_bfloat16>(prop, gain, wants, slack_cpu, slack_mem, cur, valid, c_cpu,
                                c_mem, C, N, enforce_capacity, new_node, admitted, d_cpu, d_mem,
-                               x_kind == 1 ? x_rows : nullptr, threads, P, work, work_bytes, s);
+                               x_kind == 1 ? x_rows : nullptr, threads, P, work, work_bytes,
+                               blocks, assign, cpu_load, mem_load, moves, s);
 }

@@ -36,10 +36,10 @@ score_kernel(const float* __restrict__ M, const int* __restrict__ cur,
   const int g0 = blockIdx.x * R;
   const int nr = min(R, C - g0);
   const float temp = NOISE ? *temp_p : 0.0f;
-  krt_score_stage(sh, g0, nr, cur, home, pen, c_cpu, c_mem, static_cast<uint32_t>(*seed_p),
+  krt_score_stage(sh, g0, g0, nr, cur, home, pen, c_cpu, c_mem, static_cast<uint32_t>(*seed_p),
                   block_c);
   __syncthreads();
-  krt_score_tile<R, NOISE>(sh, M + static_cast<long long>(g0) * N, N, vec_ok != 0, g0, nr,
+  krt_score_tile<R, NOISE>(sh, M + static_cast<long long>(g0) * N, N, vec_ok != 0, g0, g0, nr,
                            valid, cpu_load, mem_load, cap, mem_cap, node_valid, lam, ow, temp,
                            N, enforce_capacity, use_move_pen, prop_out, gain_out, wants_out,
                            slack_cpu_out, slack_mem_out);

@@ -82,11 +82,14 @@ struct KrtScoreShared {
   int best_n[kScoreMaxThreads / 32][R];
 };
 
-// Step 1: stages rows g0 .. g0 + nr - 1 (nr <= R) into `sh`; row g draws
-// its noise with the seed law of both kernels: tile seed seed + g /
-// block_c, mixer row g % block_c. Needs a __syncthreads() before step 2.
+// Step 1: stages rows g0 .. g0 + nr - 1 (nr <= R) into `sh`, reading row
+// g0 + r's scalars at index src0 + r (src0 = g0 for a chunk's own [C]
+// vectors; the fused kernel read in place passes the rows' service ids);
+// a null `home` is the row's `cur`, a null `pen` zero. Row g draws its
+// noise with the seed law of both kernels: tile seed seed + g / block_c,
+// mixer row g % block_c. Needs a __syncthreads() before step 2.
 template <int R>
-__device__ __forceinline__ void krt_score_stage(KrtScoreShared<R>& sh, int g0, int nr,
+__device__ __forceinline__ void krt_score_stage(KrtScoreShared<R>& sh, int g0, int src0, int nr,
                                                 const int* __restrict__ cur,
                                                 const int* __restrict__ home,
                                                 const float* __restrict__ pen,
@@ -97,11 +100,13 @@ __device__ __forceinline__ void krt_score_stage(KrtScoreShared<R>& sh, int g0, i
   if (tid < R) {
     const bool live = tid < nr;
     const int g = g0 + tid;
-    sh.cur[tid] = live ? cur[g] : -1;
-    sh.home[tid] = live ? home[g] : -1;
-    sh.pen[tid] = live ? pen[g] : 0.0f;
-    sh.c_cpu[tid] = live ? c_cpu[g] : 0.0f;
-    sh.c_mem[tid] = live ? c_mem[g] : 0.0f;
+    const int src = src0 + tid;
+    const int c = live ? cur[src] : -1;
+    sh.cur[tid] = c;
+    sh.home[tid] = !live ? -1 : home != nullptr ? home[src] : c;
+    sh.pen[tid] = live && pen != nullptr ? pen[src] : 0.0f;
+    sh.c_cpu[tid] = live ? c_cpu[src] : 0.0f;
+    sh.c_mem[tid] = live ? c_mem[src] : 0.0f;
     const uint32_t tile_seed = seed + static_cast<uint32_t>(g / block_c);
     const uint32_t tile_row = static_cast<uint32_t>(g % block_c);
     sh.mix[tid] = (tile_seed * 0x9E3779B9u) ^ (tile_row * 0x85EBCA6Bu);
@@ -145,10 +150,11 @@ __device__ __forceinline__ void krt_score_pair(
 
 // Step 2: scores the staged rows with the whole block. Row r's N masses
 // start at m + r * ldm (device or shared memory); `vec_ok` says that m and
-// ldm allow 16-byte loads.
+// ldm allow 16-byte loads. Row g0 + r's flag is valid[src0 + r], as in step
+// 1; its outputs go to index g0 + r.
 template <int R, bool NOISE>
 __device__ __forceinline__ void krt_score_tile(
-    KrtScoreShared<R>& sh, const float* m, int ldm, bool vec_ok, int g0, int nr,
+    KrtScoreShared<R>& sh, const float* m, int ldm, bool vec_ok, int g0, int src0, int nr,
     const uint8_t* __restrict__ valid, const float* __restrict__ cpu_load,
     const float* __restrict__ mem_load, const float* __restrict__ cap,
     const float* __restrict__ mem_cap, const uint8_t* __restrict__ node_valid, float lam,
@@ -273,7 +279,7 @@ __device__ __forceinline__ void krt_score_tile(
     const float gain = __fsub_rn(b, sh.cur_score[r]);
     prop_out[g] = prop;
     gain_out[g] = gain;
-    wants_out[g] = (valid[g] != 0 && gain > 0.0f && prop != sh.cur[r]) ? 1 : 0;
+    wants_out[g] = (valid[src0 + r] != 0 && gain > 0.0f && prop != sh.cur[r]) ? 1 : 0;
     slack_cpu_out[g] = __fsub_rn(__fsub_rn(cap[prop], cpu_load[prop]), sh.c_cpu[r]);
     slack_mem_out[g] = __fsub_rn(__fsub_rn(mem_cap[prop], mem_load[prop]), sh.c_mem[r]);
   }

@@ -212,6 +212,38 @@ struct KrtSlabRow {
   }
 };
 
+// The same strip row read in place: the slab is the strip's own columns of
+// the graph's neighbor arrays (`u_ids` and `rvu` start at the strip's first
+// column), so element u adds to column assign[u_ids[u]] (the id clamped to
+// [0, spx), as the gathered slab's tgt = assign[clamp(u_ids)]) with the
+// factor rvu[u]: the terms of KrtSlabRow over the gathered slab, bit for
+// bit. The dependent read of the target is paid only for a nonzero factor.
+template <typename T>
+struct KrtInPlaceSlabRow {
+  const T* w;
+  int vecs;
+  const int* u_ids;
+  const float* rvu;
+  const int* assign;
+  int spx;
+  int nn;
+
+  __device__ __forceinline__ int4 load(int v) const {
+    return v < vecs ? __ldg(reinterpret_cast<const int4*>(w) + v) : make_int4(0, 0, 0, 0);
+  }
+
+  __device__ __forceinline__ int key(int v, int e) const {
+    return v * (16 / static_cast<int>(sizeof(T))) + e;
+  }
+
+  __device__ __forceinline__ void resolve(int u, float x, int& col, float& prod) const {
+    const int id = __ldg(u_ids + u);
+    const float rv = __ldg(rvu + u);
+    const int t = krt_as_w<T>(rv) != 0.0f ? __ldg(assign + min(max(id, 0), spx - 1)) : -1;
+    krt_slab_term<T>(t, rv, x, nn, col, prod);
+  }
+};
+
 // Vectors per lane in each register buffer of a strip row: 4 vectors per
 // lane in flight (2 KB per warp), the whole 1024-column bf16 strip of the
 // 50k graph's chunk in its first two groups.

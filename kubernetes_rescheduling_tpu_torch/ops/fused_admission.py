@@ -21,7 +21,11 @@ Three kernel wrappers, each with its plain PyTorch version here:
   :func:`score_stage_plain`, :func:`score_core` tile by tile);
 - :func:`admission_stage` → ``csrc/admission.cu`` (plain:
   :func:`admission_plain`, :func:`pairwise_admission` plus the
-  tile-ordered commit arithmetic).
+  tile-ordered commit arithmetic); :func:`admission_commit` is the same
+  kernel reading a sparse chunk's rows through its block table and
+  committing the assignment, the loads and the move count in place (plain:
+  :func:`admission_commit_plain`, the gathers, :func:`admission_plain`
+  and the commit).
 
 :func:`fused_score_admission` is the score stage followed by the
 admission stage, as in the JAX package.
@@ -52,6 +56,7 @@ _SHARED_BYTES = 227 * 1024  # shared memory one Hopper block can use
 _ADMISSION_STATIC = 1024    # the admission kernel's own scan scratch, at most
 _SCORE_THREADS = 256        # threads of a score tile, at most (csrc/score_core.cuh)
 _SCORE_WARPS = 4096         # warps a score launch aims for: ~31 on each of 132 SMs
+_BLOCK_ROWS = 256           # rows of a sparse-graph block (core.sparsegraph.BLOCK_R)
 
 
 # ---------------------------------------------------------------- plain math
@@ -597,26 +602,11 @@ def admission_stage(
         dev = prop.device
         if emit_x_rows and x_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"x_rows dtype must be bf16 or f32, got {x_dtype}")
-        threads, P, work_bytes, in_shared = admission_geometry(C)
-        lib = _build.library("admission")
         new_node = torch.empty((C,), dtype=torch.int32, device=dev)
         admitted = torch.empty((C,), dtype=torch.bool, device=dev)
-        d_cpu = torch.empty((N,), dtype=torch.float32, device=dev)
-        d_mem = torch.empty_like(d_cpu)
         x_rows = torch.empty((C, N), dtype=x_dtype, device=dev) if emit_x_rows else None
-        work = None if in_shared else torch.empty((work_bytes,), dtype=torch.uint8, device=dev)
-        ops = admission_operands(*vecs)
-        x_kind = 0 if x_rows is None else (1 if x_dtype == torch.bfloat16 else 2)
-        code = lib.krt_admission_launch(
-            dev.index or 0, *(_ptr(t) for t in ops), C, N, int(enforce_capacity),
-            _ptr(new_node), _ptr(admitted), _ptr(d_cpu), _ptr(d_mem),
-            None if x_rows is None else _ptr(x_rows), x_kind, threads, P,
-            None if work is None else _ptr(work), work_bytes, _stream(dev),
-        )
-        _build.check(lib, code, "admission_stage")
-        admission_stage.launches += 1
-        op_work.count(admission_stage, *op_work.admission(
-            C, N, 0 if x_rows is None else x_rows.element_size()))
+        d_cpu, d_mem = _admission_launch(
+            admission_operands(*vecs), C, N, enforce_capacity, new_node, admitted, x_rows)
     else:
         new_node, admitted, x_rows, d_cpu, d_mem = admission_plain(
             prop, gain, wants, slack_cpu, slack_mem, cur, valid_c, c_cpu, c_mem,
@@ -628,5 +618,103 @@ def admission_stage(
     return new_node, admitted, d_cpu, d_mem
 
 
+def _admission_launch(ops, C: int, N: int, enforce_capacity: bool, new_node, admitted, x_rows,
+                      commit=()):
+    """One launch of ``csrc/admission.cu`` on the nine operands ``ops`` (a
+    commit's ``cur`` None): the per-row outputs or a ``commit`` of
+    ``(blocks, assign, cpu_load, mem_load, moves)``. Returns the per-node
+    deltas ``(d_cpu, d_mem)``."""
+    dev = ops[0].device
+    threads, P, work_bytes, in_shared = admission_geometry(C)
+    d_cpu = torch.empty((N,), dtype=torch.float32, device=dev)
+    d_mem = torch.empty_like(d_cpu)
+    work = None if in_shared else torch.empty((work_bytes,), dtype=torch.uint8, device=dev)
+    x_kind = 0 if x_rows is None else (1 if x_rows.dtype == torch.bfloat16 else 2)
+    opt = lambda t: None if t is None else _ptr(t)  # noqa: E731
+    lib = _build.library("admission")
+    code = lib.krt_admission_launch(
+        dev.index or 0, *(opt(t) for t in ops), C, N, int(enforce_capacity),
+        opt(new_node), opt(admitted), _ptr(d_cpu), _ptr(d_mem), opt(x_rows), x_kind, threads,
+        P, opt(work), work_bytes, *(_ptr(t) for t in commit),
+        *([None] * (5 - len(commit))), _stream(dev),
+    )
+    _build.check(lib, code, "admission_stage")
+    admission_stage.launches += 1
+    op_work.count(admission_stage, *op_work.admission(
+        C, N, 0 if x_rows is None else x_rows.element_size()))
+    return d_cpu, d_mem
+
+
 admission_stage.launches = 0
 admission_stage.work_ops = admission_stage.work_bytes = 0.0
+
+
+def block_row_ids(blocks: torch.Tensor) -> torch.Tensor:
+    """The service ids of a chunk's rows: block ``blocks[i]``'s 256 rows in
+    order, block after block. i64[KB·256]."""
+    rows = torch.arange(_BLOCK_ROWS, device=blocks.device)
+    return (blocks.long()[:, None] * _BLOCK_ROWS + rows).reshape(-1)
+
+
+def admission_commit_plain(
+    prop, gain, wants, slack_cpu, slack_mem, blocks, assign, svc_valid, svc_cpu, svc_mem,
+    cpu_load, mem_load, moves, *, num_nodes, enforce_capacity,
+):
+    """Plain version of :func:`admission_commit`: the chunk's rows gathered
+    through ``blocks``, :func:`admission_plain` at 256-row tiles, then the
+    commit the kernel makes: ``assign[ids] = new_node``, the deltas added
+    onto the loads and the admitted count onto ``moves``, each in place."""
+    ids = block_row_ids(blocks)
+    new_node, admitted, _, d_cpu, d_mem = admission_plain(
+        prop, gain, wants, slack_cpu, slack_mem, assign[ids], svc_valid[ids], svc_cpu[ids],
+        svc_mem[ids], num_nodes=num_nodes, enforce_capacity=enforce_capacity,
+        block_c=_BLOCK_ROWS, x_dtype=torch.bfloat16, emit_x_rows=False,
+    )
+    assign[ids] = new_node
+    cpu_load.add_(d_cpu)
+    mem_load.add_(d_mem)
+    moves.add_(admitted.sum())
+
+
+def admission_commit(
+    prop, gain, wants, slack_cpu, slack_mem,  # [C] score-stage outputs, C = KB·256
+    blocks,     # i32[KB] the chunk's 256-row blocks (block_row_ids: the rows' services)
+    assign,     # i32[S] written in place at the chunk's rows
+    svc_valid,  # bool[S]
+    svc_cpu,    # f32[S]
+    svc_mem,    # f32[S]
+    cpu_load,   # f32[N] carried loads, updated in place
+    mem_load,   # f32[N]
+    moves,      # i64[] move counter, updated in place
+    *,
+    num_nodes: int,
+    enforce_capacity: bool,
+):
+    """The admission race of one sparse chunk, committed: one launch of
+    ``csrc/admission.cu`` that reads the chunk's rows of the service arrays
+    through ``blocks`` and writes ``assign[ids] = new_node``, ``cpu_load +=
+    d_cpu``, ``mem_load += d_mem`` and ``moves += admitted.sum()`` — what
+    :func:`admission_stage` followed by those torch ops gives, bit for bit,
+    with no gather or scatter around it. CPU tensors take the plain version
+    (:func:`admission_commit_plain`)."""
+    C = prop.shape[0]
+    N = int(num_nodes)
+    KB = blocks.shape[0]
+    _check_lengths((prop, gain, wants, slack_cpu, slack_mem), KB * _BLOCK_ROWS, "score outputs")
+    _check_lengths((svc_valid, svc_cpu, svc_mem), assign.numel(), "service arrays")
+    _check_lengths((cpu_load, mem_load), N, "node loads")
+    vecs = (prop, gain, wants, slack_cpu, slack_mem, blocks, assign, svc_valid, svc_cpu,
+            svc_mem, cpu_load, mem_load, moves)
+    if not _on_cuda(*vecs):
+        return admission_commit_plain(*vecs, num_nodes=N, enforce_capacity=enforce_capacity)
+    for name, t, dtype in (("assign", assign, torch.int32), ("cpu_load", cpu_load, torch.float32),
+                           ("mem_load", mem_load, torch.float32), ("moves", moves, torch.int64)):
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} is written in place: it must be a contiguous {dtype}, "
+                             f"got {t.dtype}")
+    if moves.numel() != 1:
+        raise ValueError(f"moves must be one counter, got {tuple(moves.shape)}")
+    ops = (_i32(prop), _f32(gain), _i32(wants), _f32(slack_cpu), _f32(slack_mem), None,
+           _flag(svc_valid), _f32(svc_cpu), _f32(svc_mem))
+    _admission_launch(ops, C, N, enforce_capacity, None, None, None,
+                      (_i32(blocks), assign, cpu_load, mem_load, moves))

@@ -22,7 +22,12 @@ Three kernel wrappers, each with its plain PyTorch version here:
 - :func:`sparse_mass_score` → ``csrc/mass_score.cu`` (plain:
   :func:`sparse_mass_score_plain`): the chunk mass times the row replica
   factor, then the score stage, in one launch; its outputs feed
-  ``admission_stage``.
+  ``admission_stage``. :func:`sparse_mass_score_in_place` is the same
+  kernel reading the chunk's slabs and rows in place, through its block
+  table, from the graph's and the solver's whole arrays (plain:
+  :func:`sparse_mass_score_in_place_plain`, the gathers and then
+  :func:`sparse_mass_score_plain`); its outputs feed
+  ``admission_commit``.
 
 As in ``fused_admission``: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise, and each wrapper counts its launches
@@ -47,6 +52,7 @@ from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
     _on_cuda,
     _ptr,
     _stream,
+    block_row_ids,
     score_geometry,
     score_stage_plain,
 )
@@ -403,28 +409,44 @@ def sparse_mass_score(
             overload_weight, num_nodes=N, bu=bu, reg_tiles=reg_tiles,
             enforce_capacity=enforce_capacity, use_noise=use_noise, use_move_pen=use_move_pen,
         )
+    mass_ops = (_i32(tgt_c), _f32(rvu_c), _i32(blocks), _i32(toff), _f32(rv_row))
+    score_ops = (_i32(cur), _i32(home), _f32(move_pen), _f32(c_cpu), _f32(c_mem),
+                 _flag(valid_c))
+    return _mass_score_launch(w_mm, mass_ops, score_ops, nodes, lam, temp, seed,
+                              overload_weight, KB, N, bu, reg_tiles, enforce_capacity,
+                              use_noise, use_move_pen)
+
+
+def _mass_score_launch(w_mm, mass_ops, score_ops, nodes, lam, temp, seed, overload_weight,
+                       KB, N, bu, reg_tiles, enforce_capacity, use_noise, use_move_pen,
+                       in_place=False):
+    """One launch of ``csrc/mass_score.cu``: gathered, or ``in_place``
+    through the block table (``mass_ops`` and ``score_ops`` then hold the
+    whole arrays, ``score_ops[0]`` the assignment; ``home`` and ``pen`` may
+    be None). Returns the five [KB·256] score outputs."""
     _check_weights(w_mm, bu)
     dev = w_mm.device
+    C = KB * BLOCK_R
     threads, rows, ldm, smem = mass_score_geometry(KB, N, w_mm.element_size())
     prop = torch.empty((C,), dtype=torch.int32, device=dev)
     wants = torch.empty_like(prop)
     gain = torch.empty((C,), dtype=torch.float32, device=dev)
     slack_cpu = torch.empty_like(gain)
     slack_mem = torch.empty_like(gain)
-    mass_ops = (_i32(tgt_c), _f32(rvu_c), _i32(blocks), _i32(toff), _f32(rv_row))
-    score_ops = (_i32(cur), _i32(home), _f32(move_pen), _f32(c_cpu), _f32(c_mem),
-                 _flag(valid_c), _f32(cpu_load), _f32(mem_load), _f32(cap), _f32(mem_cap),
-                 _flag(node_valid))
+    node_ops = tuple(_f32(t) for t in nodes[:4]) + (_flag(nodes[4]),)
     temp_t = _device_scalar(temp, torch.float32, dev)
     seed_t = _device_scalar(seed, torch.int32, dev)
+    assign = score_ops[0] if in_place else None
     lib = _build.library("mass_score")
     code = lib.krt_mass_score_launch(
         dev.index or 0, _ptr(w_mm), int(w_mm.dtype == torch.bfloat16), w_mm.shape[1],
         *(_ptr(t) for t in mass_ops), KB, bu, reg_tiles, threads, rows, ldm, smem,
-        *(_ptr(t) for t in score_ops),
+        *(None if t is None else _ptr(t) for t in score_ops + node_ops),
         float(lam), float(overload_weight), _ptr(temp_t), _ptr(seed_t), N,
         int(enforce_capacity), int(use_noise), int(use_move_pen),
-        _ptr(prop), _ptr(gain), _ptr(wants), _ptr(slack_cpu), _ptr(slack_mem), _stream(dev),
+        _ptr(prop), _ptr(gain), _ptr(wants), _ptr(slack_cpu), _ptr(slack_mem),
+        None if assign is None else _ptr(assign), 0 if assign is None else assign.numel(),
+        _stream(dev),
     )
     _build.check(lib, code, "sparse_mass_score")
     sparse_mass_score.launches += 1
@@ -435,3 +457,82 @@ def sparse_mass_score(
 
 sparse_mass_score.launches = 0
 sparse_mass_score.work_ops = sparse_mass_score.work_bytes = 0.0
+
+
+def sparse_mass_score_in_place_plain(
+    w_mm, u_ids, rvu, assign, blocks, toff, rv_s, home, move_pen, svc_cpu, svc_mem, svc_valid,
+    cpu_load, mem_load, cap, mem_cap, node_valid, lam, temp, seed, overload_weight, *,
+    num_nodes, bu, reg_tiles, enforce_capacity, use_noise,
+):
+    """Plain version of :func:`sparse_mass_score_in_place`: the chunk's
+    slabs (:func:`chunk_local_slabs`, targets ``assign[clamp(u_ids)]``) and
+    rows (``block_row_ids``) gathered, then :func:`sparse_mass_score_plain`."""
+    ids = block_row_ids(blocks)
+    u_c, rvu_c = chunk_local_slabs(u_ids, rvu, toff[blocks.long()].long() * bu, reg_tiles * bu)
+    tgt_c = assign[torch.clamp(u_c.long(), 0, assign.shape[0] - 1)]
+    cur = assign[ids]
+    use_move_pen = move_pen is not None
+    return sparse_mass_score_plain(
+        w_mm, tgt_c, rvu_c, blocks, toff, rv_s[ids], cur, home[ids] if use_move_pen else cur,
+        move_pen[ids] if use_move_pen else torch.zeros_like(rv_s[ids]), svc_cpu[ids],
+        svc_mem[ids], svc_valid[ids], cpu_load, mem_load, cap, mem_cap, node_valid, lam, temp,
+        seed, overload_weight, num_nodes=num_nodes, bu=bu, reg_tiles=reg_tiles,
+        enforce_capacity=enforce_capacity, use_noise=use_noise, use_move_pen=use_move_pen,
+    )
+
+
+def sparse_mass_score_in_place(
+    w_mm,      # [256, TU] block-local weights in matmul dtype
+    u_ids,     # i32[TU] the graph's neighbor id per W column (>= sp on padding)
+    rvu,       # f32[TU] the neighbor replica factor per W column (0 on padding)
+    assign,    # i32[SPX] current node per sorted-space service
+    blocks,    # i32[KB] the chunk's block ids
+    toff,      # i32[NBX] per-block first W column tile
+    rv_s,      # f32[SPX] replica factor per service
+    home,      # i32[SPX] move-cost anchor, with move_pen; None: pricing off
+    move_pen,  # f32[SPX] | None
+    svc_cpu,   # f32[SPX]
+    svc_mem,   # f32[SPX]
+    svc_valid,  # bool[SPX]
+    cpu_load, mem_load, cap, mem_cap, node_valid,  # [N] tables
+    lam, temp, seed,  # scalars; temp and seed also as one-element tensors
+    overload_weight=0.0,
+    *,
+    num_nodes: int,
+    bu: int,
+    reg_tiles: int,
+    enforce_capacity: bool,
+    use_noise: bool,
+):
+    """:func:`sparse_mass_score` for the chunk of ``blocks`` read in place:
+    the kernel takes each slot's slab from the strip's own columns of
+    ``u_ids`` / ``rvu`` (targets from ``assign``) and its rows from the
+    service arrays at ``blocks[i]·256 + row``, so the caller gathers
+    nothing. Returns the same ``(prop, gain, wants, slack_cpu, slack_mem)``,
+    each [KB·256], bit for bit. CPU tensors take the plain version
+    (:func:`sparse_mass_score_in_place_plain`)."""
+    KB = blocks.shape[0]
+    N = int(num_nodes)
+    if (home is None) != (move_pen is None):
+        raise ValueError("home and move_pen come together (move-cost pricing) or not at all")
+    rows = tuple(t for t in (rv_s, home, move_pen, svc_cpu, svc_mem, svc_valid)
+                 if t is not None)
+    nodes = (cpu_load, mem_load, cap, mem_cap, node_valid)
+    _check_lengths((u_ids, rvu), w_mm.shape[1], "neighbor columns")
+    _check_lengths((assign, *rows), assign.numel(), "service arrays")
+    _check_lengths(nodes, N, "node vectors")
+    if not _on_cuda(w_mm, u_ids, rvu, assign, blocks, toff, *rows, *nodes):
+        return sparse_mass_score_in_place_plain(
+            w_mm, u_ids, rvu, assign, blocks, toff, rv_s, home, move_pen, svc_cpu, svc_mem,
+            svc_valid, *nodes, lam, temp, seed, overload_weight, num_nodes=N, bu=bu,
+            reg_tiles=reg_tiles, enforce_capacity=enforce_capacity, use_noise=use_noise,
+        )
+    if assign.dtype != torch.int32 or not assign.is_contiguous():
+        raise ValueError(f"assign must be a contiguous i32 vector, got {assign.dtype}")
+    mass_ops = (_i32(u_ids), _f32(rvu), _i32(blocks), _i32(toff), _f32(rv_s))
+    score_ops = (assign, None if home is None else _i32(home),
+                 None if move_pen is None else _f32(move_pen), _f32(svc_cpu), _f32(svc_mem),
+                 _flag(svc_valid))
+    return _mass_score_launch(w_mm, mass_ops, score_ops, nodes, lam, temp, seed,
+                              overload_weight, KB, N, bu, reg_tiles, enforce_capacity,
+                              use_noise, move_pen is not None, in_place=True)

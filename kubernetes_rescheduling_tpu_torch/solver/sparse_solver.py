@@ -27,10 +27,16 @@ kernels on CUDA tensors at any size; ``"on"`` runs the kernel lowering on
 any device (through the wrappers' plain versions for CPU tensors);
 ``"off"`` is the plain twin (gathered matmuls and
 ``reference_score_admission`` with gumbel noise). The kernel lowering's
-chunk step is ``sparse_mass_score`` → ``admission_stage`` on sweeps
-without the swap phase, and ``sparse_neighbor_mass`` → score → admission,
-plus ``sparse_neighbor_mass`` again for the chunk-local pair weights, on
-swap sweeps; the hub pass is ``hub_neighbor_mass`` → score → admission.
+chunk step on sweeps without the swap phase is two launches that gather
+nothing: ``sparse_mass_score_in_place`` reads the chunk's slabs and rows
+through its block table, and ``admission_commit`` writes the assignment,
+the carried loads and the move count in place. On swap sweeps it is the
+gathered ``sparse_neighbor_mass`` → score → admission, plus
+``sparse_neighbor_mass`` again for the chunk-local pair weights and
+kernels 7 and 8; the hub pass is ``hub_neighbor_mass`` → score →
+admission. While tracing is on, ``sparse_chunk_steps_total{fn,path}``
+counts a solve's chunk steps: ``in_place`` the two-launch ones,
+``gathered`` the rest (:func:`count_chunk_steps`).
 
 Randomness goes through a per-sweep :class:`SparseSweepPlan` (block
 permutation, kernel seeds, plain-path gumbel noise), drawn from a
@@ -57,7 +63,7 @@ from kubernetes_rescheduling_tpu_torch.core.sparsegraph import (
 from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph, _count
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import load_std
 from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
-    admission_stage,
+    admission_commit,
     fused_score_admission,
     reference_score_admission,
 )
@@ -67,7 +73,7 @@ from kubernetes_rescheduling_tpu_torch.ops.sparse_mass import (
     hub_neighbor_mass,
     hub_tile_arrays,
     reference_sparse_mass,
-    sparse_mass_score,
+    sparse_mass_score_in_place,
     sparse_neighbor_mass,
 )
 from kubernetes_rescheduling_tpu_torch.ops.swap import chunk_swap_kernels, takes_kernels
@@ -100,6 +106,8 @@ from kubernetes_rescheduling_tpu_torch.solver.swap import (
     swap_flags,
 )
 from kubernetes_rescheduling_tpu_torch.telemetry.phases import END, phase_mark
+from kubernetes_rescheduling_tpu_torch.telemetry.registry import get_registry
+from kubernetes_rescheduling_tpu_torch.telemetry.spans import get_tracer
 
 # The noise seed law: the fused mass+score kernel seeds 256-row block i of
 # a chunk with seed + i, the standalone score kernel tile t with seed + t.
@@ -309,6 +317,29 @@ SPARSE_OPERANDS = ("w_local", "u_ids", "edges_src", "edges_dst", "edges_w", "per
                    "service_valid")
 
 
+def count_chunk_steps(fn: str, lay: SparseLayout, config: GlobalSolverConfig, device,
+                      solves: int = 1) -> None:
+    """Add ``solves`` sparse solves' chunk steps, from the static layout, to
+    ``sparse_chunk_steps_total{fn,path}``: ``path="in_place"`` the plain
+    sweeps' two-launch steps under the kernel lowering, ``"gathered"`` the
+    rest (swap sweeps, the plain lowering). Only while tracing is on, as
+    the solve's phase times (``telemetry/phases.py``)."""
+    if not get_tracer().tracing():
+        return
+    n_swap = int(swap_flags(config.sweeps, config.swap_every).sum())
+    plain = config.sweeps - n_swap
+    in_place = plain if kernel_lowering(config, device) else 0
+    steps = get_registry().counter(
+        "sparse_chunk_steps_total",
+        "chunk steps of traced sparse solves, by path: in_place (kernel 6 then kernel 3, "
+        "nothing gathered) or gathered",
+        labelnames=("fn", "path"),
+    )
+    for path, sweeps in (("in_place", in_place), ("gathered", config.sweeps - in_place)):
+        if sweeps:
+            steps.labels(fn=fn, path=path).inc(lay.n_chunks * sweeps * solves)
+
+
 def sparse_static(sgraph: SparseCommGraph) -> tuple:
     """The graph's host metadata: with the operands' identities it keys a
     captured sparse solve."""
@@ -402,6 +433,7 @@ def _global_assign_sparse(state, sgraph, generator, config, plan):
 
     out = CACHE.run("global_assign_sparse", (config, lay, sparse_static(sgraph)), inputs,
                     make_body, operands=[getattr(sgraph, k) for k in SPARSE_OPERANDS])
+    count_chunk_steps("global_assign_sparse", lay, config, dev)
     return solve_result(state, out, hub_pass=torch.tensor(len(lay.hub_groups) > 0))
 
 
@@ -577,9 +609,30 @@ def sparse_solve(
 
     zero = torch.zeros((), dtype=torch.int64, device=dev)
 
+    def chunk_steps_in_place(chunk_blocks, assign, cpu_load, mem_load, temp, seeds):
+        """A plain sweep's chunk steps under the kernel lowering, two
+        launches each: kernel 6 reads the chunk's slabs and rows through its
+        block table, kernel 3 commits the assignment, the carried loads and
+        the move count in place. Returns the sweep's chunk moves."""
+        moved = torch.zeros((), dtype=torch.int64, device=dev)
+        for c in range(n_chunks):
+            blocks = chunk_blocks[c]
+            scored = sparse_mass_score_in_place(
+                w_mm, sgraph.u_ids, rvu, assign, blocks, toff_ext, rv_s,
+                assign0 if mc_on else None, pen_vec, svc_cpu_s, svc_mem_s, svc_valid, cpu_load,
+                mem_load, cap, mem_cap, node_valid, lam, temp, seeds[c], ow, num_nodes=N, bu=bu,
+                reg_tiles=reg_tiles, enforce_capacity=config.enforce_capacity,
+                use_noise=use_noise,
+            )
+            admission_commit(*scored, blocks, assign, svc_valid, svc_cpu_s, svc_mem_s, cpu_load,
+                             mem_load, moved, num_nodes=N,
+                             enforce_capacity=config.enforce_capacity)
+        return moved
+
     def make_sweep(do_swap: bool):
         swap_now = use_swaps and do_swap
         phase = "swap_sweeps" if swap_now else "sweeps"
+        in_place = use_kernels and not swap_now
 
         def sweep(carry, xs):
             phase_mark("hubs")
@@ -599,54 +652,34 @@ def sparse_solve(
                 moves = moves + adm.sum()
             phase_mark(phase)
             chunk_blocks = reg_ext[sp.block_perm.long()].reshape(n_chunks, lay.blocks_per_chunk)
-            chunk_ids = (chunk_blocks[:, :, None] * BLOCK_R + row_iota).reshape(n_chunks, C_eff)
-            for c in range(n_chunks):
-                blocks, ids = chunk_blocks[c], chunk_ids[c]
-                u_c, rvu_c = chunk_local_slabs(sgraph.u_ids, rvu, toff_ext[blocks].long() * bu,
-                                               sgraph.u_reg)
-                u_ci = torch.clamp(u_c.long(), 0, SPX - 1)
-                tgt_c = assign[u_ci]
-                if use_kernels and not swap_now:
-                    # fused mass + score: the [C, N] mass never reaches
-                    # device memory
-                    valid_c = svc_valid[ids]
-                    c_cpu = svc_cpu_s[ids]
-                    c_mem = svc_mem_s[ids]
-                    cur = assign[ids]
-                    prop, gain, wants, s_cpu, s_mem = sparse_mass_score(
-                        w_mm, tgt_c, rvu_c, blocks, toff_ext, rv_s[ids], cur,
-                        assign0[ids] if mc_on else cur, pen_vec[ids] if mc_on else None,
-                        c_cpu, c_mem, valid_c, cpu_load, mem_load, cap, mem_cap, node_valid,
-                        lam, temp, seeds[c], ow, num_nodes=N, bu=bu, reg_tiles=reg_tiles,
-                        enforce_capacity=config.enforce_capacity, use_noise=use_noise,
+            if in_place:
+                moves = moves + chunk_steps_in_place(chunk_blocks, assign, cpu_load, mem_load,
+                                                      temp, seeds)
+            else:
+                chunk_ids = (chunk_blocks[:, :, None] * BLOCK_R + row_iota).reshape(
+                    n_chunks, C_eff)
+                for c in range(n_chunks):
+                    blocks, ids = chunk_blocks[c], chunk_ids[c]
+                    u_c, rvu_c = chunk_local_slabs(sgraph.u_ids, rvu,
+                                                   toff_ext[blocks].long() * bu, sgraph.u_reg)
+                    u_ci = torch.clamp(u_c.long(), 0, SPX - 1)
+                    M = chunk_mass(assign[u_ci], rvu_c, blocks, ids, N)
+                    cpu_load, mem_load, admitted = place(
+                        assign, cpu_load, mem_load, ids, M, temp, seeds[c],
+                        None if sp.gumbel is None else sp.gumbel[c],
                     )
-                    new_node, admitted, d_cpu, d_mem = admission_stage(
-                        prop, gain, wants, s_cpu, s_mem, cur, valid_c, c_cpu, c_mem,
-                        num_nodes=N, enforce_capacity=config.enforce_capacity,
-                        emit_x_rows=False,
-                    )
-                    assign[ids] = new_node
-                    cpu_load = cpu_load + d_cpu
-                    mem_load = mem_load + d_mem
                     moves = moves + admitted.sum()
-                    continue
-                M = chunk_mass(tgt_c, rvu_c, blocks, ids, N)
-                cpu_load, mem_load, admitted = place(
-                    assign, cpu_load, mem_load, ids, M, temp, seeds[c],
-                    None if sp.gumbel is None else sp.gumbel[c],
-                )
-                moves = moves + admitted.sum()
-                if not swap_now:
-                    continue
-                # chunk-local pair weights through the same mass step,
-                # with "node" = chunk position: Wc[i, j] = W[i, ids_j]
-                pos = torch.full((SPX,), C_eff, dtype=torch.int32, device=dev)
-                pos[ids] = chunk_pos
-                Wc = chunk_mass(pos[u_ci], rvu_c, blocks, ids, C_eff)
-                cpu_load, mem_load, n_sw = _swap_phase(
-                    ids, M, Wc, assign, cpu_load, mem_load, admitted
-                )
-                sws = sws + n_sw
+                    if not swap_now:
+                        continue
+                    # chunk-local pair weights through the same mass step,
+                    # with "node" = chunk position: Wc[i, j] = W[i, ids_j]
+                    pos = torch.full((SPX,), C_eff, dtype=torch.int32, device=dev)
+                    pos[ids] = chunk_pos
+                    Wc = chunk_mass(pos[u_ci], rvu_c, blocks, ids, C_eff)
+                    cpu_load, mem_load, n_sw = _swap_phase(
+                        ids, M, Wc, assign, cpu_load, mem_load, admitted
+                    )
+                    sws = sws + n_sw
             # refresh the carried loads at each sweep boundary: incremental
             # f32 drift stays bounded to one sweep
             phase_mark("ranking")

@@ -5,6 +5,7 @@ solve's phase marks (``telemetry/phases.py``), their reading without a
 wait, the cost gauges that ``/metrics`` republishes, and the union that
 ``bench/profile.py`` takes the device's busy time from."""
 
+import dataclasses
 import json
 import time
 import urllib.request
@@ -19,6 +20,7 @@ from kubernetes_rescheduling_tpu_torch.core import sparsegraph as tsg
 from kubernetes_rescheduling_tpu_torch.core import topology as ttopo
 from kubernetes_rescheduling_tpu_torch.solver import compiled
 from kubernetes_rescheduling_tpu_torch.solver import global_solver as tgs
+from kubernetes_rescheduling_tpu_torch.solver import sparse_solver as tss
 from kubernetes_rescheduling_tpu_torch.telemetry import costmodel, phases, server, spans
 from kubernetes_rescheduling_tpu_torch.telemetry.registry import (
     MetricsRegistry,
@@ -267,6 +269,35 @@ def test_tracing_leaves_placements_and_objectives_bitwise_equal(kind, registry, 
             assert torch.equal(s0.pod_node, s1.pod_node)
             assert torch.equal(o0, o1) and torch.equal(b0, b1)
     assert series(registry, "solve_phase_rounds_total") == {(("fn", FN[kind]),): 4.0}
+
+
+@pytest.mark.parametrize("entry", ["solve", "replay"])
+@pytest.mark.parametrize("lowering", ["on", "off"])
+def test_sparse_chunk_steps_count_by_path_while_tracing(entry, lowering, registry, tracer):
+    """``sparse_chunk_steps_total{fn,path}``: with the tracer enabled a
+    sparse solve adds n_chunks x its plain sweeps under ``in_place`` (the
+    kernel lowering's two-launch step) and the rest under ``gathered``;
+    with tracing off nothing is recorded."""
+    state, sgraph, loc, mults = SPARSE
+    cfg = dataclasses.replace(CFG, fused_epilogue=lowering)
+    fn = "global_assign_sparse" if entry == "solve" else FN["sparse"]
+
+    def run():
+        gen = torch.Generator().manual_seed(1)
+        if entry == "solve":
+            tss.global_assign_sparse(state, sgraph, gen, cfg)
+        else:
+            ttr.replay_on_device_sparse(state, sgraph, loc, mults, gen, cfg)
+
+    run()
+    assert series(registry, "sparse_chunk_steps_total") == {}
+    tracer.enable()
+    run()
+    n = tss.sparse_layout(sgraph, cfg).n_chunks * (1 if entry == "solve" else len(mults))
+    assert cfg.sweeps == 3 and cfg.swap_every == 3 and n > 0  # sweep 3 is the swap sweep
+    want = {"in_place": 2 * n, "gathered": n} if lowering == "on" else {"gathered": 3 * n}
+    assert series(registry, "sparse_chunk_steps_total") == {
+        (("fn", fn), ("path", path)): float(v) for path, v in want.items()}
 
 
 class StubEvent:
