@@ -1,10 +1,11 @@
 // The pairwise-exchange (swap) phase of one solver chunk, as two kernels.
 // It replaces no TPU kernel: the JAX package's solver/swap.py is plain XLA,
 // and the port's solver/swap.py (chunk_swap -> swap_subset ->
-// swap_decisions, and the solvers' gathers of the chunk's rows before it
-// and load commit after it, commit_swaps) stays as their plain twin and the
-// CPU path. Here that chain of about 160 small device ops a chunk, the
-// gathers and the commit's four index_puts become two launches.
+// swap_decisions, and chunk_swap_phase's gathers of the chunk's rows before
+// it and load commit after it, commit_moves) stays as their plain twin and
+// the CPU path; chunk_swap_phase chooses between the two. Here that chain
+// of about 160 small device ops a chunk, the gathers and the commit's four
+// index_puts become two launches.
 //
 // Both kernels read the chunk's rows through ids from the solver's
 // service arrays (assign, validity, demands, move bill and anchor), with
@@ -41,7 +42,7 @@
 //     True) adds it (indexing_backward_kernel_stride_1: a node's rows in
 //     ascending order, lane-strided partials over whole passes of 32, a
 //     shuffle-down tree, then the rest one by one, then added to the load),
-//     so the loads are torch.equal to commit_swaps' for any demands.
+//     so the loads are torch.equal to commit_moves' for any demands.
 // The sums of steps 3 and 4 (neg_i and the race's `others`) are taken in a
 // fixed order (lane-strided partials, then a fixed shuffle tree), with no
 // atomics: two runs decide alike for any inputs, and the plain version's

@@ -1,10 +1,12 @@
 """The chunk's swap phase on the card: kernels 7 and 8 (``csrc/swap.cu``).
 
 The plain twin is ``solver/swap.py``'s :func:`chunk_swap` followed by its
-:func:`commit_swaps`, which stay the CPU path and the reference these
-kernels are held to; the JAX package has no kernel here. The solvers take
-the kernels where they take kernels 1–6 (``kernel_lowering``), on CUDA and
-at a chunk of at most 1,024 rows (:func:`takes_kernels`).
+:func:`commit_moves`, which stay the CPU path and the reference these
+kernels are held to; the JAX package has no kernel here. The choice is
+made in one place, ``solver/swap.py``'s ``chunk_swap_phase``, which both
+solvers call: the kernels where the solve takes kernels 1–6
+(``kernel_lowering``), on CUDA and at a chunk of at most 1,024 rows
+(:func:`takes_kernels`); the plain chain elsewhere.
 
 - :func:`swap_desire` → ``swap_desire_kernel``: each row's exchange desire,
   the key of the top-k candidate subset;
@@ -12,15 +14,16 @@ at a chunk of at most 1,024 rows (:func:`takes_kernels`).
   (:func:`rank_select` is that reformulation in plain PyTorch),
   ``swap_decisions`` on it with the cross-swap coupling in four gathers
   (:func:`interaction_gather`), the full-width results, the new per-node
-  loads (``commit_swaps``'s, bit for bit) and the chunk's rows of the
+  loads (``commit_moves``', bit for bit) and the chunk's rows of the
   assignment.
 
 Both read the chunk's rows through its ids from the solver's service
-arrays (assignment, validity, demands, move bill and anchor), as the
-solvers' plain path gathers them before ``chunk_swap``.
+arrays (assignment, validity, demands, move bill and anchor), as
+``chunk_swap_phase``'s plain path gathers them before ``chunk_swap``.
 
 Unlike the wrappers of kernels 1–6, these take CUDA tensors only and raise
-on anything else: the solvers call :func:`chunk_swap` itself off the card.
+on anything else: off the card ``chunk_swap_phase`` runs :func:`chunk_swap`
+itself.
 Each wrapper counts its launches in ``launches`` and its work in
 ``work_ops`` / ``work_bytes`` (``ops/work.py``).
 """
@@ -88,7 +91,7 @@ def _on_card(tensors) -> torch.device:
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(
             f"the swap kernels take tensors on one CUDA device, got {sorted(map(str, devs))}; "
-            "off the card the solvers run solver/swap.py's chunk_swap")
+            "off the card chunk_swap_phase runs solver/swap.py's chunk_swap")
     return devs.pop()
 
 
@@ -188,7 +191,7 @@ def swap_decide(
     """Kernel 8: the ``min(k, C)`` most eager rows, ``swap_decisions`` on
     them, and the results at full width: ``(new_node i32[C], swapped
     bool[C], n_swaps i64[], cpu_load f32[N], mem_load f32[N])`` — what
-    ``chunk_swap`` and then ``commit_swaps`` return — with ``assign[ids] =
+    ``chunk_swap`` and then ``commit_moves`` return — with ``assign[ids] =
     new_node`` written in place. Index values (``w_ids``, ``ids``) must lie
     inside their tensors; they are not read back."""
     C, N = _rows(M, k)
@@ -240,7 +243,7 @@ def chunk_swap_kernels(
 ):
     """A solver chunk's swap phase on the card in two launches: the chunk's
     rows gathered from the service arrays through ``ids``, ``chunk_swap``,
-    ``commit_swaps`` and ``assign[ids] = new_node``. The pair weights are
+    ``commit_moves`` and ``assign[ids] = new_node``. The pair weights are
     read from ``W`` through ``w_ids`` at the subset's rows and columns only.
     Returns ``(new_node, swapped, n_swaps, cpu_load, mem_load)``."""
     keys = swap_desire(M, assign, ids, svc_valid, moved, node_valid, pen, home, k)

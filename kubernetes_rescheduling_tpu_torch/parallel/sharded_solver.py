@@ -44,7 +44,6 @@ from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import (
     ROW_BLOCK,
     communication_cost,
-    load_std,
 )
 from kubernetes_rescheduling_tpu_torch.ops.fused_admission import pairwise_admission
 from kubernetes_rescheduling_tpu_torch.parallel.mesh import Mesh, gather, pmax, psum
@@ -57,13 +56,16 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     GlobalSolverConfig,
     _pad_to,
     _service_aggregates,
+    adopt,
     auto_chunk,
     build_pair_weights,
     check_weight_budget,
     draw_plans,
     exact_comm_cost,
-    pod_restart_bill,
+    input_objective,
+    node_caps,
     restart_bill_from_arrays,
+    solve_result,
     sweep_temps,
     total_pair_weight,
 )
@@ -368,16 +370,6 @@ def _check_and_dims(state, graph, config, mesh):
     return tp, S, N, SP
 
 
-def node_caps(state: ClusterState, config: GlobalSolverConfig):
-    """The budget-scaled CPU and memory capacities (an invalid node's 0;
-    no memory capacity is an infinite one)."""
-    cpu_cap = torch.where(state.node_valid, state.node_cpu_cap, 0.0)
-    mem_cap_raw = torch.where(state.node_valid, state.node_mem_cap, 0.0)
-    mem_cap = torch.where(mem_cap_raw > 0, mem_cap_raw, float("inf")) * config.capacity_frac
-    cap = torch.where(cpu_cap > 0, cpu_cap, 1.0) * config.capacity_frac
-    return cap, mem_cap
-
-
 def shard_nodes(mesh: Mesh, *vectors):
     """This rank's columns of per-node vectors."""
     nl = vectors[0].shape[0] // mesh.shape["tp"]
@@ -405,33 +397,6 @@ def _prep(state, graph, config, S, N, SP, mesh):
     ), cap
 
 
-def true_objective(state, comm, config, cap):
-    """The TRUE input objective (the adopt gate's reference point): the
-    input's pod-level cost ``comm`` plus the balance and over-budget terms."""
-    ow = config.overload_weight if config.enforce_capacity else 0.0
-    pct0 = torch.where(state.node_valid, state.node_cpu_used() / cap * 100.0, 0.0)
-    return (comm + config.balance_weight * (load_std(state) / config.capacity_frac)
-            + ow * torch.sum(torch.clamp_min(pct0 - 100.0, 0.0)))
-
-
-def finalize(state, config, best_assign, best_obj, pod_slot, obj_true0):
-    """Best-seen gating against the TRUE input objective, re-priced with
-    the exact pod-level restart bill, and the pod scatter — the single
-    device solver's epilogue."""
-    tgt = best_assign[pod_slot]
-    bill = (pod_restart_bill(state, tgt, config.move_cost) if config.move_cost > 0
-            else torch.zeros((), dtype=torch.float32, device=best_obj.device))
-    improved = best_obj + bill < obj_true0
-    new_pod_node = torch.where(improved & state.pod_valid, tgt, state.pod_node)
-    info = {
-        "objective_before": obj_true0,
-        "objective_after": torch.where(improved, best_obj, obj_true0),
-        "improved": improved,
-        "move_penalty": torch.where(improved, bill, 0.0),
-    }
-    return state.replace(pod_node=new_pod_node), info
-
-
 def _dense_plan(generator, config, S, N, tp):
     C, n_chunks, SP, _ = _dims(config, S, N, tp)
     return draw_plans(generator, config.sweeps, SP, C, n_chunks, 1)
@@ -456,11 +421,12 @@ def sharded_global_assign(
         plan = _dense_plan(generator, config, S, N, tp)
     args, cap = _prep(state, graph, config, S, N, SP, mesh)
     best_assign, best_obj = _solve_one(args, plan, config, S, N, mesh)
-    obj_true0 = true_objective(state, communication_cost(state, graph), config, cap)
+    obj_true0 = input_objective(state, communication_cost(state, graph), config, cap)
     pod_slot = torch.clamp(state.pod_service, 0, SP - 1).long()
-    new_state, info = finalize(state, config, best_assign, best_obj, pod_slot, obj_true0)
+    new_state, info = solve_result(state, adopt(state, best_assign[pod_slot], best_obj,
+                                                obj_true0, config.move_cost),
+                                   tp=torch.tensor(tp))
     del info["improved"]  # the JAX package's dense sharded info has no such key
-    info["tp"] = torch.tensor(tp)
     return new_state, info
 
 
@@ -521,15 +487,17 @@ def sharded_solve_with_restarts(
     mine = restart_plans(generator, plans, n_restarts, mesh,
                          lambda g: _dense_plan(g, config, S, N, tp))
     args, cap = _prep(state, graph, config, S, N, SP, mesh)
-    obj_true0 = true_objective(state, communication_cost(state, graph), config, cap)
+    obj_true0 = input_objective(state, communication_cost(state, graph), config, cap)
     pod_slot = torch.clamp(state.pod_service, 0, SP - 1).long()
     solved = [_solve_one(args, plan, config, S, N, mesh) for _, plan in mine]
     best_assign, best_raw, all_gated, best = select_restart(
         state, config, mesh, torch.stack([a for a, _ in solved]),
         torch.stack([o for _, o in solved]), pod_slot, obj_true0)
-    new_state, info = finalize(state, config, best_assign, best_raw, pod_slot, obj_true0)
+    new_state, info = solve_result(state, adopt(state, best_assign[pod_slot], best_raw,
+                                                obj_true0, config.move_cost),
+                                   restart_objectives=all_gated, best_restart=best,
+                                   tp=torch.tensor(tp))
     del info["improved"]
-    info.update(restart_objectives=all_gated, best_restart=best, tp=torch.tensor(tp))
     return new_state, info
 
 

@@ -42,19 +42,20 @@ from kubernetes_rescheduling_tpu_torch.ops.sparse_mass import (
 from kubernetes_rescheduling_tpu_torch.parallel.mesh import Mesh
 from kubernetes_rescheduling_tpu_torch.parallel.sharded_solver import (
     _Balance,
-    finalize,
-    node_caps,
     restart_plans,
     select_restart,
     shard_noise,
     shard_nodes,
     sharded_place,
     sharded_swap,
-    true_objective,
 )
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     _DTYPES,
     GlobalSolverConfig,
+    adopt,
+    input_objective,
+    node_caps,
+    solve_result,
     sweep_temps,
 )
 from kubernetes_rescheduling_tpu_torch.solver.sparse_solver import (
@@ -228,7 +229,7 @@ def _prep(state, sgraph, config, lay, mesh):
         "nodes": shard_nodes(mesh, cap, mem_cap, state.node_base_cpu, state.node_base_mem,
                              state.node_valid),
     }
-    obj_true0 = true_objective(state, sparse_pod_comm_cost(state, sgraph), config, cap)
+    obj_true0 = input_objective(state, sparse_pod_comm_cost(state, sgraph), config, cap)
     S = sgraph.num_services
     pod_slot = torch.clamp(sgraph.inv[torch.clamp(state.pod_service, 0, S - 1).long()], 0,
                            lay.spx - 1).long()
@@ -255,9 +256,8 @@ def sharded_sparse_assign(
         plan = draw_sparse_plans(generator, config.sweeps, lay)
     prep, obj_true0, pod_slot = _prep(state, sgraph, config, lay, mesh)
     best_assign, best_obj = _solve_one(prep, plan, config, lay, sgraph, N, mesh)
-    new_state, info = finalize(state, config, best_assign, best_obj, pod_slot, obj_true0)
-    info["tp"] = torch.tensor(tp)
-    return new_state, info
+    return solve_result(state, adopt(state, best_assign[pod_slot], best_obj, obj_true0,
+                                     config.move_cost), tp=torch.tensor(tp))
 
 
 def sharded_sparse_solve_with_restarts(
@@ -283,6 +283,6 @@ def sharded_sparse_solve_with_restarts(
     best_assign, best_raw, all_gated, best = select_restart(
         state, config, mesh, torch.stack([a for a, _ in solved]),
         torch.stack([o for _, o in solved]), pod_slot, obj_true0)
-    new_state, info = finalize(state, config, best_assign, best_raw, pod_slot, obj_true0)
-    info.update(restart_objectives=all_gated, best_restart=best, tp=torch.tensor(tp))
-    return new_state, info
+    return solve_result(state, adopt(state, best_assign[pod_slot], best_raw, obj_true0,
+                                     config.move_cost),
+                        restart_objectives=all_gated, best_restart=best, tp=torch.tensor(tp))

@@ -69,12 +69,11 @@ from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
     fused_score_admission,
     reference_score_admission,
 )
-from kubernetes_rescheduling_tpu_torch.ops.swap import chunk_swap_kernels, takes_kernels
 from kubernetes_rescheduling_tpu_torch.solver.compiled import CACHE, to_device
 from kubernetes_rescheduling_tpu_torch.solver.swap import (
     BIG_CAP,
-    chunk_swap,
-    commit_swaps,
+    chunk_swap_phase,
+    commit_moves,
     scan_sweeps,
     swap_flags,
 )
@@ -308,6 +307,47 @@ def pod_restart_bill(state: ClusterState, tgt, move_cost) -> torch.Tensor:
                                     tgt, move_cost)
 
 
+def node_caps(state: ClusterState, config: GlobalSolverConfig):
+    """The budget-scaled CPU and memory capacities (an invalid node's 0;
+    no memory capacity is an infinite one; inf·frac stays inf)."""
+    cpu_cap = torch.where(state.node_valid, state.node_cpu_cap, 0.0)
+    mem_cap_raw = torch.where(state.node_valid, state.node_mem_cap, 0.0)
+    mem_cap = torch.where(mem_cap_raw > 0, mem_cap_raw, float("inf")) * config.capacity_frac
+    cap = torch.where(cpu_cap > 0, cpu_cap, 1.0) * config.capacity_frac
+    return cap, mem_cap
+
+
+def input_objective(state: ClusterState, comm, config: GlobalSolverConfig, cap) -> torch.Tensor:
+    """The TRUE objective of the input placement, which may split a
+    service's replicas across nodes: its pod-level cost ``comm`` plus the
+    balance and over-budget terms. ``load_std`` measures % of raw
+    capacity, the solver % of the packing budget ``cap`` — the same units
+    once divided by ``capacity_frac``. The adopt gate's reference point."""
+    ow = config.overload_weight if config.enforce_capacity else 0.0
+    pct0 = torch.where(state.node_valid, state.node_cpu_used() / cap * 100.0, 0.0)
+    return (comm + config.balance_weight * (load_std(state) / config.capacity_frac)
+            + ow * torch.sum(torch.clamp_min(pct0 - 100.0, 0.0)))
+
+
+def adopt(state: ClusterState, tgt_pod_node, raw_after, obj_true0, move_cost) -> dict:
+    """The adopt gate every global solve ends with: the per-pod targets
+    ``tgt_pod_node`` (the best placement scattered to pods) replace the
+    input only when their exact objective ``raw_after`` plus the exact
+    pod-level restart bill strictly beats the input's ``obj_true0``.
+    Returns ``pod_node``, ``objective_before`` / ``objective_after``,
+    ``improved`` and the adopted ``move_penalty``."""
+    bill = (pod_restart_bill(state, tgt_pod_node, move_cost) if move_cost > 0
+            else torch.zeros((), dtype=torch.float32, device=raw_after.device))
+    improved = raw_after + bill < obj_true0
+    return {
+        "pod_node": torch.where(improved & state.pod_valid, tgt_pod_node, state.pod_node),
+        "objective_before": obj_true0,
+        "objective_after": torch.where(improved, raw_after, obj_true0),
+        "improved": improved,
+        "move_penalty": torch.where(improved, bill, 0.0),
+    }
+
+
 def auto_chunk(S: int, chunk_size: int = 0) -> int:
     """Resolve the chunk size: explicit, or ~S/10 in [1, 1024]; auto sizes
     >= 256 round up to a multiple of 256 so the padded service count tiles
@@ -456,12 +496,10 @@ def dense_plan_inputs(plan, lay: DenseLayout, config: GlobalSolverConfig, dev,
     return t
 
 
-def dense_solve_inputs(state: ClusterState, graph: CommGraph, generator, config,
-                       plan=None) -> tuple[DenseLayout, dict[str, torch.Tensor]]:
-    """The layout of one dense solve and its inputs (the state's arrays, the
-    graph's validity mask, the per-sweep plans drawn from ``generator``
-    unless ``plan`` gives them), checked as :func:`global_assign` checks
-    them; shared with the fleet's solve, which stages T of them."""
+def check_solve_args(config: GlobalSolverConfig, plan, generator, what: str) -> None:
+    """The arguments every single-device solve refuses: a budget that is
+    not positive, an unknown lowering, a plan of the wrong length, neither
+    a plan nor a generator (``what`` names the entry point)."""
     if not config.capacity_frac > 0:
         raise ValueError(f"capacity_frac must be > 0, got {config.capacity_frac}")
     if config.fused_epilogue not in _EPILOGUES:
@@ -471,7 +509,16 @@ def dense_solve_inputs(state: ClusterState, graph: CommGraph, generator, config,
     if plan is not None and len(plan) != config.sweeps:
         raise ValueError(f"plan has {len(plan)} sweeps, config.sweeps={config.sweeps}")
     if plan is None and generator is None:
-        raise ValueError("global_assign needs a generator or an explicit plan")
+        raise ValueError(f"{what} needs a generator or an explicit plan")
+
+
+def dense_solve_inputs(state: ClusterState, graph: CommGraph, generator, config,
+                       plan=None) -> tuple[DenseLayout, dict[str, torch.Tensor]]:
+    """The layout of one dense solve and its inputs (the state's arrays, the
+    graph's validity mask, the per-sweep plans drawn from ``generator``
+    unless ``plan`` gives them), checked as :func:`global_assign` checks
+    them; shared with the fleet's solve, which stages T of them."""
+    check_solve_args(config, plan, generator, "global_assign")
     dev = state.device
     lay = dense_layout(graph.num_services, state.num_nodes, config, dev)
     check_weight_budget(lay.sp, config)
@@ -556,11 +603,8 @@ def dense_solve(
     rv = (replicas * svc_valid)[:S]
     W_mm = w_mm if w_mm is not None else build_pair_weights(graph.adj, rv, SP=SP, dtype=mm_dtype)
 
-    cpu_cap = torch.where(state.node_valid, state.node_cpu_cap, 0.0)
-    mem_cap_raw = torch.where(state.node_valid, state.node_mem_cap, 0.0)
-    # capacity_frac shrinks the budget everywhere (inf·frac stays inf)
-    mem_cap = torch.where(mem_cap_raw > 0, mem_cap_raw, float("inf")) * config.capacity_frac
-    cap = torch.where(cpu_cap > 0, cpu_cap, 1.0) * config.capacity_frac
+    # capacity_frac shrinks the budget everywhere
+    cap, mem_cap = node_caps(state, config)
     base_cpu = state.node_base_cpu
     base_mem = state.node_base_mem
     node_valid = state.node_valid
@@ -575,10 +619,6 @@ def dense_solve(
         return config.move_cost * torch.sum(
             torch.where(svc_valid & (assign != assign0), replicas, 0.0)
         )
-
-    def _pod_bill(assign):
-        tgt = assign[torch.clamp(state.pod_service, 0, SP - 1)]
-        return pod_restart_bill(state, tgt, config.move_cost)
 
     cols = torch.arange(N, device=dev)
 
@@ -609,7 +649,6 @@ def dense_solve(
     use_noise = config.noise_temp > 0
 
     use_swaps = config.swap_every > 0 and C >= 2
-    swap_on_card = takes_kernels(use_fused, dev, C)
     sw_flags = swap_flags(config.sweeps, config.swap_every)
     mem_cap_sw = torch.where(torch.isinf(mem_cap), BIG_CAP, mem_cap)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -622,44 +661,15 @@ def dense_solve(
     ]
     temps = list(t["temps"].unbind(0)) if config.sweeps else []
 
-    def _swap_phase(ids, M, Wc, assign, cpu_load, mem_load, admitted):
-        """The chunk's swap phase on the post-singles state. ``M`` is the
-        chunk-start neighbor mass; services the single phase just moved
-        sit out. On the card kernels 7 and 8 decide (``Wc`` is None: they
-        read the pair weights from ``W_mm`` at the subset's ids)."""
-        k = min(config.swap_k, C)
-        if swap_on_card:  # the kernels gather the chunk's rows and commit
-            _, _, n_sw, cpu_load, mem_load = chunk_swap_kernels(
-                M, W_mm, ids, assign, ids, svc_valid, admitted, node_valid, svc_cpu, svc_mem,
-                cpu_load, mem_load, cap, mem_cap_sw, config.balance_weight, ow,
-                pen_vec if mc_on else None, assign0 if mc_on else None, k,
-                enforce_capacity=config.enforce_capacity)
-            return cpu_load, mem_load, n_sw
-        cur = assign[ids]
-        valid_c = svc_valid[ids]
-        eligible = valid_c & ~admitted & node_valid[cur.long()]
-        c_cpu = svc_cpu[ids]
-        c_mem = svc_mem[ids]
-        new_node, swapped, n_sw = chunk_swap(
-            M, Wc, cur, eligible, c_cpu, c_mem, cpu_load, mem_load, cap, mem_cap_sw,
-            config.balance_weight, ow, pen_vec[ids] if mc_on else None,
-            assign0[ids] if mc_on else None, k, enforce_capacity=config.enforce_capacity)
-        cpu_load, mem_load = commit_swaps(cpu_load, mem_load, cur, new_node, swapped,
-                                          c_cpu, c_mem)
-        assign[ids] = new_node
-        return cpu_load, mem_load, n_sw
-
-    def _commit(ids, valid_c, c_cpu, c_mem, cur, new_node, admitted, X, cpu_load, mem_load):
-        """Apply a chunk's admitted moves (plain path): assignment,
-        occupancy rows, and the per-node loads by scatter-add."""
-        X[ids] = one_hot_rows(new_node, valid_c, mm_dtype)
-        d_cpu = torch.where(admitted, c_cpu, 0.0)
-        d_mem = torch.where(admitted, c_mem, 0.0)
-        cpu_load = cpu_load.index_put((new_node.long(),), d_cpu, accumulate=True)
-        cpu_load = cpu_load.index_put((cur.long(),), -d_cpu, accumulate=True)
-        mem_load = mem_load.index_put((new_node.long(),), d_mem, accumulate=True)
-        mem_load = mem_load.index_put((cur.long(),), -d_mem, accumulate=True)
-        return cpu_load, mem_load
+    def swap_step(ids, M, assign, cpu_load, mem_load, admitted):
+        """The chunk's swap phase on the post-singles state (``M`` the
+        chunk-start neighbor mass; services the single phase just moved sit
+        out), the pair weights read from ``W_mm`` at the chunk's ids."""
+        return chunk_swap_phase(
+            M, W_mm, ids, assign, ids, svc_valid, admitted, node_valid, svc_cpu, svc_mem,
+            cpu_load, mem_load, cap, mem_cap_sw, config.balance_weight, ow, pen_vec,
+            assign0 if mc_on else None, config.swap_k, enforce_capacity=config.enforce_capacity,
+            use_kernels=use_fused)
 
     def best_seen(assign, cpu_load, best_assign, best_obj):
         obj = objective_fast(assign, cpu_load)
@@ -685,9 +695,8 @@ def dense_solve(
             for c in range(n_chunks):
                 ids = chunk_ids[c]
                 valid_c = svc_valid[ids]
-                Wr = W_mm[ids]
                 # f32 product: a bf16 matmul would round M back to bf16
-                M = Wr.to(f32) @ X.to(f32)
+                M = W_mm[ids].to(f32) @ X.to(f32)
                 c_cpu = svc_cpu[ids]
                 c_mem = svc_mem[ids]
                 cur = assign[ids]
@@ -717,16 +726,13 @@ def dense_solve(
                         enforce_capacity=config.enforce_capacity,
                     )
                     assign[ids] = new_node
-                    cpu_load, mem_load = _commit(
-                        ids, valid_c, c_cpu, c_mem, cur, new_node, admitted,
-                        X, cpu_load, mem_load,
-                    )
+                    X[ids] = one_hot_rows(new_node, valid_c, mm_dtype)
+                    cpu_load, mem_load = commit_moves(cpu_load, mem_load, cur, new_node,
+                                                      admitted, c_cpu, c_mem)
                 moves = moves + admitted.sum()
                 if use_swaps and do_swap:
-                    Wc = None if swap_on_card else Wr[:, ids].to(f32)
-                    cpu_load, mem_load, n_sw = _swap_phase(
-                        ids, M, Wc, assign, cpu_load, mem_load, admitted
-                    )
+                    cpu_load, mem_load, n_sw = swap_step(ids, M, assign, cpu_load, mem_load,
+                                                         admitted)
                     X[ids] = one_hot_rows(assign[ids], valid_c, mm_dtype)
                     sws = sws + n_sw
             phase_mark("ranking")
@@ -778,13 +784,8 @@ def dense_solve(
                 mem_load = mem_load + d_mem
                 moves = moves + admitted.sum()
                 if use_swaps and do_swap:
-                    # chunk-local pair weights: the composition is
-                    # block-granular, so this is KB×KB 256×256 tiles of W
-                    # (kernel 8 reads them from W_mm at the subset alone)
-                    Wc = None if swap_on_card else W_mm[ids[:, None], ids[None, :]].to(f32)
-                    cpu_load, mem_load, n_sw = _swap_phase(
-                        ids, M, Wc, assign, cpu_load, mem_load, admitted
-                    )
+                    cpu_load, mem_load, n_sw = swap_step(ids, M, assign, cpu_load, mem_load,
+                                                         admitted)
                     sws = sws + n_sw
             # refresh the carried loads from the assignment each sweep:
             # incremental f32 drift stays bounded to one sweep
@@ -795,17 +796,10 @@ def dense_solve(
 
         return sweep_inline
 
-    # true objective of the INPUT placement (which may split a service's
-    # replicas across nodes): the result only replaces the input when it
-    # beats this. load_std measures % of raw capacity, the solver % of the
-    # packing budget — same units once divided by capacity_frac
-    pct_true0 = torch.where(node_valid, state.node_cpu_used() / cap * 100.0, 0.0)
+    # the result only replaces the input when it beats the input's true
+    # objective
     comm_true0 = input_comm_cost(state, graph)
-    obj_true0 = (
-        comm_true0
-        + config.balance_weight * (load_std(state) / config.capacity_frac)
-        + ow * torch.sum(torch.clamp_min(pct_true0 - 100.0, 0.0))
-    )
+    obj_true0 = input_objective(state, comm_true0, config, cap)
     cpu0, mem0 = loads(assign0)
     obj0 = objective_fast(assign0, cpu0)
     if inline_mass:
@@ -824,28 +818,15 @@ def dense_solve(
     # re-evaluated exactly
     best_comm = exact_comm_cost(graph.adj, rv, best_assign)
     best_obj = best_comm + _balance_terms(loads(best_assign)[0])
-    best_pen = _pod_bill(best_assign) if mc_on else torch.zeros((), dtype=f32, device=dev)
-
-    # scatter the service assignment back to pods only when the solve
-    # strictly beats the true input (and covers its restart bill)
-    improved = best_obj + best_pen < obj_true0
-    new_pod_node = torch.where(
-        improved & state.pod_valid,
-        best_assign[torch.clamp(state.pod_service, 0, SP - 1)],
-        state.pod_node,
-    )
-    out = {
-        "pod_node": new_pod_node,
-        "objective_before": obj_true0,
-        "objective_after": torch.where(improved, best_obj, obj_true0),
-        "improved": improved,
-        "moves_per_sweep": moves_per_sweep,
-        "swaps_per_sweep": swaps_per_sweep,
-        "move_penalty": torch.where(improved, best_pen, 0.0),
+    out = adopt(state, best_assign[torch.clamp(state.pod_service, 0, SP - 1)], best_obj,
+                obj_true0, config.move_cost)
+    out.update(
+        moves_per_sweep=moves_per_sweep,
+        swaps_per_sweep=swaps_per_sweep,
         # an adopted placement colocates every service's replicas, so its
         # pod-level cost equals the exact service-level cut of best_assign
-        "communication_cost": torch.where(improved, best_comm, comm_true0),
-        "load_std": load_std(state.replace(pod_node=new_pod_node)),
-    }
+        communication_cost=torch.where(out["improved"], best_comm, comm_true0),
+        load_std=load_std(state.replace(pod_node=out["pod_node"])),
+    )
     phase_mark(END)
     return out

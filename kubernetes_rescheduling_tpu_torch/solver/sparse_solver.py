@@ -34,9 +34,7 @@ the carried loads and the move count in place. On swap sweeps it is the
 gathered ``sparse_neighbor_mass`` → score → admission, plus
 ``sparse_neighbor_mass`` again for the chunk-local pair weights and
 kernels 7 and 8; the hub pass is ``hub_neighbor_mass`` → score →
-admission. While tracing is on, ``sparse_chunk_steps_total{fn,path}``
-counts a solve's chunk steps: ``in_place`` the two-launch ones,
-``gathered`` the rest (:func:`count_chunk_steps`).
+admission.
 
 Randomness goes through a per-sweep :class:`SparseSweepPlan` (block
 permutation, kernel seeds, plain-path gumbel noise), drawn from a
@@ -76,22 +74,23 @@ from kubernetes_rescheduling_tpu_torch.ops.sparse_mass import (
     sparse_mass_score_in_place,
     sparse_neighbor_mass,
 )
-from kubernetes_rescheduling_tpu_torch.ops.swap import chunk_swap_kernels, takes_kernels
 from kubernetes_rescheduling_tpu_torch._random import gumbel as _gumbel
 from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
     _DTYPES,
-    _EPILOGUES,
     GlobalSolverConfig,
     _pad_to,
     _service_aggregates,
     _stacked,
+    adopt,
     auto_chunk,
+    check_solve_args,
     collapsed_placement,
     global_assign,
+    input_objective,
     kernel_lowering,
+    node_caps,
     pct_balance_terms,
     noise_generator,
-    pod_restart_bill,
     solve_result,
     state_from_inputs,
     state_inputs,
@@ -100,14 +99,12 @@ from kubernetes_rescheduling_tpu_torch.solver.global_solver import (
 from kubernetes_rescheduling_tpu_torch.solver.compiled import CACHE, to_device
 from kubernetes_rescheduling_tpu_torch.solver.swap import (
     BIG_CAP,
-    chunk_swap,
-    commit_swaps,
+    chunk_swap_phase,
+    commit_moves,
     scan_sweeps,
     swap_flags,
 )
 from kubernetes_rescheduling_tpu_torch.telemetry.phases import END, phase_mark
-from kubernetes_rescheduling_tpu_torch.telemetry.registry import get_registry
-from kubernetes_rescheduling_tpu_torch.telemetry.spans import get_tracer
 
 # The noise seed law: the fused mass+score kernel seeds 256-row block i of
 # a chunk with seed + i, the standalone score kernel tile t with seed + t.
@@ -317,29 +314,6 @@ SPARSE_OPERANDS = ("w_local", "u_ids", "edges_src", "edges_dst", "edges_w", "per
                    "service_valid")
 
 
-def count_chunk_steps(fn: str, lay: SparseLayout, config: GlobalSolverConfig, device,
-                      solves: int = 1) -> None:
-    """Add ``solves`` sparse solves' chunk steps, from the static layout, to
-    ``sparse_chunk_steps_total{fn,path}``: ``path="in_place"`` the plain
-    sweeps' two-launch steps under the kernel lowering, ``"gathered"`` the
-    rest (swap sweeps, the plain lowering). Only while tracing is on, as
-    the solve's phase times (``telemetry/phases.py``)."""
-    if not get_tracer().tracing():
-        return
-    n_swap = int(swap_flags(config.sweeps, config.swap_every).sum())
-    plain = config.sweeps - n_swap
-    in_place = plain if kernel_lowering(config, device) else 0
-    steps = get_registry().counter(
-        "sparse_chunk_steps_total",
-        "chunk steps of traced sparse solves, by path: in_place (kernel 6 then kernel 3, "
-        "nothing gathered) or gathered",
-        labelnames=("fn", "path"),
-    )
-    for path, sweeps in (("in_place", in_place), ("gathered", config.sweeps - in_place)):
-        if sweeps:
-            steps.labels(fn=fn, path=path).inc(lay.n_chunks * sweeps * solves)
-
-
 def sparse_static(sgraph: SparseCommGraph) -> tuple:
     """The graph's host metadata: with the operands' identities it keys a
     captured sparse solve."""
@@ -404,16 +378,7 @@ def sparse_tables(sgraph: SparseCommGraph, lay: SparseLayout, dev) -> SparseTabl
 
 
 def _global_assign_sparse(state, sgraph, generator, config, plan):
-    if not config.capacity_frac > 0:
-        raise ValueError(f"capacity_frac must be > 0, got {config.capacity_frac}")
-    if config.fused_epilogue not in _EPILOGUES:
-        raise ValueError(
-            f"fused_epilogue must be one of {_EPILOGUES}, got {config.fused_epilogue!r}"
-        )
-    if plan is not None and len(plan) != config.sweeps:
-        raise ValueError(f"plan has {len(plan)} sweeps, config.sweeps={config.sweeps}")
-    if plan is None and generator is None:
-        raise ValueError("global_assign_sparse needs a generator or an explicit plan")
+    check_solve_args(config, plan, generator, "global_assign_sparse")
     if sgraph.weight_bytes() > config.max_weight_bytes:
         raise ValueError(
             f"sparse pair weights need {sgraph.weight_bytes() / 2**30:.2f} GiB — over "
@@ -433,7 +398,6 @@ def _global_assign_sparse(state, sgraph, generator, config, plan):
 
     out = CACHE.run("global_assign_sparse", (config, lay, sparse_static(sgraph)), inputs,
                     make_body, operands=[getattr(sgraph, k) for k in SPARSE_OPERANDS])
-    count_chunk_steps("global_assign_sparse", lay, config, dev)
     return solve_result(state, out, hub_pass=torch.tensor(len(lay.hub_groups) > 0))
 
 
@@ -464,10 +428,7 @@ def sparse_solve(
     w_mm = sgraph.w_local.to(_DTYPES[config.matmul_dtype])
 
     node_valid = state.node_valid
-    cpu_cap = torch.where(node_valid, state.node_cpu_cap, 0.0)
-    mem_cap_raw = torch.where(node_valid, state.node_mem_cap, 0.0)
-    mem_cap = torch.where(mem_cap_raw > 0, mem_cap_raw, float("inf")) * config.capacity_frac
-    cap = torch.where(cpu_cap > 0, cpu_cap, 1.0) * config.capacity_frac
+    cap, mem_cap = node_caps(state, config)
 
     assign0 = torch.where(svc_valid, torch.clamp(cur_s, 0, N - 1), 0).to(torch.int32)
     # disruption pricing: per-service restart bill anchored at assign0
@@ -564,13 +525,8 @@ def sparse_solve(
             lam, noise, overload_weight=ow, home=home, move_pen=pen,
             enforce_capacity=config.enforce_capacity,
         )
-        d_cpu = torch.where(admitted, c_cpu, 0.0)
-        d_mem = torch.where(admitted, c_mem, 0.0)
-        new_l, cur_l = new_node.long(), cur.long()
-        cpu_load = cpu_load.index_put((new_l,), d_cpu, accumulate=True)
-        cpu_load = cpu_load.index_put((cur_l,), -d_cpu, accumulate=True)
-        mem_load = mem_load.index_put((new_l,), d_mem, accumulate=True)
-        mem_load = mem_load.index_put((cur_l,), -d_mem, accumulate=True)
+        cpu_load, mem_load = commit_moves(cpu_load, mem_load, cur, new_node, admitted, c_cpu,
+                                          c_mem)
         assign[ids] = new_node
         return cpu_load, mem_load, admitted
 
@@ -580,33 +536,6 @@ def sparse_solve(
     sw_flags = swap_flags(config.sweeps, config.swap_every)
     mem_cap_sw = torch.where(torch.isinf(mem_cap), BIG_CAP, mem_cap)
     chunk_pos = torch.arange(C_eff, dtype=torch.int32, device=dev)
-
-    swap_on_card = takes_kernels(use_kernels, dev, C_eff)
-
-    def _swap_phase(ids, M, Wc, assign, cpu_load, mem_load, admitted):
-        """The dense solver's swap phase over the sorted-space arrays:
-        kernels 7 and 8 on the card, ``chunk_swap`` elsewhere."""
-        k = min(config.swap_k, C_eff)
-        if swap_on_card:  # the kernels gather the chunk's rows and commit
-            _, _, n_sw, cpu_load, mem_load = chunk_swap_kernels(
-                M, Wc, None, assign, ids, svc_valid, admitted, node_valid, svc_cpu_s,
-                svc_mem_s, cpu_load, mem_load, cap, mem_cap_sw, lam, ow,
-                pen_vec if mc_on else None, assign0 if mc_on else None, k,
-                enforce_capacity=config.enforce_capacity)
-            return cpu_load, mem_load, n_sw
-        cur = assign[ids]
-        eligible = svc_valid[ids] & ~admitted & node_valid[cur.long()]
-        c_cpu = svc_cpu_s[ids]
-        c_mem = svc_mem_s[ids]
-        new_node, swapped, n_sw = chunk_swap(
-            M, Wc, cur, eligible, c_cpu, c_mem, cpu_load, mem_load, cap, mem_cap_sw, lam, ow,
-            pen_vec[ids] if mc_on else None, assign0[ids] if mc_on else None, k,
-            enforce_capacity=config.enforce_capacity)
-        cpu_load, mem_load = commit_swaps(cpu_load, mem_load, cur, new_node, swapped,
-                                          c_cpu, c_mem)
-        assign[ids] = new_node
-        return cpu_load, mem_load, n_sw
-
     zero = torch.zeros((), dtype=torch.int64, device=dev)
 
     def chunk_steps_in_place(chunk_blocks, assign, cpu_load, mem_load, temp, seeds):
@@ -676,9 +605,11 @@ def sparse_solve(
                     pos = torch.full((SPX,), C_eff, dtype=torch.int32, device=dev)
                     pos[ids] = chunk_pos
                     Wc = chunk_mass(pos[u_ci], rvu_c, blocks, ids, C_eff)
-                    cpu_load, mem_load, n_sw = _swap_phase(
-                        ids, M, Wc, assign, cpu_load, mem_load, admitted
-                    )
+                    cpu_load, mem_load, n_sw = chunk_swap_phase(
+                        M, Wc, None, assign, ids, svc_valid, admitted, node_valid, svc_cpu_s,
+                        svc_mem_s, cpu_load, mem_load, cap, mem_cap_sw, lam, ow, pen_vec,
+                        assign0 if mc_on else None, config.swap_k,
+                        enforce_capacity=config.enforce_capacity, use_kernels=use_kernels)
                     sws = sws + n_sw
             # refresh the carried loads at each sweep boundary: incremental
             # f32 drift stays bounded to one sweep
@@ -693,15 +624,9 @@ def sparse_solve(
 
         return sweep
 
-    # true objective of the INPUT placement (replicas may be split across
-    # nodes): the adopt gate compares against this
-    pct_true0 = torch.where(node_valid, state.node_cpu_used() / cap * 100.0, 0.0)
+    # the adopt gate compares against the input's true objective
     comm_true0 = sparse_pod_comm_cost(state, sgraph)
-    obj_true0 = (
-        comm_true0
-        + lam * (load_std(state) / config.capacity_frac)
-        + ow * torch.sum(torch.clamp_min(pct_true0 - 100.0, 0.0))
-    )
+    obj_true0 = input_objective(state, comm_true0, config, cap)
     cpu0, mem0 = loads(assign0)
     comm0, obj0 = objective_terms(assign0, cpu0)
     (_, _, _, best_assign, best_obj, best_comm), outs = scan_sweeps(
@@ -714,24 +639,14 @@ def sparse_solve(
     # under disruption pricing the adopt gate re-prices with the exact
     # pod-level restart bill; the reported objective stays raw
     raw_after = best_comm + _balance_terms(loads(best_assign)[0]) if mc_on else best_obj
-    best_pen = (
-        pod_restart_bill(state, best_assign[pod_slot], config.move_cost)
-        if mc_on else torch.zeros((), dtype=f32, device=dev)
-    )
-    improved = raw_after + best_pen < obj_true0
-    new_pod_node = torch.where(improved & state.pod_valid, best_assign[pod_slot], state.pod_node)
-    out = {
-        "pod_node": new_pod_node,
-        "objective_before": obj_true0,
-        "objective_after": torch.where(improved, raw_after, obj_true0),
-        "improved": improved,
-        "moves_per_sweep": moves_per_sweep,
-        "swaps_per_sweep": swaps_per_sweep,
-        "move_penalty": torch.where(improved, best_pen, 0.0),
+    out = adopt(state, best_assign[pod_slot], raw_after, obj_true0, config.move_cost)
+    out.update(
+        moves_per_sweep=moves_per_sweep,
+        swaps_per_sweep=swaps_per_sweep,
         # an adopted placement colocates every service's replicas, so its
         # pod-level cost is the tracked service-level cut of best_assign
-        "communication_cost": torch.where(improved, best_comm, comm_true0),
-        "load_std": load_std(state.replace(pod_node=new_pod_node)),
-    }
+        communication_cost=torch.where(out["improved"], best_comm, comm_true0),
+        load_std=load_std(state.replace(pod_node=out["pod_node"])),
+    )
     phase_mark(END)
     return out

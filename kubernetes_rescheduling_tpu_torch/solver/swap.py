@@ -1,6 +1,8 @@
 """Pairwise-exchange (swap) phase for the chunked best-response solver — the
-port of ``kubernetes_rescheduling_tpu.solver.swap``. Plain PyTorch: the JAX
-package has no kernel here.
+port of ``kubernetes_rescheduling_tpu.solver.swap``, in plain PyTorch (the
+JAX package has no kernel here), and :func:`chunk_swap_phase`, the one place
+a solver chunk's swap phase chooses between kernels 7 and 8
+(``ops/swap.py``) on the card and this plain chain elsewhere.
 
 Two services i and j exchange nodes (i → cur_j, j → cur_i, atomically) when
 the joint move improves the objective and both directions fit. The
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from kubernetes_rescheduling_tpu_torch.ops.fused_admission import first_argmax
+from kubernetes_rescheduling_tpu_torch.ops.swap import chunk_swap_kernels, takes_kernels
 
 # stand-in for an unbounded memory budget inside feasibility arithmetic:
 # inf would be correct in comparisons but can surface NaNs through masked
@@ -126,18 +129,53 @@ def chunk_swap(
     return new_node, swapped, n_sw
 
 
-def commit_swaps(cpu_load, mem_load, cur, new_node, swapped, c_cpu, c_mem):
-    """A chunk's swaps applied to the per-node loads (out of place): each
-    swapped service's demand added at its new node, then taken off its old
-    one, by scatter-add (kernel 8 adds in this order too)."""
-    d_c = torch.where(swapped, c_cpu, 0.0)
-    d_m = torch.where(swapped, c_mem, 0.0)
+def commit_moves(cpu_load, mem_load, cur, new_node, moved, c_cpu, c_mem):
+    """A chunk's moves applied to the per-node loads (out of place): each
+    moved service's demand added at its new node, then taken off its old
+    one, by scatter-add. Single moves and swaps both commit through it;
+    kernel 8 adds in this order too."""
+    d_c = torch.where(moved, c_cpu, 0.0)
+    d_m = torch.where(moved, c_mem, 0.0)
     new_l, cur_l = new_node.long(), cur.long()
     cpu_load = cpu_load.index_put((new_l,), d_c, accumulate=True)
     cpu_load = cpu_load.index_put((cur_l,), -d_c, accumulate=True)
     mem_load = mem_load.index_put((new_l,), d_m, accumulate=True)
     mem_load = mem_load.index_put((cur_l,), -d_m, accumulate=True)
     return cpu_load, mem_load
+
+
+def chunk_swap_phase(
+    M, W, w_ids, assign, ids, svc_valid, moved, node_valid, svc_cpu, svc_mem, cpu_load,
+    mem_load, cap, mem_cap_s, lam, ow, pen, home, k, *, enforce_capacity, use_kernels,
+):
+    """A solver chunk's swap phase on the post-singles state, with
+    ``ops.swap.chunk_swap_kernels``' arguments: ``M`` the chunk-start mass
+    [C, N]; the chunk's rows are the services ``ids`` of the service arrays
+    (``assign`` updated in place; ``pen`` and ``home`` None without
+    move-cost pricing); rows the single phase ``moved`` sit out; the pair
+    weights are ``W[w_ids[i], w_ids[j]]``, or ``W`` itself with ``w_ids``
+    None. Under the kernel lowering on the card (``ops.swap.takes_kernels``)
+    kernels 7 and 8 decide and commit; elsewhere the plain chain: the row
+    gathers, :func:`chunk_swap`, :func:`commit_moves`, ``assign[ids] =
+    new_node``. Returns ``(cpu_load, mem_load, n_swaps)``."""
+    C = M.shape[0]
+    k = min(k, C)
+    if takes_kernels(use_kernels, M.device, C):
+        _, _, n_sw, cpu_load, mem_load = chunk_swap_kernels(
+            M, W, w_ids, assign, ids, svc_valid, moved, node_valid, svc_cpu, svc_mem, cpu_load,
+            mem_load, cap, mem_cap_s, lam, ow, pen, home, k, enforce_capacity=enforce_capacity)
+        return cpu_load, mem_load, n_sw
+    cur = assign[ids]
+    eligible = svc_valid[ids] & ~moved & node_valid[cur.long()]
+    c_cpu, c_mem = svc_cpu[ids], svc_mem[ids]
+    Wc = W if w_ids is None else W[w_ids[:, None], w_ids[None, :]].to(torch.float32)
+    new_node, swapped, n_sw = chunk_swap(
+        M, Wc, cur, eligible, c_cpu, c_mem, cpu_load, mem_load, cap, mem_cap_s, lam, ow,
+        None if pen is None else pen[ids], None if home is None else home[ids], k,
+        enforce_capacity=enforce_capacity)
+    cpu_load, mem_load = commit_moves(cpu_load, mem_load, cur, new_node, swapped, c_cpu, c_mem)
+    assign[ids] = new_node
+    return cpu_load, mem_load, n_sw
 
 
 def cols_at(M, cur):

@@ -231,7 +231,7 @@ def plain_decide(M, keys, W, w_ids, assign, ids, svc_valid, moved, node_valid, s
                  enforce_capacity):
     """Kernel 8 in plain PyTorch: the rank-count subset, the weights read
     through ``w_ids`` at the subset alone, ``swap_decisions``, the results
-    at full width, ``commit_swaps`` and the assignment's rows."""
+    at full width, ``commit_moves`` and the assignment's rows."""
     cur, eligible, pen, home = chunk_rows(assign, ids, svc_valid, moved, node_valid, pen, home)
     c_cpu, c_mem = svc_cpu[ids], svc_mem[ids]
     C = cur.shape[0]
@@ -251,7 +251,7 @@ def plain_decide(M, keys, W, w_ids, assign, ids, svc_valid, moved, node_valid, s
     swapped[s] = swapped_k
     assign[ids] = new_node
     return (new_node, swapped, n,
-            *tswap.commit_swaps(cpu_load, mem_load, cur, new_node, swapped, c_cpu, c_mem))
+            *tswap.commit_moves(cpu_load, mem_load, cur, new_node, swapped, c_cpu, c_mem))
 
 
 @pytest.mark.parametrize("form", ["dense", "sparse"])
@@ -271,7 +271,6 @@ def test_solvers_kernel_route_places_as_the_plain_route(form, swap_k, monkeypatc
     # a tight budget and a balance term: single moves stall, swaps happen
     cfg = gs.GlobalSolverConfig(sweeps=3, swap_every=1, swap_k=swap_k, move_cost=0.5,
                                 capacity_frac=0.3, balance_weight=0.5, fused_epilogue="on")
-    module = gs if form == "dense" else ss
     sgraph = sparsegraph.from_comm_graph(graph) if form == "sparse" else None
 
     def solve():
@@ -281,7 +280,7 @@ def test_solvers_kernel_route_places_as_the_plain_route(form, swap_k, monkeypatc
 
     st_p, info_p = solve()
     routed = []
-    monkeypatch.setattr(module, "takes_kernels", lambda *a: True)
+    monkeypatch.setattr(tswap, "takes_kernels", lambda *a: True)
     monkeypatch.setattr(kswap, "swap_desire", lambda *a: routed.append(1) or plain_desire(*a))
     monkeypatch.setattr(kswap, "swap_decide", plain_decide)
     st_k, info_k = solve()
@@ -297,7 +296,7 @@ def test_solvers_kernel_route_places_as_the_plain_route(form, swap_k, monkeypatc
 def plain_and_kernels(M, W, w_ids, Wc, chunk, nodes, lam, ow, k, enforce, *, seed=0,
                       moved_share=0.0, invalid_nodes=0):
     """The plain chain — the solvers' gathers, ``chunk_swap``,
-    ``commit_swaps``, ``assign[ids] = new_node`` — and kernels 7 and 8 on
+    ``commit_moves``, ``assign[ids] = new_node`` — and kernels 7 and 8 on
     one chunk, each on its own copy of the service arrays. ``chunk``:
     ``(cur, eligible, c_cpu, c_mem, pen, home)``; ``nodes``: ``(cpu_load,
     mem_load, cap, mem_cap)``."""
@@ -314,7 +313,7 @@ def plain_and_kernels(M, W, w_ids, Wc, chunk, nodes, lam, ow, k, enforce, *, see
                                             mcap, lam, ow, pen, home, k,
                                             enforce_capacity=enforce)
     assign_p[ids] = new_node
-    want = (new_node, swapped, n, *tswap.commit_swaps(cl, ml, cur, new_node, swapped, c_cpu,
+    want = (new_node, swapped, n, *tswap.commit_moves(cl, ml, cur, new_node, swapped, c_cpu,
                                                       c_mem), assign_p)
     got = (*kswap.chunk_swap_kernels(
         M, W, w_ids, assign_k, ids, svc["svc_valid"], svc["moved"], svc["node_valid"],
@@ -377,7 +376,7 @@ def test_kernels_decide_as_the_plain_chunk_swap(card, C, N, k):
 @pytest.mark.card
 @pytest.mark.parametrize("N", [3, 40, 400])
 def test_commit_is_index_puts_on_non_integer_demands(card, N):
-    """The loads kernel 8 commits are ``commit_swaps``' bit for bit on
+    """The loads kernel 8 commits are ``commit_moves``' bit for bit on
     demands and loads with full mantissas, where the order of the adds
     shows: at N = 3 each node holds about 340 of the chunk's rows (runs of
     whole passes of 32 and a rest), at N = 400 a few."""
@@ -434,18 +433,18 @@ def large_solves(form, dev, monkeypatch):
         lay = gs.dense_layout(graph.num_services, state.num_nodes, cfg, dev)
         plan = gs.draw_plans(torch.Generator().manual_seed(7), cfg.sweeps, lay.sp, lay.chunk,
                              lay.n_chunks, gs.COMPOSITION_BLOCK)
-        module, solve = gs, lambda: gs.global_assign(state, graph, None, cfg, plan=plan)
+        solve = lambda: gs.global_assign(state, graph, None, cfg, plan=plan)  # noqa: E731
     else:
         sgraph = sparsegraph.from_comm_graph(graph)
         plan = ss.draw_sparse_plans(torch.Generator().manual_seed(7), cfg.sweeps,
                                     ss.sparse_layout(sgraph, cfg))
-        module, solve = ss, lambda: ss.global_assign_sparse(state, sgraph, None, cfg, plan=plan)
+        solve = lambda: ss.global_assign_sparse(state, sgraph, None, cfg, plan=plan)  # noqa: E731
     runs = {}
     with compiled.eager():
         n0 = kswap.swap_decide.launches
         runs["kernels"] = solve()
         launched = kswap.swap_decide.launches - n0
-        monkeypatch.setattr(module, "takes_kernels", lambda *a: False)
+        monkeypatch.setattr(tswap, "takes_kernels", lambda *a: False)
         runs["plain"] = solve()
         monkeypatch.undo()
     return runs, launched
