@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("mass", "score", "admission", "sparse_mass", "mass_score", "swap")
+SOURCES = ("mass", "score", "admission", "sparse_mass", "mass_score", "swap", "pod_cost")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -46,6 +46,7 @@ _ARGTYPES = {
     "krt_swap_decide_launch": (
         [_I, _P, _I, _P, _P, _I, _L] + [_P] * 12 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P] * 6
     ),
+    "krt_pod_cross_launch": [_I] + [_P] * 5 + [_L, _L, _P, _P],
     "krt_error_string": [_I],
 }
 _RESTYPES = {"krt_error_string": ctypes.c_char_p}

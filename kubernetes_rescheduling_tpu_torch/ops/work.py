@@ -96,3 +96,12 @@ def swap_decide(C: int, N: int, k: int, w_itemsize: int) -> tuple[float, float]:
     rank = float(C * C) if k < C else 0.0
     return (rank + SWAP_OPS_PER_PAIR * k * k,
             float(k * k * (4 + w_itemsize) + C * 27 + k * 36 + C * 9 + 8 + N * 16))
+
+
+def pod_cross(E2: int, SP: int, P: int) -> tuple[float, float]:
+    """Kernel 9: an edge's slot ids and weight read and its term written (16
+    bytes), the slot offsets (8 bytes a slot) and the pods' sorted keys (8
+    bytes a pod) read once; the pair count, the difference and the weight's
+    product, three f32 operations an edge. The searches depend on the
+    placement, which the shapes do not fix: they are not counted."""
+    return 3.0 * E2, float(E2 * 16 + (SP + 1) * 8 + P * 8)

@@ -58,13 +58,14 @@ from kubernetes_rescheduling_tpu_torch.core.sparsegraph import (
     rv_weighted_edge_w,
     sparse_pair_comm_cost,
 )
-from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph, _count
+from kubernetes_rescheduling_tpu_torch.core.state import ClusterState, CommGraph
 from kubernetes_rescheduling_tpu_torch.objectives.metrics import load_std
 from kubernetes_rescheduling_tpu_torch.ops.fused_admission import (
     admission_commit,
     fused_score_admission,
     reference_score_admission,
 )
+from kubernetes_rescheduling_tpu_torch.ops.pod_cost import pod_pair_cross
 from kubernetes_rescheduling_tpu_torch.ops.sparse_mass import (
     chunk_local_slabs,
     hub_mass_plain,
@@ -201,42 +202,38 @@ def draw_sparse_plans(generator: torch.Generator, sweeps: int,
     return plans
 
 
-def sparse_pod_comm_cost(
-    state: ClusterState, sgraph: SparseCommGraph, *, edge_chunk: int = 16384
-) -> torch.Tensor:
+def pod_slots(state: ClusterState, sgraph: SparseCommGraph):
+    """Each pod's sorted-space slot (``sp`` if invalid), its node clamped
+    to [−1, N], and whether it is counted: valid AND placed on a real
+    node."""
+    SP, N = sgraph.sp, state.num_nodes
+    pod_slot = sgraph.inv[torch.clamp(state.pod_service, 0, sgraph.num_services - 1).long()]
+    slot = torch.where(state.pod_valid, pod_slot, SP)
+    node = torch.clamp(torch.where(state.pod_valid, state.pod_node, N), -1, N)
+    return slot, node, state.pod_valid & (node >= 0) & (node < N)
+
+
+def sparse_pod_comm_cost(state: ClusterState, sgraph: SparseCommGraph) -> torch.Tensor:
     """Pod-level communication cost of the ACTUAL placement (replicas may
     be split across nodes).
 
     Per sorted-space edge (s, t, w): cross-node pod pairs = ``rv_s·rv_t −
     Σ_n cnt[s,n]·cnt[t,n]``, subtracted per edge so the f32 error stays
-    per-edge small, halved because the COO list carries each edge twice,
-    scanned in edge chunks. When every service's counted pods sit on one
-    node (every solver output does) the cost is the service-level cut of
-    (first node, effective replicas); both forms are computed and the
-    branch is picked on the device, so nothing is read back."""
+    per-edge small (``ops/pod_cost.py``'s :func:`pod_pair_cross`: kernel 9
+    over the pods' run lists on the card, the count grid on the CPU),
+    summed once over the edge list and halved because the COO list carries
+    each edge twice. When every service's counted pods sit on one node
+    (every solver output does) the cost is the service-level cut of (first
+    node, effective replicas); both forms are computed and the branch is
+    picked on the device, so nothing is read back."""
     SP = sgraph.sp
     N = state.num_nodes
-    S = sgraph.num_services
-    pod_slot = sgraph.inv[torch.clamp(state.pod_service, 0, S - 1).long()]
-    slot = torch.where(state.pod_valid, pod_slot, SP)
-    node = torch.clamp(torch.where(state.pod_valid, state.pod_node, N), -1, N)
-    # pods counted by the general form: valid AND placed on a real node
-    placed = state.pod_valid & (node >= 0) & (node < N)
+    slot, node, placed = pod_slots(state, sgraph)
     nmin, rv_eff, collapsed = collapsed_placement(slot, node, placed, SP, N)
     fast = sparse_pair_comm_cost(sgraph, nmin, rv_eff)
-    flat = torch.where(placed, slot.long() * (N + 1) + node.long(), SP * (N + 1) + N)
-    cnt = _count(flat, (SP + 1) * (N + 1)).view(SP + 1, N + 1)
-    cnt = cnt[:SP, :N].to(torch.float32)
-    rv = cnt.sum(dim=1)
-    total = torch.zeros((), dtype=torch.float32, device=cnt.device)
-    E2 = sgraph.edges_src.shape[0]
-    for e0 in range(0, E2, edge_chunk):
-        s = sgraph.edges_src[e0:e0 + edge_chunk].long()
-        t = sgraph.edges_dst[e0:e0 + edge_chunk].long()
-        kept = torch.sum(cnt[s] * cnt[t], dim=1)
-        cross = torch.clamp_min(rv[s] * rv[t] - kept, 0.0)
-        total = total + torch.sum(sgraph.edges_w[e0:e0 + edge_chunk] * cross)
-    return torch.where(collapsed, fast, 0.5 * total)
+    cross = pod_pair_cross(slot, node, placed, sgraph.edges_src, sgraph.edges_dst,
+                           sgraph.edges_w, SP, N)
+    return torch.where(collapsed, fast, 0.5 * torch.sum(cross))
 
 
 def sorted_problem_arrays(state: ClusterState, sgraph: SparseCommGraph, SPX: int):

@@ -219,7 +219,7 @@ def test_wrappers_count_only_kernel_launches():
     assert ops.launch_counts() == {
         "fused_neighbor_mass": 0, "score_stage": 0, "admission_stage": 0,
         "sparse_neighbor_mass": 0, "hub_neighbor_mass": 0, "sparse_mass_score": 0,
-        "swap_desire": 0, "swap_decide": 0,
+        "swap_desire": 0, "swap_decide": 0, "pod_pair_cross": 0,
     }
 
 

@@ -169,6 +169,48 @@ def test_sparse_pod_comm_cost_matches_jax_and_dense(collapse):
     assert got == pytest.approx(float(communication_cost(t_state, t_scn.graph)), rel=1e-6)
 
 
+def split_pods(case, ps, rng, n_nodes):
+    """Pod services and nodes of a split case over pods of services ``ps``:
+    ``more_replicas_than_nodes`` deals the pods to 20 services (about 12
+    each on 8 nodes) on random nodes; ``all_unplaced`` puts every pod at
+    node −1 or ``n_nodes``; ``one_slot_many_nodes`` collapses every service
+    onto one node but service 0, which takes 40 more pods over all nodes."""
+    P = ps.size
+    nodes = rng.integers(0, n_nodes, size=P)
+    if case == "more_replicas_than_nodes":
+        return rng.integers(0, 20, size=P), nodes
+    if case == "all_unplaced":
+        return ps, np.where(rng.random(P) < 0.5, -1, n_nodes)
+    first = {}
+    nodes = np.asarray([first.setdefault(int(s), int(n)) for s, n in zip(ps, nodes)])
+    svc = ps.copy()
+    svc[:40] = 0
+    nodes[:40] = np.arange(40) % n_nodes
+    return svc, nodes
+
+
+@pytest.mark.parametrize("case", ["more_replicas_than_nodes", "all_unplaced",
+                                  "one_slot_many_nodes"])
+def test_sparse_pod_comm_cost_split_cases_match_jax_and_dense(case):
+    """The pod-level cost on split placements past the two cases above:
+    more pods a service than nodes, no pod placed, one service spread over
+    every node beside collapsed ones."""
+    kw = dict(n_pods=240, n_nodes=8, powerlaw=True, seed=11, replicas=3)
+    t_scn = ttopo.synthetic_scenario(**kw, device="cpu")
+    j_scn = jtopo.synthetic_scenario(**kw)
+    svc, nodes = split_pods(case, t_scn.state.pod_service.numpy(), np.random.default_rng(2), 8)
+    svc, nodes = svc.astype(np.int32), nodes.astype(np.int32)
+    t_state = t_scn.state.replace(pod_node=torch.as_tensor(nodes),
+                                  pod_service=torch.as_tensor(svc))
+    j_state = j_scn.state.replace(pod_node=jnp.asarray(nodes), pod_service=jnp.asarray(svc))
+    t = tsg.from_comm_graph(t_scn.graph)
+    j = jsg.from_comm_graph(j_scn.graph)
+    got = float(sparse_pod_comm_cost(t_state, t))
+    assert got == pytest.approx(float(jss.sparse_pod_comm_cost(j_state, j)), rel=1e-6)
+    assert got == pytest.approx(float(communication_cost(t_state, t_scn.graph)), rel=1e-6)
+    assert (got == 0.0) == (case == "all_unplaced")
+
+
 def test_sparse_problem_matches_jax_bench_problem():
     """``sparse_problem`` is ``bench.py``'s ``_sparse_problem`` (:602-623),
     here at 3,000 services × 64 nodes: the same state and graph."""
